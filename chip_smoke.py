@@ -4,16 +4,26 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``semanticsegmentation_tensorflow_tpu_torch/csrc``
-into ``build/kernels/``, checks each against its plain PyTorch version on the
-card at the shapes the inference path gives it, then drives that path at the
-full width of the ``fcn8s_kitti`` preset (seeded random weights, full KITTI
-resolution): ``infer_image`` on a generated PNG, the ``serve`` handler
-answering requests, and one forward at ``fcn8s_kitti_parity`` (fc 4096). It
-reads the kernels' launch counters around that run, compares the whole
-forward with the kernels against the same forward on plain PyTorch, and
-prints timings. Any failure exits non-zero. The last three lines are the
-kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+into ``build/kernels/`` and checks each against its plain PyTorch version on
+the card at the shapes its path gives it: the stage1 tail (inference and
+training forward, backward), the preprocess kernel and the overlay, with
+exact integer tie cases. Then it drives both of the port's paths at the full
+width of the ``fcn8s_kitti`` preset, each with the launch counters set to 0
+just before it and read just after:
+
+* inference (seeded random weights, full KITTI resolution): ``infer_image``
+  on a generated PNG, the ``serve`` handler answering requests, one forward
+  at ``fcn8s_kitti_parity`` (fc 4096), then the whole forward with the
+  kernels against plain PyTorch;
+* training: ``scripts/train.py`` for 3 steps on a generated synthetic KITTI
+  set with ``--pallas-preprocess``, ``--resume``, and ``infer_image`` on the
+  checkpoint; then one train step with the kernels against plain PyTorch,
+  ten steps on a fixed batch (the loss must fall), and train timings at the
+  preset and at bench.py's workload.
+
+Any failure exits non-zero. The last three lines are the kernels' JSON
+record, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -56,30 +66,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> tuple[float, int]:
+def device_ms(fn, iters: int = 20) -> tuple[float, int]:
     """Device time of one ``fn()`` in ms: the summed duration of every GPU
     op it launches (kernels, copies), from torch.profiler, mean over
     ``iters`` calls; host launch cost excluded. Also the ops per call."""
-    import warnings
-
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from profile_train import profile_device
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(), profile(
-            activities=[ProfilerActivity.CUDA]) as prof:
-        warnings.simplefilter("ignore")  # "clears events at each cycle"
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not ops:
-        raise AssertionError("the profiler saw no device op")
-    return (sum(e.self_device_time_total for e in ops) / 1e3 / iters,
-            len(ops) // iters)
+    prof = profile_device(torch, fn, iters)
+    return prof["device_ms"], prof["ops"]
 
 
 def ab_ms(plain, kernel) -> dict:
@@ -199,6 +194,196 @@ def check_overlay(torch, gen) -> dict:
             result = {"max_abs_err": float(err), "ms": t["ms"],
                       "plain_ms": t["plain_ms"]}
     return result
+
+
+TRAIN_SHAPE = (8, 320, 1152, 64)   # fcn8s_kitti batch 8, 320x1152 crops
+MEAN, STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+
+
+def tie_windows(torch, n, h, w, c, seed):
+    """Integer z1 whose 2x2 windows are permutations of tie patterns, among
+    them c = b > a ((0,1) = (1,0) > (0,0)), and a centre-tap identity k2:
+    the conv output is relu(z1) exactly, so the first-max codes are known."""
+    g = torch.Generator().manual_seed(seed)
+    pats = torch.tensor([[1, 2, 2, 0], [2, 2, 2, 2], [0, 1, 1, 1], [3, 1, 3, 0],
+                         [0, 0, 1, 2], [-1, -2, 1, 1], [1, 1, 2, 2]],
+                        dtype=torch.float32)
+    win = pats[torch.randint(0, len(pats), (n, h // 2, w // 2, c), generator=g)]
+    z1 = win.reshape(n, h // 2, w // 2, c, 2, 2).permute(0, 1, 4, 2, 5, 3)
+    k2 = torch.zeros(c, c, 3, 3)
+    k2[torch.arange(c), torch.arange(c), 1, 1] = 1.0
+    return z1.reshape(n, h, w, c), k2, torch.zeros(c)
+
+
+def int_case(torch, n, h, w, c, seed):
+    """Integer inputs with repeated kernel taps: many ties, exact sums."""
+    g = torch.Generator().manual_seed(seed)
+    z1 = torch.randint(-2, 3, (n, h, w, c), generator=g).float()
+    k2 = torch.randint(-1, 2, (c, c, 3, 3), generator=g).float()
+    k2[:, :, 1] = k2[:, :, 0]
+    return z1, k2, torch.randint(-1, 2, (c,), generator=g).float()
+
+
+def check_stage1_train(torch, gen) -> dict:
+    """Kernel A's training variant and kernel 1b (the backward) on the
+    card: the training shape, the ragged and narrow shapes of check_stage1,
+    and exact integer tie cases.
+
+    Forward: ``out`` equals the inference kernel's bit for bit; the codes
+    equal the plain first-max codes except where the two conv values of a
+    tie differ by the one bf16 ulp that check_stage1 allows (>= 99.9 %).
+
+    Backward, random cases, against the f32 reference
+    ``stage1_tail_bwd_plain`` (TF32 off) on the same (g, out, codes): both
+    route identically and sum the same bf16 products in f32, in another
+    order. dz1 is one bf16 rounding of a sum of 9*C products in both, so
+    they may differ by one bf16 ulp (<= 2^-7 |ref|) where the two f32 sums
+    straddle a rounding boundary, and near zero by the f32 order difference
+    itself; bound 2^-7 |ref| + 2^-12 max |ref|. dk2 and db2 are f32 sums of
+    up to N*H*W products; each add rounds by <= 2^-24 of the running sum,
+    over chains of ~2000 adds at the training shape (a block's 262 tiles of
+    8 mma steps, then the 88 partials; cuBLAS's own split in the
+    reference): a random walk of a few 1e-6 of the largest element, 1.3e-5
+    measured on an H100. Bound: 1e-4 max |ref|, element-wise (a kernel that
+    lost 1 % of the pixels would be off by ~10 % of an element).
+
+    Integer cases, at a shape where every block takes one tile and at one
+    where each dgrad and wgrad block walks several: every sum is exact in
+    f32, so the kernel equals the reference bit for bit (dz1, dk2, db2), and
+    at the small shape the autograd Function equals autograd through the
+    plain forward."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        Stage1Tail, stage1_tail, stage1_tail_bwd, stage1_tail_bwd_plain,
+        stage1_tail_codes_plain, stage1_tail_plain, stage1_tail_train,
+    )
+
+    def rand(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+
+    def inputs(n, h, w, c):
+        return (rand((n, h, w, c), 1.0),
+                rand((c, c, 3, 3), (1.0 / (9 * c)) ** 0.5).contiguous(
+                    memory_format=torch.channels_last),
+                rand((c,), 0.1), rand((n, h // 2, w // 2, c), 1.0))
+
+    result = {}
+    for n, h, w, c in (TRAIN_SHAPE, (3, 12, 40, 64), (1, 6, 34, 16),
+                       (1, 8, 64, 32), (2, 10, 66, 48)):
+        z1, k2, b2, g = inputs(n, h, w, c)
+        out, codes = stage1_tail_train(z1, k2, b2)
+        out_p, codes_p = stage1_tail_codes_plain(z1, k2, b2)
+        if not torch.equal(out, stage1_tail(z1, k2, b2)):
+            raise AssertionError("stage1 training forward: out differs from "
+                                 "the inference kernel")
+        agree = (codes == codes_p).float().mean().item()
+        fwd_err = (out.float() - out_p.float()).abs().max().item()
+        want = stage1_tail_bwd_plain(g, out_p, codes_p, z1, k2)
+        got = stage1_tail_bwd(g, out_p, codes_p, z1, k2)
+        errs = []
+        for name, a, b, rel, near0 in zip(("dz1", "dk2", "db2"), got, want,
+                                          (2 ** -7, 0.0, 0.0),
+                                          (2 ** -12, 1e-4, 1e-4)):
+            a, b = a.float(), b.float()
+            err = (a - b).abs()
+            bad = int((err > rel * b.abs() + near0 * b.abs().max()).sum())
+            errs.append(err.max().item())
+            if bad or not torch.isfinite(a).all():
+                raise AssertionError(f"stage1 bwd [{n},{h},{w},{c}] {name}: {bad} "
+                                     f"elements outside the bound")
+        again = stage1_tail_bwd(g, out_p, codes_p, z1, k2)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("stage1 bwd: two runs differ")
+        log(f"stage1 train [{n},{h},{w},{c}]: fwd max_abs_err {fwd_err:.6g}, codes "
+            f"agree {100 * agree:.4f} %; bwd against the f32 reference: max_abs_err"
+            f" dz1 {errs[0]:.6g} dk2 {errs[1]:.6g} db2 {errs[2]:.6g} (max |ref| "
+            f"{[round(t.abs().max().item(), 4) for t in want]}), bit-identical rerun")
+        if agree < 0.999:
+            raise AssertionError(f"stage1 codes agree on only {agree:.6f}")
+        if (n, h, w, c) == TRAIN_SHAPE:
+            result = {"max_abs_err": max(errs), "dz1_err": errs[0],
+                      "dk2_err": errs[1], "db2_err": errs[2]}
+            # plain: autograd through the plain forward in bf16 (cuDNN), the
+            # backward that packed_stage1=False trains with
+            leaves = [t.detach().clone().requires_grad_() for t in (z1, k2, b2)]
+            ref_out = stage1_tail_plain(*leaves)
+            t = ab_ms(lambda: torch.autograd.grad(ref_out, leaves, g,
+                                                  retain_graph=True),
+                      lambda: stage1_tail_bwd(g, out_p, codes_p, z1, k2))
+            show_ab(f"stage1 backward at {list(TRAIN_SHAPE)}", t)
+            result.update(ms=t["ms"], plain_ms=t["plain_ms"])
+            tf = ab_ms(lambda: stage1_tail_codes_plain(z1, k2, b2),
+                       lambda: stage1_tail_train(z1, k2, b2))
+            show_ab(f"stage1 training forward (with codes) at {list(TRAIN_SHAPE)}",
+                    tf)
+            result.update(train_fwd_ms=tf["ms"], train_fwd_plain_ms=tf["plain_ms"])
+            del leaves, ref_out
+        del z1, k2, b2, g, out, codes, out_p, codes_p, want, got, again
+
+    lib = build.lib()
+    for n, h, w, c in ((2, 16, 48, 64), (8, 64, 256, 64)):
+        tiles = n * -(-h // 4) * -(-w // 32)       # wgrad tiles of 4x32 pixels
+        parts = lib.seg_stage1_bwd_parts(n, h, w, c)
+        for case in (tie_windows, int_case):
+            z1, k2, b2 = (t.to("cuda", torch.bfloat16)
+                          for t in case(torch, n, h, w, c, 1))
+            out, codes = stage1_tail_train(z1, k2, b2)
+            out_p, codes_p = stage1_tail_codes_plain(z1, k2, b2)
+            if not (torch.equal(out, out_p) and torch.equal(codes, codes_p)):
+                raise AssertionError(f"stage1 {case.__name__}: forward not exact")
+            if case is tie_windows and not bool((codes_p == 1).any()):
+                raise AssertionError("the tie case holds no c = b > a window")
+            cot = torch.randint(-3, 4, out.shape, generator=torch.Generator()
+                                .manual_seed(2)).to("cuda", torch.bfloat16)
+            got = stage1_tail_bwd(cot, out, codes, z1, k2)
+            want = stage1_tail_bwd_plain(cot, out, codes, z1, k2)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"stage1 {case.__name__} [{n},{h},{w},{c}]: "
+                                     "kernel gradients not exact")
+            what = "the kernel against the f32 reference"
+            if n == 2:
+                leaves = [t.clone().requires_grad_() for t in (z1, k2, b2)]
+                got = torch.autograd.grad(Stage1Tail.apply(*leaves), leaves, cot)
+                want = torch.autograd.grad(stage1_tail_plain(*leaves), leaves, cot)
+                if not all(torch.equal(a.float(), b.float())
+                           for a, b in zip(got, want)):
+                    raise AssertionError(f"stage1 {case.__name__}: gradients "
+                                         "through the Function not exact")
+                what += ", and through the autograd Function"
+            log(f"stage1 {case.__name__} [{n},{h},{w},{c}] (integer, ties incl. "
+                f"c = b > a; {tiles} wgrad tiles over {parts} blocks per tap "
+                f"row): codes, out, dz1, dk2, db2 exact, {what}")
+        if n == 8 and tiles < 2 * parts:
+            raise AssertionError(f"the multi-tile case gives {tiles} wgrad tiles "
+                                 f"to {parts} blocks")
+    return result
+
+
+def check_preprocess(torch, gen) -> dict:
+    """Kernel 4 against its plain version: a [8,384,1248,3] u8 batch, mixed
+    flips and crop offsets, 320x1152 crops; the f32 bytes must be equal."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        preprocess_normalize, preprocess_normalize_plain,
+    )
+
+    n, (h, w), crop = 8, PADDED_HW, (320, 1152)
+    img = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    flip = torch.tensor([True, False] * (n // 2))
+    oy = torch.tensor([0, 64, 13, 37, 64, 1, 50, 0])
+    ox = torch.tensor([96, 0, 5, 71, 96, 0, 33, 60])
+    args = (img, flip, oy, ox, crop, MEAN, STD)
+    got, want = preprocess_normalize(*args), preprocess_normalize_plain(*args)
+    torch.cuda.synchronize()
+    if got.shape != (n, *crop, 3) or not torch.equal(got, want):
+        raise AssertionError("preprocess: kernel bytes differ from plain")
+    log(f"preprocess [{n},{h},{w},3] u8 -> [{n},{crop[0]},{crop[1]},3] f32, "
+        "mixed flips and offsets: bytes exact")
+    t = ab_ms(lambda: preprocess_normalize_plain(*args),
+              lambda: preprocess_normalize(*args))
+    show_ab(f"preprocess at [{n},{h},{w},3]", t)
+    return {"max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"]}
 
 
 def write_png(path: str, seed: int) -> None:
@@ -378,6 +563,171 @@ def check_end_to_end(torch) -> None:
         raise AssertionError("end-to-end check failed")
 
 
+def drive_training(torch, tmp: str) -> dict:
+    """The training path through the user's entry points: the port's
+    scripts/train.py on a generated synthetic KITTI set (24 images at
+    375x1242) at the fcn8s_kitti preset (batch 8, 320x1152 crops, full
+    width, 3 steps) with --pallas-preprocess, then --resume, then
+    infer_image on the checkpoint it wrote."""
+    import contextlib
+    import math
+
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import infer_image, train
+
+    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
+                                    n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=0)
+    ck = os.path.join(tmp, "ckpt")
+    argv = ["--preset", "fcn8s_kitti", "--data-dir", data, "--epochs", "1",
+            "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if train.main(argv) != 0:
+        raise AssertionError("train.main failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(os.path.join(ck, "logs", "train.jsonl")) as f:
+        epoch = [json.loads(line) for line in f][-1]
+    loss = epoch.get("epoch/loss", float("nan"))
+    if not math.isfinite(loss) or epoch.get("step") != 3:
+        raise AssertionError(f"train: loss {loss} at step {epoch.get('step')}")
+    if not os.path.exists(os.path.join(ck, "ckpt_3.pt")):
+        raise AssertionError(f"train wrote no checkpoint: {os.listdir(ck)}")
+    log(f"train.main fcn8s_kitti, 24 images, batch 8, 320x1152 crops: 3 steps, "
+        f"loss {loss:.4f}, miou {epoch.get('epoch/miou', float('nan')):.4f}, "
+        f"{wall:.1f} s wall (data decode, model build, cuDNN setup included), "
+        f"peak device memory {peak:.2f} GiB")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv[:5] + ["0"] + argv[6:] + ["--resume"])
+    print(buf.getvalue(), end="")
+    if rc != 0 or "resumed at step 3" not in buf.getvalue():
+        raise AssertionError("train --resume did not restore step 3")
+    out = os.path.join(tmp, "trained_overlay.png")
+    src = os.path.join(data, "testing", "image_2", "um_000024.png")
+    if infer_image.main(["--checkpoint-dir", ck, "--image", src, "--out", out,
+                         "--device", "cuda"]) != 0:
+        raise AssertionError("infer_image on the trained checkpoint failed")
+    ov = np.asarray(Image.open(out))
+    if ov.shape != (*IMAGE_HW, 3):
+        raise AssertionError(f"infer_image wrote {ov.shape}")
+    log(f"train --resume: restored step 3; infer_image --checkpoint-dir wrote a "
+        f"{ov.shape} overlay from the trained weights")
+    return {"train_cli_wall_s": wall, "train_cli_peak_gib": peak,
+            "train_cli_loss": loss}
+
+
+def check_train_step(torch) -> None:
+    """One fcn8s_kitti train step with the kernels (stage1 training forward
+    and backward, preprocess) against the same step on plain PyTorch
+    (packed_stage1=False: stage1 as cuDNN convs + max_pool, and the
+    preprocess kernel's plain version, bit-equal), same weights, same batch,
+    dropout 0, bf16 on the card; then ten steps on one fixed batch.
+
+    Bound: the two differ where a stage1 conv value rounds to the
+    neighbouring bf16 value (and a near-tied window routes the other way);
+    that moves a few gradient elements of stage1 and, through 13 more bf16
+    layers, the rest by a few bf16 ulps. Loss within 1e-3 relative; each
+    parameter's gradient within 5e-2 of its L2 norm; the confusion matrices
+    nearly equal (labels agree on >= 99.5 % of the valid pixels)."""
+    from functools import partial
+
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn, preprocess_normalize_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW) for _ in range(8)))
+    batch = {"image": torch.from_numpy(np.stack(imgs)).to(dev),
+             "label": torch.from_numpy(np.stack(lbls)).to(dev)}
+    crop = (320, 1152)
+
+    def state_for(packed):
+        model = build_model("fcn8s", 2, device=dev, dropout_rate=0.0,
+                            packed_stage1=packed)
+        init_params(model, torch.Generator(device=dev).manual_seed(7))
+        opt = make_optimizer("adam", model.parameters(), 1e-4)
+        return create_train_state(model, opt, make_lr_schedule(1e-4), seed=0)
+
+    kern, plain = state_for(True), state_for(False)
+    plain.model.load_state_dict(kern.model.state_dict())
+    aug_k = make_preprocess_augment_fn(MEAN, STD, crop)
+    aug_p = Augment(partial(preprocess_normalize_plain, crop_hw=crop, mean=MEAN,
+                            std=STD), crop, True)
+    out_k = make_train_step(2, augment_fn=aug_k)(kern, batch)
+    out_p = make_train_step(2, augment_fn=aug_p)(plain, batch)
+    lk, lp = out_k["loss"].item(), out_p["loss"].item()
+    worst, worst_name = 0.0, ""
+    for (name, pk), pp in zip(kern.model.named_parameters(),
+                              plain.model.parameters()):
+        rel = ((pk.grad - pp.grad).norm() / pp.grad.norm().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    cm_k, cm_p = out_k["cm"].cpu(), out_p["cm"].cpu()
+    total = cm_p.sum().item()
+    agree = 1 - (cm_k - cm_p).abs().sum().item() / (2 * total)
+    log(f"train step fcn8s_kitti, kernels vs plain: loss {lk:.6f} vs {lp:.6f} "
+        f"(rel {abs(lk - lp) / abs(lp):.3g}, bound 1e-3); worst gradient "
+        f"|dg|/|g| {worst:.4g} ({worst_name}, bound 5e-2); confusion matrices "
+        f"{cm_k.tolist()} vs {cm_p.tolist()} (>= {100 * agree:.4f} % of labels "
+        "agree, bound 99.5 %)")
+    if not (abs(lk - lp) <= 1e-3 * abs(lp) and worst <= 5e-2 and agree >= 0.995):
+        raise AssertionError("train step: kernels vs plain outside the bound")
+    del plain
+
+    fixed = aug_k(torch.Generator().manual_seed(3), batch)  # one fixed crop
+    step = make_train_step(2, with_metrics=False)
+    losses = [step(kern, fixed)["loss"].item() for _ in range(10)]
+    log(f"ten steps on one fixed batch: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
+        f"({['%.4f' % v for v in losses]})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on a fixed batch")
+
+
+def time_train(torch, smi: str, workload: str) -> dict:
+    """Steady-state train images/s, peak device memory and the device's
+    idle share at one of tools/profile_train.py's workloads (FCN-8s, uint8
+    batch on the device, Adam 1e-4, dropout 0.5, the preprocess kernel), by
+    that tool's own timing code."""
+    import math
+
+    from profile_train import WORKLOADS, show_idle, time_train, train_workload
+
+    wl = WORKLOADS[workload]
+    torch.cuda.empty_cache()
+    step = train_workload(torch, wl)
+    r = time_train(torch, step, wl["n"], iters=8)
+    del r["by_op"], step
+    torch.cuda.empty_cache()
+    log(f"train timing, {wl['what']}: {r['images_per_s']:.2f} images/s "
+        f"({r['host_ms']:.2f} ms/step host clock, mean of 8), peak device "
+        f"memory {r['peak_gib']:.2f} GiB, loss {r['loss']:.4f}; under the "
+        f"profiler: device {r['device_ms']:.2f} ms/step in {r['ops']} ops, busy "
+        f"{r['busy_ms']:.2f} ms/step, wall "
+        f"{r['profiled_wall_ms']:.2f} ms/step, idle share "
+        f"{show_idle(r['idle_share'])} | {smi}")
+    if not math.isfinite(r["loss"]):
+        raise AssertionError(f"train timing {workload}: loss {r['loss']}")
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -388,14 +738,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on the GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tools")]  # the package, profile_train
     try:
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
             argmax_colormap_overlay_cuda,
         )
+        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+            preprocess_normalize,
+        )
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-            stage1_tail,
+            stage1_tail, stage1_tail_bwd, stage1_tail_train,
         )
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from the "
@@ -425,29 +778,62 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     stage1 = check_stage1(torch, gen)
     overlay = check_overlay(torch, gen)
+    stage1_bwd = check_stage1_train(torch, gen)
+    preprocess = check_preprocess(torch, gen)
 
-    stage1_tail.launches = 0
-    argmax_colormap_overlay_cuda.launches = 0
+    counters = {"stage1_tail": stage1_tail, "stage1_tail_train": stage1_tail_train,
+                "stage1_tail_bwd": stage1_tail_bwd,
+                "preprocess_normalize": preprocess_normalize,
+                "overlay": argmax_colormap_overlay_cuda}
+
+    def drive(path, fn, *args):
+        """Run one main path with every launch counter at 0 just before it
+        and return the counts read just after."""
+        for wrapper in counters.values():
+            wrapper.launches = 0
+        result = fn(*args)
+        launches = {k: w.launches for k, w in counters.items()}
+        log(f"kernel launches on the {path} path: {launches}")
+        return result, launches
+
     with tempfile.TemporaryDirectory() as tmp:
-        times = drive_slice(torch, tmp)
-    launches = {"stage1_tail": stage1_tail.launches,
-                "overlay": argmax_colormap_overlay_cuda.launches}
-    log(f"kernel launches on the main path: {launches}")
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
-
+        times, infer_launches = drive("inference", drive_slice, torch, tmp)
+    if not (infer_launches["stage1_tail"] and infer_launches["overlay"]):
+        raise AssertionError("a kernel was not launched on the inference path: "
+                             f"{infer_launches}")
     check_end_to_end(torch)
     log("timings (s or ms as named): " + json.dumps(times))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_times, train_launches = drive("training", drive_training, torch, tmp)
+    missing = [k for k, v in train_launches.items() if not v]
+    if missing:
+        raise AssertionError(f"not launched on the training path: {missing}")
+    check_train_step(torch)
+    preset = time_train(torch, smi, "preset")
+    bench = time_train(torch, smi, "bench")
+    log("training timings: " + json.dumps(
+        dict(train_times, preset=preset, bench_workload=bench)))
 
     kernels = [
         dict(name="stage1_tail", route="cuda",
              source=f"{PKG}/csrc/stage1_tail.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:155",
-             launches=launches["stage1_tail"], **stage1),
+             launches=infer_launches["stage1_tail"]
+             + train_launches["stage1_tail_train"], **stage1),
+        dict(name="stage1_tail_bwd", route="cuda",
+             source=f"{PKG}/csrc/stage1_bwd.cu",
+             replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:271",
+             launches=train_launches["stage1_tail_bwd"],
+             **{k: stage1_bwd[k] for k in ("max_abs_err", "ms", "plain_ms")}),
+        dict(name="preprocess_normalize", route="cuda",
+             source=f"{PKG}/csrc/preprocess.cu",
+             replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/preprocess.py:40",
+             launches=train_launches["preprocess_normalize"], **preprocess),
         dict(name="argmax_colormap_overlay", route="cuda",
              source=f"{PKG}/csrc/overlay.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/overlay.py:29",
-             launches=launches["overlay"], **overlay),
+             launches=infer_launches["overlay"], **overlay),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,9 +9,10 @@ Layout and dtype policy follow the JAX package: NHWC activations at every
 public function, float32 parameters, bf16 conv inputs and weights with f32
 accumulation, logits cast to float32 at the end.
 
-The TPU's Pallas kernels on the inference path are hand-written CUDA C++ for
-Hopper (``csrc/``), built with ``nvcc`` at first use (``ops/cuda/build.py``).
-Each kernel's wrapper takes its plain PyTorch version for CPU tensors only.
+The TPU's Pallas kernels on the ported paths (inference and training) are
+hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
+use (``ops/cuda/build.py``). Each kernel's wrapper takes its plain PyTorch
+version for CPU tensors only.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
-// VGG stage1 tail, forward: relu -> 3x3 SAME conv -> 2x2/2 max pool -> +b2 -> relu.
+// VGG stage1 tail, forward: relu -> 3x3 SAME conv -> 2x2/2 max pool -> +b2 -> relu,
+// and in training also the 2-bit routing codes of the pool.
 //
 // Replaces: semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:_fwd_kernel
-// (FCN mode, single device, b1 already added to z1 by the caller).
+// (FCN mode, single device, b1 already added to z1 by the caller), including
+// its `codes` output.
 //
 // Contract (per image n, pooled pixel (oy, ox), channel c):
 //   y      = relu(z1)                     zero outside the image (SAME pad)
@@ -9,34 +11,33 @@
 //            accumulated in f32, then rounded to bf16      (stage1.py:231)
 //   m      = max over the 2x2 window (py, px) of those bf16 values
 //   out    = relu(bf16(m + b2[c]))                           (stage1.py:259)
+//   codes  = 2*py + px of the FIRST window element equal to m, in (py, px)
+//            row-major order, on the bf16 values              (stage1.py:252-257)
 // The halo is zero AFTER the relu: out-of-image pixels contribute 0, never
-// relu(b1) (stage1.py:203-216). The routing codes the TPU kernel also writes
-// serve only its backward and are not produced here.
+// relu(b1) (stage1.py:203-216). The inference launch (codes == nullptr)
+// writes no codes.
 //
-// What bounds it on the H100: the math. At the main-path shape
+// What bounds it on the H100: the math. At the inference shape
 // (1x384x1248x64) the conv is 17.7 G multiply-adds, 35.3 GFLOP, against
 // ~61 MB read and ~15 MB written (~465 FLOP/byte, above the bf16 ridge of
 // ~295): ~36 us at the dense bf16 peak (989 TFLOP/s) against ~23 us for the
-// bytes at 3.35 TB/s. The plain PyTorch version also moves far more bytes:
-// it writes the full-resolution conv output (61 MB) and reads it back for the
-// pool, then again for the bias and relu.
+// bytes at 3.35 TB/s. The codes add 1/4 of the output's bytes. The plain
+// PyTorch version also moves far more bytes: it writes the full-resolution
+// conv output (61 MB) and reads it back for the pool, then again for the
+// bias and relu.
 //
 // Design: an implicit GEMM (M = conv pixels, N = C, K = 9*C) on bf16
-// mma.sync m16n8k16 with f32 accumulators, operands fed by ldmatrix.
+// mma.sync m16n8k16 with f32 accumulators, operands fed by ldmatrix
+// (stage1_mma.cuh).
 //  * Persistent blocks, two per SM: each stages the whole 3x3xCxC weight
 //    tensor in shared memory once, then walks output tiles of 2 pooled rows
 //    x 16 pooled columns (4 x 32 conv pixels).
 //  * Per tile the relu'd (4+2) x (32+2) x C input window, halo zero-filled,
-//    is staged in shared memory and read by all nine taps. Pixel and weight
-//    rows are padded by 8 channels (144 B for C=64), so the 8 row addresses
-//    of every ldmatrix fall in distinct banks.
-//  * Warp w owns pooled row (w & 1), conv columns 16*((w >> 1) & 1)..+16 and
-//    output channels C/2*(w >> 2)..+C/2: two 16-pixel M fragments (the two
-//    conv rows of one pooled row) by C/16 n8 fragments.
-//  * Epilogue in registers: the two conv rows sit in one thread (vertical
-//    max), horizontal neighbours are 4 lanes apart (one shuffle); then the
-//    bf16 bias add, relu and a 4-byte store. The full-resolution conv output
-//    never leaves the registers.
+//    is staged in shared memory and read by all nine taps.
+//  * Epilogue in registers: the two conv rows of a pooled row sit in one
+//    thread, horizontal neighbours are 4 lanes apart (one shuffle each);
+//    then the bf16 bias add, relu and a 4-byte store (and a 2-byte store of
+//    two codes). The full-resolution conv output never leaves the registers.
 // Loads are synchronous (the second block on the SM hides them). Since the
 // math bounds it, the next step is wgmma (Hopper's warpgroup MMA; mma.sync
 // does not reach the dense peak on sm_90), with TMA feeding it; both are
@@ -46,81 +47,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stage1_mma.cuh"
+
 namespace {
 
-constexpr int kPoolRows = 2;                 // pooled rows per tile
-constexpr int kPoolCols = 16;                // pooled columns per tile
-constexpr int kTileRows = 2 * kPoolRows + 2; // conv rows + 1-row halo each side
-constexpr int kTileCols = 2 * kPoolCols + 2; // conv cols + 1-col halo each side
-constexpr int kThreads = 256;                // 8 warps
-constexpr int kPad = 8;                      // bf16 padding per smem row
-constexpr int kBlocksPerSm = 2;
+using namespace stage1;
 
-__host__ __device__ constexpr int row_stride(int c) { return c + kPad; }
-
-__host__ __device__ constexpr size_t weight_elems(int c) {
-  return (size_t)9 * c * row_stride(c);
-}
-
-__host__ __device__ constexpr size_t smem_bytes(int c) {
-  return (weight_elems(c) + (size_t)kTileRows * kTileCols * row_stride(c)) *
-         sizeof(__nv_bfloat16);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a (16x16, row-major) * b (16x8, col-major); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <int C>
+template <int C, bool kCodes>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
                    const __nv_bfloat16* __restrict__ w,   // [Cout][3][3][Cin]
                    const __nv_bfloat16* __restrict__ b2,  // [C]
                    __nv_bfloat16* __restrict__ out,       // [N][H/2][W/2][C]
+                   uint8_t* __restrict__ codes,           // [N][H/2][W/2][C]
                    int n_img, int H, int W) {
   constexpr int RS = row_stride(C);
   constexpr int NB = C / 16;          // n8 fragments per warp (C/2 channels)
-  constexpr int KS = C / 16;          // k16 steps per tap
   constexpr int CH = C / 8;           // 16-byte chunks per pixel
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [9][C][RS]
   __nv_bfloat16* tile = ws + weight_elems(C);                  // [6][34][RS]
 
-  // weights -> shared memory, once per block, [Cout][3][3][Cin] -> [9][Cout][RS]
-  for (int i = threadIdx.x; i < 9 * C * CH; i += kThreads) {
-    const int ch = i % CH, row = i / CH;  // row = cout * 9 + tap
-    const int cout = row / 9, tap = row % 9;
-    *reinterpret_cast<uint4*>(ws + (tap * C + cout) * RS + ch * 8) =
-        *reinterpret_cast<const uint4*>(w + (size_t)row * C + ch * 8);
-  }
+  stage_weights<C>(ws, w);
 
   const int Ho = H / 2, Wo = W / 2;
   const int tiles_x = (Wo + kPoolCols - 1) / kPoolCols;
@@ -131,9 +79,6 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
   const int pr = warp & 1;                 // pooled row within the tile
   const int cs = ((warp >> 1) & 1) * 16;   // first conv column of the warp
   const int nbase = (warp >> 2) * (C / 2); // first output channel of the warp
-  // ldmatrix row addresses of this lane
-  const int a_pix = lane & 15, a_k = (lane >> 4) * 8;
-  const int b_n = (lane & 7) + ((lane >> 4) << 3), b_k = ((lane >> 3) & 1) * 8;
   const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.f);
 
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -160,48 +105,11 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
     __syncthreads();
 
     float acc[2][NB][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[m][j][q] = 0.f;
-
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const __nv_bfloat16* wt = ws + (dy * 3 + dx) * C * RS;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t a[2][4];
-#pragma unroll
-          for (int m = 0; m < 2; ++m)  // conv row 2*pr + m reads tile row +dy
-            ldsm_x4(a[m], tile + ((2 * pr + m + dy) * kTileCols + cs + dx + a_pix) * RS +
-                              ks * 16 + a_k);
-#pragma unroll
-          for (int j = 0; j + 1 < NB; j += 2) {
-            uint32_t b[4];
-            ldsm_x4(b, wt + (nbase + j * 8 + b_n) * RS + ks * 16 + b_k);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) {
-              mma_bf16(acc[m][j], a[m], b[0], b[1]);
-              mma_bf16(acc[m][j + 1], a[m], b[2], b[3]);
-            }
-          }
-          if constexpr (NB % 2) {
-            uint32_t b0, b1;
-            ldsm_x2(b0, b1, wt + (nbase + (NB - 1) * 8 + (lane & 7)) * RS +
-                                ks * 16 + b_k);
-#pragma unroll
-            for (int m = 0; m < 2; ++m) mma_bf16(acc[m][NB - 1], a[m], b0, b1);
-          }
-        }
-      }
-    }
+    conv_tile<C>(tile, ws, acc, pr, cs, nbase, lane);
 
     // epilogue: thread holds conv pixels g and g+8 (g = lane/4) of both conv
-    // rows, channels nbase + 8j + 2*(lane%4) + {0,1}
+    // rows, channels nbase + 8j + 2*(lane%4) + {0,1}; the storing thread
+    // (g even) holds window column 0, its neighbour g+1 (lane+4) column 1
     const int g = lane >> 2;
     const int oy = pr0 + pr;
     const int ox = pc0 + (cs + g) / 2;       // pooled column of pixel g (g even)
@@ -212,68 +120,84 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
       const float bias0 = __bfloat162float(b2[c]);
       const float bias1 = __bfloat162float(b2[c + 1]);
       float v[4];
+      uint32_t code[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        v[q] = fmaxf(round_bf16(acc[0][j][q]), round_bf16(acc[1][j][q]));
-        v[q] = fmaxf(v[q], __shfl_xor_sync(0xffffffffu, v[q], 4));
+        const float a0 = round_bf16(acc[0][j][q]);  // window (0, 0)
+        const float a2 = round_bf16(acc[1][j][q]);  // window (1, 0)
+        if constexpr (kCodes) {
+          const float a1 = __shfl_xor_sync(0xffffffffu, a0, 4);  // (0, 1)
+          const float a3 = __shfl_xor_sync(0xffffffffu, a2, 4);  // (1, 1)
+          v[q] = fmaxf(fmaxf(a0, a1), fmaxf(a2, a3));
+          // first maximum in row-major window order; a max taken pairwise
+          // and then across columns would prefer (1, 0) over an equal (0, 1)
+          code[q] = a0 == v[q] ? 0u : a1 == v[q] ? 1u : a2 == v[q] ? 2u : 3u;
+        } else {
+          v[q] = fmaxf(a0, a2);
+          v[q] = fmaxf(v[q], __shfl_xor_sync(0xffffffffu, v[q], 4));
+        }
       }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {  // pixels g, g+8 -> ox, ox+4
         const int col = ox + 4 * half;
         if (store && col < Wo) {
+          const size_t o = (((size_t)n * Ho + oy) * Wo + col) * C + c;
           const float s0 = fmaxf(round_bf16(__fadd_rn(v[2 * half], bias0)), 0.f);
           const float s1 = fmaxf(round_bf16(__fadd_rn(v[2 * half + 1], bias1)), 0.f);
-          *reinterpret_cast<__nv_bfloat162*>(
-              out + (((size_t)n * Ho + oy) * Wo + col) * C + c) =
-              __floats2bfloat162_rn(s0, s1);
+          *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(s0, s1);
+          if constexpr (kCodes)
+            *reinterpret_cast<uint16_t*>(codes + o) =
+                (uint16_t)(code[2 * half] | (code[2 * half + 1] << 8));
         }
       }
     }
   }
 }
 
-template <int C>
+template <int C, bool kCodes>
 cudaError_t launch(const void* z1, const void* w, const void* b2, void* out,
-                   int n, int h, int w_, cudaStream_t stream) {
-  const size_t smem = smem_bytes(C);
+                   void* codes, int n, int h, int w_, cudaStream_t stream) {
+  const size_t smem = conv_smem_bytes(C);
+  auto kernel = stage1_tail_kernel<C, kCodes>;
   cudaError_t err = cudaFuncSetAttribute(
-      stage1_tail_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, stage1_tail_kernel<C>, kThreads, smem)) != cudaSuccess)
-    return err;
   const long long tiles = (long long)n * ((h / 2 + kPoolRows - 1) / kPoolRows) *
                           ((w_ / 2 + kPoolCols - 1) / kPoolCols);
   if (tiles == 0) return cudaSuccess;
-  const long long resident = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  const int grid = (int)(tiles < resident ? tiles : resident);
-  stage1_tail_kernel<C><<<grid, kThreads, smem, stream>>>(
+  int grid = 0;
+  if ((err = persistent_grid(kernel, kThreads, smem, tiles, &grid)) != cudaSuccess)
+    return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(z1), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(out),
-      n, h, w_);
+      static_cast<uint8_t*>(codes), n, h, w_);
   return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_c(const void* z1, const void* w, const void* b2, void* out,
+                     void* codes, int n, int h, int w_, cudaStream_t s) {
+  return codes ? launch<C, true>(z1, w, b2, out, codes, n, h, w_, s)
+               : launch<C, false>(z1, w, b2, out, codes, n, h, w_, s);
 }
 
 }  // namespace
 
 // C entry. Pointers are device pointers (z1, w and out 16-byte aligned); `w`
 // is the conv kernel as [Cout][3][3][Cin] bf16, the memory of an OIHW tensor
-// in torch.channels_last; `stream` is a cudaStream_t.
+// in torch.channels_last; `codes` is nullptr (inference) or a u8 tensor of
+// out's shape (training); `stream` is a cudaStream_t.
 // C must be 16, 32, 48 or 64. Returns a cudaError_t (0 on success).
 extern "C" int seg_stage1_tail(const void* z1, const void* w, const void* b2,
-                               void* out, int n, int h, int w_, int c,
+                               void* out, void* codes, int n, int h, int w_, int c,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 16: return (int)launch<16>(z1, w, b2, out, n, h, w_, s);
-    case 32: return (int)launch<32>(z1, w, b2, out, n, h, w_, s);
-    case 48: return (int)launch<48>(z1, w, b2, out, n, h, w_, s);
-    case 64: return (int)launch<64>(z1, w, b2, out, n, h, w_, s);
+    case 16: return (int)launch_c<16>(z1, w, b2, out, codes, n, h, w_, s);
+    case 32: return (int)launch_c<32>(z1, w, b2, out, codes, n, h, w_, s);
+    case 48: return (int)launch_c<48>(z1, w, b2, out, codes, n, h, w_, s);
+    case 64: return (int)launch_c<64>(z1, w, b2, out, codes, n, h, w_, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

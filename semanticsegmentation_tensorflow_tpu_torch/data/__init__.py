@@ -1,1 +1,22 @@
-"""Host-side data helpers of the port (image decode, normalize, palettes)."""
+"""Data layer of the port: dataset discovery, label codecs, augmentation and
+batching. The host decodes PNGs; flip, crop and normalize run on the device
+(``data.augment``, ``ops.cuda.preprocess``)."""
+
+
+def build_dataset(dataset: str, data_dir: str, image_size: tuple[int, int],
+                  split: str = "train"):
+    """Dataset factory keyed by ``DataConfig.dataset`` (the JAX package's
+    ``data.build_dataset``). KITTI road's testing split has no public GT, so
+    only ``train`` is valid; Cityscapes is not ported yet."""
+    if dataset in ("kitti_road", "synthetic"):
+        if split != "train":
+            raise ValueError(
+                f"KITTI road has no labeled {split!r} split (testing GT is "
+                "withheld by the benchmark); only 'train' is available")
+        from semanticsegmentation_tensorflow_tpu_torch.data.kitti import (
+            KittiRoadDataset,
+        )
+        return KittiRoadDataset(data_dir, image_size=image_size)
+    if dataset == "cityscapes":
+        raise NotImplementedError("the cityscapes dataset is not ported yet")
+    raise ValueError(f"unknown dataset {dataset!r}")

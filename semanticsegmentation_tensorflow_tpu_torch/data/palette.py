@@ -1,9 +1,23 @@
-"""Overlay palettes (copied from the JAX package's ``data/palette.py``; the
-ground-truth palette and label codecs come with the training path)."""
+"""RGB <-> class-id codecs for ground-truth images and the overlay palettes
+(copied from the JAX package's ``data/palette.py``).
+
+KITTI road GT (gt_image_2) encodes labels as colors: red [255,0,0] marks
+non-road background, magenta [255,0,255] the road surface, black the ignored
+"other road" area.
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+# class id -> display color (uint8 RGB). Index 0 must be background.
+KITTI_ROAD_PALETTE = np.array(
+    [
+        [255, 0, 0],    # 0: not road (KITTI GT background color)
+        [255, 0, 255],  # 1: road
+    ],
+    dtype=np.uint8,
+)
 
 # overlay colors for visualization (class 0 transparent by convention)
 KITTI_OVERLAY_PALETTE = np.array(
@@ -25,3 +39,24 @@ CITYSCAPES_PALETTE = np.array(
     ],
     dtype=np.uint8,
 )
+
+
+def encode_labels(gt_rgb: np.ndarray, palette: np.ndarray = KITTI_ROAD_PALETTE
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """RGB GT image -> (class ids [H, W] int32, valid mask [H, W] bool).
+    Pixels matching no palette color are invalid (class 0, valid=0), e.g.
+    KITTI's black "ignore" region."""
+    h, w, _ = gt_rgb.shape
+    ids = np.zeros((h, w), np.int32)
+    valid = np.zeros((h, w), bool)
+    for cid, color in enumerate(palette):
+        m = np.all(gt_rgb == color[None, None, :], axis=-1)
+        ids[m] = cid
+        valid |= m
+    return ids, valid
+
+
+def decode_labels(ids: np.ndarray, palette: np.ndarray = KITTI_ROAD_PALETTE
+                  ) -> np.ndarray:
+    """Class ids [H, W] -> RGB [H, W, 3] uint8."""
+    return palette[np.clip(ids, 0, len(palette) - 1)]

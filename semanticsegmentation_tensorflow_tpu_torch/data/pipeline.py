@@ -1,0 +1,194 @@
+"""Host batch loader with a RAM cache and a prefetch thread (counterpart of
+the JAX package's ``data/pipeline.py``).
+
+Decoded uint8 examples are cached in RAM (LRU under a byte cap); batches are
+shuffled with a seeded numpy RNG, edge-padded to the model's stride with
+``valid=0`` on the pad, and stacked as uint8 (normalization happens on the
+device, see ``data.augment``). A thread assembles host batches into pinned
+memory; the device copy of the next batch is queued on a side stream while
+the current one trains.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import OrderedDict
+from typing import Iterator
+
+import numpy as np
+import torch
+
+
+class BatchLoader:
+    """Shuffled, padded, prefetched uint8 batches from a KITTI-style dataset
+    on an explicit ``device``.
+
+    Spatial dims are edge-padded up to ``pad_multiple``; padded pixels get
+    valid=0 so they are invisible to loss and metrics. ``drop_remainder=
+    False`` wrap-pads the last batch and marks the repeated examples
+    entirely invalid. Data-parallel slicing (``mesh``) is not ported yet.
+    """
+
+    DEFAULT_CACHE_BYTES = 2 << 30
+
+    def __init__(self, dataset, batch_size: int, pad_multiple: int = 32,
+                 seed: int = 0, *, device, drop_remainder: bool = True,
+                 cache: bool = True, cache_bytes: int | None = None,
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("BatchLoader(mesh=...): data-parallel "
+                                      "loading is not ported yet")
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.pad_multiple = pad_multiple
+        self.device = torch.device(device)
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.default_rng(seed)
+        self._cache: OrderedDict | None = OrderedDict() if cache else None
+        self._cache_bytes = (self.DEFAULT_CACHE_BYTES if cache_bytes is None
+                             else int(cache_bytes))
+        self._cache_used = 0
+
+    # -- host-side example assembly -------------------------------------
+    @staticmethod
+    def _example_nbytes(ex: tuple) -> int:
+        return sum(int(a.nbytes) for a in ex)
+
+    def _get(self, path: str):
+        if self._cache is not None and path in self._cache:
+            self._cache.move_to_end(path)  # LRU: recent at the end
+            return self._cache[path]
+        ex = self.ds.load_example(path)
+        if self._cache is not None:
+            size = self._example_nbytes(ex)
+            if size <= self._cache_bytes:  # never admit > the whole budget
+                self._cache[path] = ex
+                self._cache_used += size
+                while self._cache_used > self._cache_bytes:
+                    _, old = self._cache.popitem(last=False)
+                    self._cache_used -= self._example_nbytes(old)
+        return ex
+
+    def _pad(self, img, lbl, val):
+        m = self.pad_multiple
+        h, w = lbl.shape
+        ph, pw = (-h) % m, (-w) % m
+        if ph or pw:
+            img = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="edge")
+            lbl = np.pad(lbl, ((0, ph), (0, pw)))
+            val = np.pad(val, ((0, ph), (0, pw)))  # padded -> invalid
+        return img, lbl, val
+
+    def _stack(self, paths: list[str]) -> dict[str, np.ndarray]:
+        imgs, lbls, vals = [], [], []
+        for p in paths:
+            i, l, v = self._pad(*self._get(p))
+            imgs.append(i); lbls.append(l); vals.append(v)
+        return {"image": np.stack(imgs), "label": np.stack(lbls),
+                "valid": np.stack(vals)}
+
+    def _host_epoch(self) -> Iterator[dict[str, np.ndarray]]:
+        paths = list(self.ds.train_images)
+        self._rng.shuffle(paths)
+        bs = self.batch_size
+        for i in range(0, len(paths), bs):
+            chunk = paths[i:i + bs]
+            n_real = len(chunk)
+            if n_real < bs:
+                if self.drop_remainder:
+                    break
+                # wrap-pad to keep shapes static, but mark the duplicated
+                # examples entirely invalid so loss/metrics never count them
+                chunk = chunk + paths[: bs - n_real]
+            batch = self._stack(chunk)
+            if n_real < bs:
+                batch["valid"] &= ~(np.arange(bs) >= n_real)[:, None, None]
+            yield batch
+
+    # -- device staging, one batch ahead ---------------------------------
+    def _pinned(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        out = {k: torch.from_numpy(v) for k, v in batch.items()}
+        if self.device.type == "cuda":
+            out = {k: v.pin_memory() for k, v in out.items()}
+        return out
+
+    def epoch(self) -> Iterator[dict[str, torch.Tensor]]:
+        """Yields batches on ``self.device``: image u8 [N,H,W,3], label
+        int32 [N,H,W], valid bool [N,H,W]. A producer thread decodes and
+        pins; the copy of batch i+1 is queued (on a side stream, on CUDA)
+        before batch i is handed out."""
+        q: queue.Queue = queue.Queue(maxsize=2)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """False once the consumer has gone (it stops reading)."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            # failures (corrupt PNG, missing GT) reach the consumer instead
+            # of silently ending the epoch early
+            try:
+                for b in self._host_epoch():
+                    if not put(self._pinned(b)):
+                        return
+            except BaseException as e:  # noqa: BLE001 - re-raised in consumer
+                put(e)
+            else:
+                put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        copy_stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+
+        def fetch():
+            b = q.get()
+            if b is None or isinstance(b, BaseException):
+                return b
+            if copy_stream is None:
+                return {k: v.to(self.device) for k, v in b.items()}
+            with torch.cuda.stream(copy_stream):
+                return {k: v.to(self.device, non_blocking=True)
+                        for k, v in b.items()}
+
+        try:
+            nxt = fetch()
+            while True:
+                cur = nxt
+                if isinstance(cur, BaseException):
+                    raise cur
+                if cur is None:
+                    return
+                if copy_stream is not None:
+                    main = torch.cuda.current_stream(self.device)
+                    main.wait_stream(copy_stream)
+                    for v in cur.values():
+                        v.record_stream(main)
+                nxt = fetch()
+                yield cur
+        finally:
+            stop.set()
+            t.join(timeout=30)
+
+    def steps_per_epoch(self) -> int:
+        n = len(self.ds.train_images)
+        return (n // self.batch_size if self.drop_remainder
+                else -(-n // self.batch_size))
+
+
+def class_pixel_counts(dataset, num_classes: int) -> np.ndarray:
+    """[C] labeled-pixel counts over the train split (ignore pixels
+    excluded): the input to ``train.loss.median_frequency_weights``."""
+    counts = np.zeros(num_classes, np.int64)
+    for path in dataset.train_images:
+        _, ids, valid = dataset.load_example(path)
+        counts += np.bincount(ids[valid].ravel(),
+                              minlength=num_classes)[:num_classes]
+    return counts

@@ -121,6 +121,23 @@ def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
     return torch.relu(z + bias.to(dtype))
 
 
+def dropout(x: torch.Tensor, rate: float, *, training: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(bernoulli(1 - rate), x / (1 - rate), 0)``
+    in x's dtype, the mask drawn from ``generator`` (on x's device). The
+    identity in eval or at rate 0; in training with rate > 0 it needs a
+    generator (it never draws from the global one)."""
+    if not training or rate == 0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit generator "
+                         "(model(x, generator=g))")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init mirroring flax's distributions, in module order, from an
     explicit generator. Returns ``module``."""

@@ -74,8 +74,10 @@ class FCN8s(nn.Module):
         self.up2_fuse4 = ConvTranspose(nc, nc, 2, **kw)
         self.up8_final = ConvTranspose(nc, nc, 8, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ends = self.vgg16(x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the dropout masks' source in ``train()`` mode."""
+        ends = self.vgg16(x, generator)
         s7 = self.score_conv7(ends["conv7"])              # /32
         if self.variant == 32:
             return self.up32_final(s7).float()            # /1

@@ -1,6 +1,8 @@
 """VGG16 feature extractor (counterpart of the JAX package's
 ``models/vgg16.py``): stages 1-5 with 2x2 pools, then fc6 (7x7 SAME) and
-fc7 (1x1) as convs with dropout. NHWC in, dict of NHWC endpoints out."""
+fc7 (1x1) as convs with dropout. NHWC in, dict of NHWC endpoints out.
+Dropout draws its masks from the generator passed to ``forward`` (flax's
+semantics, ``models.common.dropout``)."""
 
 from __future__ import annotations
 
@@ -8,7 +10,7 @@ import torch
 import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
-from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv
+from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, dropout
 from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import (
     PooledConvBlock, Stage1,
 )
@@ -35,10 +37,12 @@ class VGG16(nn.Module):
 
     ``packed_stage1`` (the JAX flag's name, kept so presets and
     ``--model-kw`` carry over): stage1 runs as :class:`Stage1`, conv1_1 then
-    the fused stage1-tail kernel. False runs it as a
+    the fused stage1-tail kernels (on even H and W). False runs it as a
     :class:`PooledConvBlock`, like stages 2-5 (the last bias added after the
     pool, bit-exact). Same params either way. ``deferred_pool_bias`` is
     accepted only at its JAX default (True): the port has no other form.
+    ``dropout_rate`` applies to fc6 and fc7 in ``train()`` mode, with masks
+    from the ``generator`` given to :meth:`forward`.
     """
 
     def __init__(self, fc_features: int = 1024, width_mult: float = 1.0, *,
@@ -67,15 +71,17 @@ class VGG16(nn.Module):
         self.conv6 = Conv(cin, fc_features, 7, dtype=dtype, device=device)
         self.conv7 = Conv(fc_features, fc_features, 1, dtype=dtype,
                           device=device)
-        self.drop6 = nn.Dropout(dropout_rate)
-        self.drop7 = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None
+                ) -> dict[str, torch.Tensor]:
         ends: dict[str, torch.Tensor] = {}
         for i in range(1, len(VGG16_STAGES) + 1):
             x = getattr(self, f"stage{i}")(x)
             ends[f"pool{i}"] = x
-        x = self.drop6(torch.relu(self.conv6(x)))
-        x = self.drop7(torch.relu(self.conv7(x)))
+        drop = dict(training=self.training, generator=generator)
+        x = dropout(torch.relu(self.conv6(x)), self.dropout_rate, **drop)
+        x = dropout(torch.relu(self.conv7(x)), self.dropout_rate, **drop)
         ends["conv7"] = x
         return ends

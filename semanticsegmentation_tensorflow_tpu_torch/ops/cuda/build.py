@@ -4,7 +4,8 @@ All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
 a plain C interface, loaded with ``ctypes`` (no PyTorch headers: seconds to
 build instead of minutes). The build happens at first use, never at import,
 into ``build/kernels/`` at the repository root (gitignored). The file name
-carries a hash of the sources and flags, so editing a kernel rebuilds it.
+carries a hash of the sources, their headers (``csrc/*.cuh``) and the flags,
+so editing a kernel rebuilds it.
 """
 
 from __future__ import annotations
@@ -31,7 +32,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "seg_stage1_tail": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "seg_stage1_tail": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "seg_stage1_bwd_parts": ((_I, _I, _I, _I), _I),
+    "seg_stage1_tail_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
+                             _I, _I, _P), _I),
+    "seg_preprocess": ((_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                        _P), _I),
     "seg_error_string": ((_I,), ctypes.c_char_p),
     "seg_overlay": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                      _P), _I),
@@ -56,7 +62,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libseg_kernels_{h.hexdigest()[:16]}.so"

@@ -4,20 +4,23 @@
 On the TPU, stage1 packed width pairs into the 128-lane channel dim. That is
 a lane trick of the TPU and is not carried over: on the H100, :class:`Stage1`
 runs conv1_1 with cuDNN, adds b1, and hands the NHWC result to the fused
-stage1-tail kernel (``ops/cuda/stage1.py``). Parameter names and shapes are
-the JAX package's (``stage1/conv0``, ``stage1/conv1``).
+stage1-tail kernels (``ops/cuda/stage1.py``): the inference kernel, or, when
+autograd records, the training forward and its backward (``Stage1Tail``).
+Parameter names and shapes are the JAX package's (``stage1/conv0``,
+``stage1/conv1``).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
     ConvBlock, conv3x3_bias_relu,
 )
-from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import stage1_tail
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+    Stage1Tail, stage1_tail,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.pool import max_pool
 
 
@@ -38,14 +41,17 @@ class PooledConvBlock(ConvBlock):
         return torch.relu(max_pool(z, 2) + last.bias.to(last.dtype))
 
 
-class Stage1(ConvBlock):
+class Stage1(PooledConvBlock):
     """VGG stage1: conv3x3 -> relu -> conv3x3 -> relu -> maxpool 2x2.
 
     conv1_1 (``conv0``) runs as a plain conv plus b1 in the compute dtype;
     the rest (relu, conv1_2, pool, +b2, relu) is one call of the fused
-    stage1 tail: the CUDA kernel for CUDA tensors, its plain version on the
-    CPU. Drop-in for ``ConvBlock(features, 2)`` + ``max_pool``, same params.
-    Needs even H and W."""
+    stage1 tail: the CUDA kernels for CUDA tensors, their plain versions on
+    the CPU. When autograd records, the tail is :class:`Stage1Tail` (the
+    training forward, which also writes the pool's routing codes, and the
+    backward kernel); b1 stays in conv1_1, so autograd gives db1 = sum(dz1).
+    An odd H or W runs the same params as the plain :class:`PooledConvBlock`,
+    as the JAX package's VGG16 does (``models/vgg16.py:97-98``)."""
 
     def __init__(self, in_features: int, features: int = 64, *,
                  dtype: torch.dtype = DEFAULT_DTYPE, device=None):
@@ -53,7 +59,11 @@ class Stage1(ConvBlock):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] % 2 or x.shape[2] % 2:
-            raise ValueError(f"stage1 needs even H, W; got {tuple(x.shape[1:3])}")
+            return super().forward(x)
         # NHWC-contiguous for the kernel (a no-op for channels_last output)
         z1 = self.conv0(x).contiguous()
-        return stage1_tail(z1, self.conv1.weight, self.conv1.bias)
+        k2, b2 = self.conv1.weight, self.conv1.bias
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (z1, k2, b2)):
+            return Stage1Tail.apply(z1, k2, b2)
+        return stage1_tail(z1, k2, b2)

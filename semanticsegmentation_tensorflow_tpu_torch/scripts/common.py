@@ -1,15 +1,17 @@
 """Shared CLI pieces of the port's entry points: device selection, the
-model flags, and building a Predictor from a preset plus a weights file."""
+model flags, and building a Predictor from a preset plus weights (a
+state_dict file, or the port's own training checkpoints)."""
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import torch
 
 # flags of the JAX package's CLIs that the port does not implement yet
-UNPORTED_FLAGS = ("int8", "tiled", "ema", "mesh", "artifact")
+UNPORTED_FLAGS = ("int8", "tiled", "mesh", "artifact")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -35,9 +37,13 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--alpha", type=float, default=0.5)
     p.add_argument("--device", default="cuda")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="not supported: convert an orbax checkpoint with "
-                        "tools/convert_checkpoint_to_torch.py, then pass "
-                        "--weights")
+                   help="the port's training checkpoints (the latest is "
+                        "served); an orbax checkpoint of the JAX package "
+                        "converts with tools/convert_checkpoint_to_torch.py "
+                        "to a --weights file")
+    p.add_argument("--ema", action="store_true",
+                   help="serve the EMA params of --checkpoint-dir (trained "
+                        "with --ema-decay)")
     for flag in UNPORTED_FLAGS:
         p.add_argument(f"--{flag}", default=None, nargs="?", const=True,
                        help="not ported yet (raises)")
@@ -48,16 +54,34 @@ def check_unported(args: argparse.Namespace) -> None:
     if used:
         raise NotImplementedError(
             f"not ported yet: {', '.join('--' + f for f in used)}")
-    if args.checkpoint_dir is not None:
+    if args.checkpoint_dir is not None and args.weights:
+        raise ValueError("pass --weights or --checkpoint-dir, not both")
+    if args.ema and args.checkpoint_dir is None:
+        raise ValueError("--ema reads the EMA params of --checkpoint-dir")
+
+
+def load_checkpoint_weights(directory: str, use_ema: bool,
+                            device) -> dict[str, torch.Tensor]:
+    """The latest port checkpoint's model state_dict (EMA params with
+    ``use_ema``). A directory of the JAX package's orbax checkpoints (step
+    subdirectories) raises with the conversion hint."""
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
+        checkpoint_steps, load_weights,
+    )
+
+    if not checkpoint_steps(directory) and os.path.isdir(directory) and any(
+            e.isdigit() for e in os.listdir(directory)):
         raise NotImplementedError(
-            "--checkpoint-dir: the port reads a state_dict; convert the "
-            "checkpoint with tools/convert_checkpoint_to_torch.py and pass "
-            "--weights")
+            f"--checkpoint-dir {directory}: an orbax checkpoint of the JAX "
+            "package; convert it with tools/convert_checkpoint_to_torch.py "
+            "and pass --weights")
+    return load_weights(directory, use_ema=use_ema, map_location=device)
 
 
 def build_predictor(args: argparse.Namespace, device: torch.device):
-    """Preset + ``--model-kw`` -> model on ``device`` with ``--weights`` (or
-    seeded random init, with a warning) -> Predictor."""
+    """Preset + ``--model-kw`` -> model on ``device`` with ``--weights`` or
+    ``--checkpoint-dir`` (or seeded random init, with a warning) ->
+    Predictor."""
     from semanticsegmentation_tensorflow_tpu_torch.config import (
         get_preset, parse_model_kw,
     )
@@ -72,7 +96,10 @@ def build_predictor(args: argparse.Namespace, device: torch.device):
     model_kwargs = dict(cfg.model_kwargs, **parse_model_kw(args.model_kw))
     model = build_model(args.model or cfg.model, num_classes=dc.num_classes,
                         device=device, **model_kwargs)
-    if args.weights:
+    if args.checkpoint_dir is not None:
+        model.load_state_dict(load_checkpoint_weights(
+            args.checkpoint_dir, args.ema, device), strict=True)
+    elif args.weights:
         state = torch.load(args.weights, map_location=device,
                            weights_only=True)
         model.load_state_dict(state, strict=True)

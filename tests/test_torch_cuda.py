@@ -17,17 +17,23 @@ from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
     argmax_colormap_overlay_cuda, argmax_colormap_overlay_plain,
 )
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+    preprocess_normalize, preprocess_normalize_plain,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-    stage1_tail, stage1_tail_plain,
+    Stage1Tail, stage1_tail, stage1_tail_bwd, stage1_tail_bwd_plain,
+    stage1_tail_codes_plain, stage1_tail_plain, stage1_tail_train,
 )
 
 pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
-def gen():
+def gen(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    # the f32 references stay f32 on the card
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -107,3 +113,100 @@ def test_predictor_runs_both_kernels_on_card(gen):
     _, want_lab = Predictor(cpu_model, (40, 70), device="cpu")(img)
     assert ov.shape == (2, 40, 70, 3) and lab.shape == (2, 40, 70)
     assert (lab == want_lab).mean() >= 0.99
+
+
+def _tie_windows(n, h, w, c, seed):
+    """z1 whose 2x2 windows are permutations of tie patterns, among them
+    c = b > a ((0,1) and (1,0) equal maxima above (0,0)), with a centre-tap
+    identity k2 so the conv output is relu(z1) exactly."""
+    g = torch.Generator().manual_seed(seed)
+    pats = torch.tensor([[1, 2, 2, 0], [2, 2, 2, 2], [0, 1, 1, 1], [3, 1, 3, 0],
+                         [0, 0, 0, 0], [-1, -2, 1, 1], [1, 1, 2, 2]],
+                        dtype=torch.float32)
+    pick = torch.randint(0, len(pats), (n, h // 2, w // 2, c), generator=g)
+    win = pats[pick].reshape(n, h // 2, w // 2, c, 2, 2)
+    z1 = win.permute(0, 1, 4, 2, 5, 3).reshape(n, h, w, c)
+    k2 = torch.zeros(c, c, 3, 3)
+    k2[torch.arange(c), torch.arange(c), 1, 1] = 1.0
+    return z1, k2, torch.zeros(c)
+
+
+def _int_case(n, h, w, c, seed):
+    g = torch.Generator().manual_seed(seed)
+    z1 = torch.randint(-2, 3, (n, h, w, c), generator=g).float()
+    k2 = torch.randint(-1, 2, (c, c, 3, 3), generator=g).float()
+    k2[:, :, 1] = k2[:, :, 0]          # repeated taps -> many pooling ties
+    return z1, k2, torch.randint(-1, 2, (c,), generator=g).float()
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 40, 64), (8, 64, 256, 64)])
+@pytest.mark.parametrize("case", [_tie_windows, _int_case])
+def test_stage1_train_and_bwd_exact_with_ties_on_card(gen, case, shape):
+    """Integer inputs: every sum is exact in f32, so the codes (first
+    maximum in row-major window order, c = b > a included) and the kernel's
+    dz1, dk2 and db2 equal the f32 plain versions bit for bit: at a shape
+    where every backward block takes one tile and at one where each walks
+    several. At the small shape the autograd Function also equals autograd
+    through the plain forward."""
+    z1, k2, b2 = (t.to("cuda", torch.bfloat16) for t in case(*shape, 1))
+    out, codes = stage1_tail_train(z1, k2, b2)
+    want_out, want_codes = stage1_tail_codes_plain(z1, k2, b2)
+    assert torch.equal(out, want_out) and torch.equal(codes, want_codes)
+    if case is _tie_windows:
+        assert int((want_codes == 1).sum()) > 0  # c = b > a picks b
+    cot = torch.randint(-3, 4, out.shape, generator=torch.Generator().manual_seed(2)
+                        ).to("cuda", torch.bfloat16)
+    got = stage1_tail_bwd(cot, out, codes, z1, k2)
+    want = stage1_tail_bwd_plain(cot, out, codes, z1, k2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if shape[0] == 2:
+        leaves = [t.clone().requires_grad_() for t in (z1, k2, b2)]
+        got = torch.autograd.grad(Stage1Tail.apply(*leaves), leaves, cot)
+        want = torch.autograd.grad(stage1_tail_plain(*leaves), leaves, cot)
+        for a, b in zip(got, want):
+            assert torch.equal(a.float(), b.float())
+
+
+@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (1, 6, 34, 16),
+                                   (1, 8, 64, 32), (2, 10, 66, 48)])
+def test_stage1_bwd_kernel_matches_plain_on_card(gen, shape):
+    """The backward kernel against its f32 plain version on the same
+    (g, out, codes): the same bf16 products summed in f32 in another order.
+    dz1, one bf16 rounding in both: one ulp (2^-7 |ref|) where the sums
+    straddle a rounding boundary, plus the order difference near zero
+    (2^-12 of the scale). dk2 and db2: f32 sums of up to N*H*W products,
+    whose order differences random-walk to a few 1e-6 of the scale (1.3e-5
+    at chip_smoke's training shape); bound 1e-4 of the scale."""
+    n, h, w, c = shape
+    z1 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    k2 = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+          / (9 * c) ** 0.5).bfloat16()
+    b2 = (torch.randn((c,), generator=gen, device="cuda") / 10).bfloat16()
+    g = torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda").bfloat16()
+    out, codes = stage1_tail_codes_plain(z1, k2, b2)
+    before = stage1_tail_bwd.launches
+    got = stage1_tail_bwd(g, out, codes, z1, k2)
+    assert stage1_tail_bwd.launches == before + 1
+    want = stage1_tail_bwd_plain(g, out, codes, z1, k2)
+    for a, ref, rel, near0 in zip(got, want, (2 ** -7, 0, 0), (2 ** -12, 1e-4, 1e-4)):
+        a, ref = a.float(), ref.float()
+        scale = ref.abs().max().item()
+        assert bool(((a - ref).abs() <= rel * ref.abs() + near0 * scale).all())
+    again = stage1_tail_bwd(g, out, codes, z1, k2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_preprocess_kernel_bytes_equal_plain_on_card(gen):
+    """Mixed flips and offsets; the f32 output equals the plain version bit
+    for bit (same f32 reciprocal, no FMA)."""
+    img = torch.randint(0, 256, (4, 40, 72, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    flip = torch.tensor([True, False, True, False])
+    oy, ox = torch.tensor([0, 8, 3, 5]), torch.tensor([0, 40, 7, 1])
+    mean, std = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+    before = preprocess_normalize.launches
+    got = preprocess_normalize(img, flip, oy, ox, (32, 32), mean, std)
+    assert preprocess_normalize.launches == before + 1
+    want = preprocess_normalize_plain(img, flip, oy, ox, (32, 32), mean, std)
+    assert got.shape == (4, 32, 32, 3) and torch.equal(got, want)

@@ -176,14 +176,18 @@ def test_infer_image_cli_with_weights_file(tmp_path):
     (["--device", "cpu", "--tiled"], NotImplementedError),
     (["--device", "cpu", "--checkpoint-dir", "ckpt"], NotImplementedError),
 ])
-def test_cli_guards(entry, extra, err, monkeypatch):
+def test_cli_guards(entry, extra, err, monkeypatch, tmp_path):
     """--device cuda raises when no card is present (never drops to the
-    CPU); unported flags raise before any model is built."""
+    CPU); unported flags raise before any model is built; a --checkpoint-dir
+    of the JAX package's orbax checkpoints (step subdirectories) raises with
+    the conversion hint."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import (
         infer_image, serve,
     )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "ckpt" / "1").mkdir(parents=True)
     argv = extra + (["--image", "x.png"] if entry == "infer_image" else [])
     fn = infer_image.main if entry == "infer_image" else serve.make_server
     with pytest.raises(err):

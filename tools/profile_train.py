@@ -1,0 +1,280 @@
+#!/usr/bin/env python3
+"""Where the time of the port's training step goes, on one CUDA card.
+
+    python tools/profile_train.py [--iters 5] [--top 15] \
+        [--out chiprun_out/profile_train.json]
+
+Two workloads, each with seeded random weights and a uint8 batch resident
+on the card, Adam 1e-4, dropout 0.5:
+
+- ``preset``: fcn8s_kitti (fc 1024), batch 8 of 384x1248, 320x1152 crops,
+  train-time confusion matrix on (what ``scripts/train.py`` runs);
+- ``bench``: bench.py's workload (fc 4096, batch 16, 384x1248, flip only,
+  loss only).
+
+For each, two builds of the same weights in turns kernel, plain, plain,
+kernel: "kernel" (the stage1 training forward and backward kernels and the
+preprocess kernel) and "plain" (stage1 as cuDNN convs and a max pool, the
+preprocess kernel's plain version). It prints the host ms per step (mean of
+``--iters``, after two warm-up steps), then, from one run of ``--iters``
+steps under torch.profiler, the device ms (summed over ops) and ops per
+step, the device's busy ms (the union of the ops' intervals), the wall per
+step of that same run and the idle share (1 - busy / wall); then the
+kernel build's device time by op name, largest first, by group
+(convolutions and GEMMs, the port's kernels, the optimizer, the rest), and
+the device time of each conv op's kernels with the op's input shapes
+(which conv takes the time). The same numbers go to ``--out`` as JSON.
+Imports nothing of JAX.
+
+``train_workload`` and ``time_train`` are also what ``chip_smoke.py``
+times training with.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from functools import partial
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+MEAN, STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+WORKLOADS = {
+    "preset": dict(fc=1024, n=8, crop=(320, 1152), metrics=True,
+                   what="fcn8s_kitti preset (fc 1024, batch 8, 384x1248 -> "
+                        "320x1152 crops, metrics on)"),
+    "bench": dict(fc=4096, n=16, crop=None, metrics=False,
+                  what="bench.py workload (fc 4096, batch 16, 384x1248, flip "
+                       "only, loss only)"),
+}
+
+
+def busy_ms(intervals: list[tuple[float, float]]) -> float:
+    """The length of the union of ``(start, end)`` intervals: the time at
+    least one of them was running."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def profile_device(torch, fn, iters: int) -> dict:
+    """``fn()`` ``iters`` times under torch.profiler, after one warm-up
+    call. Per call: ``device_ms``, the summed durations of every GPU op
+    (kernels, copies); ``busy_ms``, the time at least one of them ran (less
+    than the sum where ops overlap); ``ops``; ``by_op``, device ms by op
+    name; and ``wall_ms``, the host clock over the same profiled calls,
+    ending in a synchronize."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("ignore")  # "clears events at each cycle"
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    by_op: dict[str, float] = defaultdict(float)
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_op[e.name] += e.self_device_time_total / 1e3 / iters
+            spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        raise AssertionError("the profiler saw no device op")
+    return {"device_ms": sum(by_op.values()),
+            "busy_ms": busy_ms(spans) / 1e3 / iters, "ops": len(spans) // iters,
+            "by_op": dict(by_op), "wall_ms": wall}
+
+
+def idle_share(busy_ms: float, wall_ms: float) -> float | None:
+    """1 - busy / wall of one profiled run; None (unresolved) where the
+    device's busy time exceeds the wall, which a clock mismatch between the
+    two would make."""
+    return None if busy_ms > wall_ms else 1 - busy_ms / wall_ms
+
+
+def show_idle(share: float | None) -> str:
+    return "unresolved (device busy > wall)" if share is None else f"{share:.4f}"
+
+
+def train_workload(torch, wl: dict, packed: bool = True, weights=None):
+    """A train step of no arguments for workload ``wl`` (a ``WORKLOADS``
+    entry) on the card: FCN-8s at fc width ``wl["fc"]``, seeded random
+    weights (or ``weights``, a state dict), Adam 1e-4, dropout 0.5, a batch
+    of ``wl["n"]`` 384x1248 uint8 images resident on the card, flip and
+    ``wl["crop"]`` by the preprocess kernel (``packed``) or its plain
+    version (stage1 then as cuDNN convs and a max pool)."""
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn, preprocess_normalize_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    model = build_model("fcn8s", 2, device=dev, fc_features=wl["fc"],
+                        packed_stage1=packed)
+    if weights is None:
+        init_params(model, torch.Generator(device=dev).manual_seed(0))
+    else:
+        model.load_state_dict(weights)
+    state = create_train_state(model, make_optimizer("adam", model.parameters(), 1e-4),
+                               make_lr_schedule(1e-4), seed=0)
+    aug = (make_preprocess_augment_fn(MEAN, STD, wl["crop"]) if packed
+           else Augment(partial(preprocess_normalize_plain, crop_hw=wl["crop"],
+                                mean=MEAN, std=STD), wl["crop"], True))
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (wl["n"], 384, 1248, 3), np.uint8)).to(dev),
+             "label": torch.from_numpy(rng.integers(
+                 0, 2, (wl["n"], 384, 1248)).astype(np.int32)).to(dev)}
+    return partial(make_train_step(2, augment_fn=aug, with_metrics=wl["metrics"]),
+                   state, batch)
+
+
+def time_train(torch, step, n: int, iters: int) -> dict:
+    """Steady-state numbers of ``step()`` on ``n`` images: after two warm-up
+    steps, ``iters`` steps on the host clock (ending in a synchronize):
+    ``host_ms`` per step, ``images_per_s``, ``peak_gib`` of device memory
+    and the last ``loss``; then one profiled run of ``iters`` steps:
+    ``device_ms``, ``busy_ms``, ``ops``, ``by_op`` per step, its own
+    ``profiled_wall_ms`` and the ``idle_share`` (None: unresolved)."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = step()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    r = {"host_ms": host, "images_per_s": n / host * 1e3,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "loss": out["loss"].item()}
+    prof = profile_device(torch, step, iters)
+    r.update(device_ms=prof["device_ms"], busy_ms=prof["busy_ms"], ops=prof["ops"],
+             by_op=prof["by_op"], profiled_wall_ms=prof["wall_ms"],
+             idle_share=idle_share(prof["busy_ms"], prof["wall_ms"]))
+    return r
+
+
+def group(name: str) -> str:
+    low = name.lower()
+    if any(k in low for k in ("stage1_", "preprocess_kernel")):
+        return "port kernels"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "cutlass", "gemm",
+                              "wgrad", "dgrad", "fprop")):
+        return "convolutions and GEMMs"
+    if "multi_tensor" in low or "adam" in low:
+        return "optimizer"
+    return "elementwise, reductions, copies"
+
+
+def conv_kernels_by_shape(torch, fn) -> dict[str, float]:
+    """Device ms of one ``fn()`` spent in the kernels of each conv op
+    (forward or backward), keyed by op, input shapes and kernel name."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            record_shapes=True) as prof:
+        warnings.simplefilter("ignore")
+        fn()
+        torch.cuda.synchronize()
+    rows: dict[str, float] = defaultdict(float)
+    for e in prof.events():
+        if e.name in ("aten::cudnn_convolution", "aten::convolution_backward"):
+            for k in e.kernels:
+                rows[f"{e.name} {e.input_shapes[:2]} {k.name[:60]}"] += \
+                    k.duration / 1e3
+    return dict(sorted(rows.items(), key=lambda kv: -kv[1]))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--top", type=int, default=15)
+    p.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
+                                                 "profile_train.json"))
+    args = p.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_train: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    result = {"device": smi, "iters": args.iters}
+    for wname, wl in WORKLOADS.items():
+        steps, weights = {}, None
+        for form, packed in (("kernel", True), ("plain", False)):
+            steps[form] = train_workload(torch, wl, packed, weights)
+            if weights is None:
+                weights = steps[form].args[0].model.state_dict()
+        runs = defaultdict(list)
+        for form in ("kernel", "plain", "plain", "kernel"):
+            r = time_train(torch, steps[form], wl["n"], args.iters)
+            by_op = r.pop("by_op")
+            runs[form].append(r)
+            print(f"{wname} {form}: {r['host_ms']:.2f} ms/step host, "
+                  f"{r['images_per_s']:.1f} images/s; profiled: device "
+                  f"{r['device_ms']:.2f} ms in {r['ops']} ops, busy "
+                  f"{r['busy_ms']:.2f} ms, wall "
+                  f"{r['profiled_wall_ms']:.2f} ms, idle share "
+                  f"{show_idle(r['idle_share'])}", flush=True)
+            if form == "kernel":
+                top = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:args.top])
+                groups: dict[str, float] = defaultdict(float)
+                for name, ms in by_op.items():
+                    groups[group(name)] += ms
+        convs = dict(list(conv_kernels_by_shape(torch, steps["kernel"]).items())
+                     [:args.top])
+        result[wname] = {"runs": runs, "kernel_by_op_ms": top,
+                         "kernel_by_group_ms": dict(groups),
+                         "kernel_conv_ms_by_shape": convs}
+        print(f"{wname}, kernel build, device ms per step by group: "
+              + json.dumps({k: round(v, 3) for k, v in groups.items()}))
+        for name, ms in top.items():
+            print(f"  {ms:9.4f}  {name[:100]}")
+        print(f"{wname}, kernel build, conv ops' kernels by input shapes:")
+        for name, ms in convs.items():
+            print(f"  {ms:9.4f}  {name[:140]}")
+        del steps, weights
+        torch.cuda.empty_cache()
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
