@@ -21,9 +21,16 @@ just before it and read just after:
   ten steps on a fixed batch (the loss must fall), and train timings at the
   preset and at bench.py's workload.
 
+Then the same two paths at the full width of the ``segnet_kitti`` preset
+(SegNet), after the SegNet stage1 tail and the argmax pool/unpool kernels
+are checked against their plain versions at the shapes SegNet gives them.
+
 Any failure exits non-zero. The last three lines are the kernels' JSON
-record, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+record (each kernel's launches on the paths, error against its plain
+version, device times of the kernel, its plain version and the one PyTorch
+call computing the same function where there is one, and the least time the
+card could take for the work), the card's name and power limit, and
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -91,6 +98,29 @@ def show_ab(what: str, t: dict) -> None:
         f"wall per call {t['wall_ms']:.4f} ms, plain {t['plain_wall_ms']:.4f} ms")
 
 
+# H100 SXM peaks (NVIDIA's published figures): HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float = 0.0,
+          flop_rate: float = BF16_FLOP_PER_S) -> dict:
+    """The least time the card could take for work that moves ``nbytes``
+    (each input read once, each output written once) and does ``flops``:
+    the larger of the two times, and which one sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def conv3x3_flops(n: int, h: int, w: int, c: int) -> float:
+    """2 FLOP per multiply-add of a 3x3 SAME conv, C -> C, on n x h x w."""
+    return 2.0 * n * h * w * 9 * c * c
+
+
 def check_stage1(torch, gen) -> dict:
     """Kernel A against its plain version: the slice's shape, small ragged
     shapes (odd batch, partial tiles, narrow channels) and an exact tie case.
@@ -150,7 +180,13 @@ def check_stage1(torch, gen) -> dict:
     t = ab_ms(lambda: stage1_tail_plain(z1, k2, b2),
               lambda: stage1_tail(z1, k2, b2))
     show_ab(f"stage1 at [1,{PADDED_HW[0]},{PADDED_HW[1]},64]", t)
-    return {"max_abs_err": main_err, "ms": t["ms"], "plain_ms": t["plain_ms"]}
+    n, (h, w), c = 1, PADDED_HW, 64
+    # z1 in, the pooled bf16 out, the bf16 weights
+    b = bound(2 * n * h * w * c + 2 * n * h * w * c / 4 + 2 * 9 * c * c,
+              conv3x3_flops(n, h, w, c))
+    # no one PyTorch call fuses the conv, pool, bias and relu
+    return {"max_abs_err": main_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            **b, "library_ms": None}
 
 
 def check_overlay(torch, gen) -> dict:
@@ -191,37 +227,15 @@ def check_overlay(torch, gen) -> dict:
                     img, logits[:, :h, :w], pal, alpha, blend0),
                 lambda: argmax_colormap_overlay_cuda(img, logits, pal, alpha, blend0))
             show_ab(f"overlay at [1,{h},{w}], C=2", t)
+            # logits (the crop) and image in; overlay and int32 labels out
             result = {"max_abs_err": float(err), "ms": t["ms"],
-                      "plain_ms": t["plain_ms"]}
+                      "plain_ms": t["plain_ms"],
+                      **bound(h * w * (4 * c + 3 + 3 + 4)), "library_ms": None}
     return result
 
 
 TRAIN_SHAPE = (8, 320, 1152, 64)   # fcn8s_kitti batch 8, 320x1152 crops
 MEAN, STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
-
-
-def tie_windows(torch, n, h, w, c, seed):
-    """Integer z1 whose 2x2 windows are permutations of tie patterns, among
-    them c = b > a ((0,1) = (1,0) > (0,0)), and a centre-tap identity k2:
-    the conv output is relu(z1) exactly, so the first-max codes are known."""
-    g = torch.Generator().manual_seed(seed)
-    pats = torch.tensor([[1, 2, 2, 0], [2, 2, 2, 2], [0, 1, 1, 1], [3, 1, 3, 0],
-                         [0, 0, 1, 2], [-1, -2, 1, 1], [1, 1, 2, 2]],
-                        dtype=torch.float32)
-    win = pats[torch.randint(0, len(pats), (n, h // 2, w // 2, c), generator=g)]
-    z1 = win.reshape(n, h // 2, w // 2, c, 2, 2).permute(0, 1, 4, 2, 5, 3)
-    k2 = torch.zeros(c, c, 3, 3)
-    k2[torch.arange(c), torch.arange(c), 1, 1] = 1.0
-    return z1.reshape(n, h, w, c), k2, torch.zeros(c)
-
-
-def int_case(torch, n, h, w, c, seed):
-    """Integer inputs with repeated kernel taps: many ties, exact sums."""
-    g = torch.Generator().manual_seed(seed)
-    z1 = torch.randint(-2, 3, (n, h, w, c), generator=g).float()
-    k2 = torch.randint(-1, 2, (c, c, 3, 3), generator=g).float()
-    k2[:, :, 1] = k2[:, :, 0]
-    return z1, k2, torch.randint(-1, 2, (c,), generator=g).float()
 
 
 def check_stage1_train(torch, gen) -> dict:
@@ -256,6 +270,9 @@ def check_stage1_train(torch, gen) -> dict:
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
         Stage1Tail, stage1_tail, stage1_tail_bwd, stage1_tail_bwd_plain,
         stage1_tail_codes_plain, stage1_tail_plain, stage1_tail_train,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.tie_cases import (
+        int_case, tie_windows,
     )
 
     def rand(shape, scale):
@@ -312,7 +329,12 @@ def check_stage1_train(torch, gen) -> dict:
                                                   retain_graph=True),
                       lambda: stage1_tail_bwd(g, out_p, codes_p, z1, k2))
             show_ab(f"stage1 backward at {list(TRAIN_SHAPE)}", t)
-            result.update(ms=t["ms"], plain_ms=t["plain_ms"])
+            # g, out (bf16) and codes (u8) pooled, z1 in; dz1, dk2, db2 out;
+            # dgrad and wgrad are a conv's worth of math each
+            result.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
+                          **bound(5 * n * h * w * c / 4 + 4 * n * h * w * c
+                                  + 4 * 9 * c * c + 4 * c,
+                                  2 * conv3x3_flops(n, h, w, c)))
             tf = ab_ms(lambda: stage1_tail_codes_plain(z1, k2, b2),
                        lambda: stage1_tail_train(z1, k2, b2))
             show_ab(f"stage1 training forward (with codes) at {list(TRAIN_SHAPE)}",
@@ -327,7 +349,7 @@ def check_stage1_train(torch, gen) -> dict:
         parts = lib.seg_stage1_bwd_parts(n, h, w, c)
         for case in (tie_windows, int_case):
             z1, k2, b2 = (t.to("cuda", torch.bfloat16)
-                          for t in case(torch, n, h, w, c, 1))
+                          for t in case(n, h, w, c, 1))
             out, codes = stage1_tail_train(z1, k2, b2)
             out_p, codes_p = stage1_tail_codes_plain(z1, k2, b2)
             if not (torch.equal(out, out_p) and torch.equal(codes, codes_p)):
@@ -383,7 +405,10 @@ def check_preprocess(torch, gen) -> dict:
     t = ab_ms(lambda: preprocess_normalize_plain(*args),
               lambda: preprocess_normalize(*args))
     show_ab(f"preprocess at [{n},{h},{w},3]", t)
-    return {"max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"]}
+    # the cropped u8 pixels in, f32 out; a subtract and a multiply each
+    px = n * crop[0] * crop[1] * 3
+    return {"max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            **bound(px + 4 * px, 2 * px, F32_FLOP_PER_S), "library_ms": None}
 
 
 def write_png(path: str, seed: int) -> None:
@@ -400,8 +425,10 @@ def write_png(path: str, seed: int) -> None:
     Image.fromarray(np.clip(base + noise, 0, 255).astype(np.uint8)).save(path)
 
 
-def drive_slice(torch, tmp: str) -> dict:
-    """The main path through the user's entry points. Returns timings."""
+def drive_slice(torch, tmp: str, preset: str) -> dict:
+    """The inference path through the user's entry points at ``preset``
+    (random weights): infer_image, the server answering requests, the
+    Predictor's steady state. Returns timings."""
     import http.client
 
     import numpy as np
@@ -409,18 +436,16 @@ def drive_slice(torch, tmp: str) -> dict:
 
     from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
     from semanticsegmentation_tensorflow_tpu_torch.scripts import infer_image, serve
-    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
-        add_model_args, build_predictor,
-    )
 
     times = {}
     png = os.path.join(tmp, "kitti_like.png")
     out = os.path.join(tmp, "overlay.png")
     write_png(png, seed=0)
 
-    # 1. infer_image, as a user runs it (random weights, fcn8s_kitti)
+    # 1. infer_image, as a user runs it (random weights)
     t0 = time.perf_counter()
-    rc = infer_image.main(["--image", png, "--out", out, "--device", "cuda"])
+    rc = infer_image.main(["--preset", preset, "--image", png, "--out", out,
+                           "--device", "cuda"])
     torch.cuda.synchronize()
     times["infer_image_main_s"] = time.perf_counter() - t0
     if rc != 0:
@@ -433,7 +458,8 @@ def drive_slice(torch, tmp: str) -> dict:
         "decode, forward, encode)")
 
     # 2. the server, in a thread, answering real HTTP requests
-    server, _ = serve.make_server(["--device", "cuda", "--port", "0"])
+    server, _ = serve.make_server(["--preset", preset, "--device", "cuda",
+                                   "--port", "0"])
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -487,7 +513,7 @@ def drive_slice(torch, tmp: str) -> dict:
             times[name] = float(np.median(ts))
         dev, ops = device_ms(lambda: pred(img), iters=10)
         times["predictor_overlay_device_ms"] = dev
-        log(f"Predictor fcn8s_kitti, 1x{IMAGE_HW[0]}x{IMAGE_HW[1]}: overlay "
+        log(f"Predictor {preset}, 1x{IMAGE_HW[0]}x{IMAGE_HW[1]}: overlay "
             f"{times['predictor_overlay_ms']:.3f} ms/image, packed labels "
             f"{times['predictor_labels_ms']:.3f} ms/image (host clock, median "
             f"of 10); overlay call on the device {dev:.3f} ms in {ops} ops, "
@@ -496,10 +522,24 @@ def drive_slice(torch, tmp: str) -> dict:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
+    return times
 
-    # 3. the reference-exact width (fc 4096), one Predictor forward
+
+def drive_fcn_inference(torch, tmp: str) -> dict:
+    """FCN-8s's inference path: drive_slice at fcn8s_kitti, then one
+    Predictor forward at the reference-exact width (fcn8s_kitti_parity,
+    fc 4096). Returns timings."""
     from argparse import ArgumentParser
 
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
+        add_model_args, build_predictor,
+    )
+
+    times = drive_slice(torch, tmp, "fcn8s_kitti")
+    img = np.asarray(Image.open(os.path.join(tmp, "kitti_like.png")).convert("RGB"))
     p = ArgumentParser()
     add_model_args(p)
     args = p.parse_args(["--preset", "fcn8s_kitti_parity", "--device", "cuda"])
@@ -563,12 +603,12 @@ def check_end_to_end(torch) -> None:
         raise AssertionError("end-to-end check failed")
 
 
-def drive_training(torch, tmp: str) -> dict:
+def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti") -> dict:
     """The training path through the user's entry points: the port's
     scripts/train.py on a generated synthetic KITTI set (24 images at
-    375x1242) at the fcn8s_kitti preset (batch 8, 320x1152 crops, full
-    width, 3 steps) with --pallas-preprocess, then --resume, then
-    infer_image on the checkpoint it wrote."""
+    375x1242) at ``preset`` (batch 8, 320x1152 crops, full width, 3 steps)
+    with --pallas-preprocess, then --resume, then infer_image on the
+    checkpoint it wrote."""
     import contextlib
     import math
 
@@ -583,7 +623,7 @@ def drive_training(torch, tmp: str) -> dict:
     data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
                                     n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=0)
     ck = os.path.join(tmp, "ckpt")
-    argv = ["--preset", "fcn8s_kitti", "--data-dir", data, "--epochs", "1",
+    argv = ["--preset", preset, "--data-dir", data, "--epochs", "1",
             "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -599,7 +639,7 @@ def drive_training(torch, tmp: str) -> dict:
         raise AssertionError(f"train: loss {loss} at step {epoch.get('step')}")
     if not os.path.exists(os.path.join(ck, "ckpt_3.pt")):
         raise AssertionError(f"train wrote no checkpoint: {os.listdir(ck)}")
-    log(f"train.main fcn8s_kitti, 24 images, batch 8, 320x1152 crops: 3 steps, "
+    log(f"train.main {preset}, 24 images, batch 8, 320x1152 crops: 3 steps, "
         f"loss {loss:.4f}, miou {epoch.get('epoch/miou', float('nan')):.4f}, "
         f"{wall:.1f} s wall (data decode, model build, cuDNN setup included), "
         f"peak device memory {peak:.2f} GiB")
@@ -611,8 +651,8 @@ def drive_training(torch, tmp: str) -> dict:
         raise AssertionError("train --resume did not restore step 3")
     out = os.path.join(tmp, "trained_overlay.png")
     src = os.path.join(data, "testing", "image_2", "um_000024.png")
-    if infer_image.main(["--checkpoint-dir", ck, "--image", src, "--out", out,
-                         "--device", "cuda"]) != 0:
+    if infer_image.main(["--preset", preset, "--checkpoint-dir", ck, "--image",
+                         src, "--out", out, "--device", "cuda"]) != 0:
         raise AssertionError("infer_image on the trained checkpoint failed")
     ov = np.asarray(Image.open(out))
     if ov.shape != (*IMAGE_HW, 3):
@@ -701,10 +741,391 @@ def check_train_step(torch) -> None:
         raise AssertionError("the loss did not fall on a fixed batch")
 
 
+# --- SegNet (segnet_kitti): kernels 3 and 5, then its two paths -------------
+
+
+def segnet_unpools(n: int, h: int, w: int) -> tuple:
+    """The full-resolution [N,H,W,C] of each SegNet decoder unpool's output
+    (dec1..dec5) for an n x h x w input. Each but dec1's is also a pool's
+    input (enc2..enc5) and the shape of that pool's backward unpool; every
+    decoder unpool has its backward."""
+    return tuple((n, h >> i, w >> i, c)
+                 for i, c in enumerate((64, 128, 256, 512, 512)))
+
+
+# one SegNet train step at segnet_kitti (batch 8, 320x1152 crops), and one
+# Predictor forward at full KITTI resolution (batch 1, 384x1248; the
+# enc5 pool's output is 12x39, an odd width)
+SEGNET_UNPOOLS = segnet_unpools(*TRAIN_SHAPE[:3])
+SEGNET_POOLS = SEGNET_UNPOOLS[1:]
+SEGNET_INFER_UNPOOLS = segnet_unpools(1, *PADDED_HW)
+
+
+def check_segnet_stage1(torch, gen) -> dict:
+    """Kernel 3 (SegNet's stage1 tail) against its plain version at the
+    inference shape [1,384,1248,64] and the training shape [8,320,1152,64],
+    its backward (kernel 1b fed SegNet's index) against the f32 reference,
+    and exact integer tie cases.
+
+    Forward, random inputs: both versions round the f32 conv to bf16 in
+    another summation order, then add b2 in bf16 and take the relu, so
+    ``out`` may differ by one bf16 ulp of the conv value plus one of the
+    bias add: |kernel - plain| <= 2^-6 (|plain| + |b2|) + 1e-6. The index
+    equals the plain one except where that ulp reorders two window values
+    within it; required on >= 99.9 % of elements, as for FCN's codes.
+    Backward, on the plain forward's (out, idx) so that both route alike:
+    kernel 1b's bounds (check_stage1_train). Integer cases: every sum exact,
+    so out, idx and the gradients through SegNetStage1Tail equal the plain
+    versions bit for bit, ties after the bf16 bias add, all-zero windows
+    and c = b > a included."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        SegNetStage1Tail, stage1_tail_bwd, stage1_tail_bwd_plain,
+        stage1_tail_segnet, stage1_tail_segnet_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.tie_cases import (
+        int_case, segnet_tie_windows,
+    )
+
+    def rand(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+
+    result = {}
+    for n, h, w, c in ((1, *PADDED_HW, 64), TRAIN_SHAPE):
+        z1 = rand((n, h, w, c), 1.0)
+        k2 = rand((c, c, 3, 3), (1.0 / (9 * c)) ** 0.5).contiguous(
+            memory_format=torch.channels_last)
+        b2 = rand((c,), 0.1)
+        out, idx = stage1_tail_segnet(z1, k2, b2)
+        out_p, idx_p = stage1_tail_segnet_plain(z1, k2, b2)
+        torch.cuda.synchronize()
+        err = (out.float() - out_p.float()).abs()
+        bad = int((err > 2 ** -6 * (out_p.float().abs() + b2.float().abs())
+                   + 1e-6).sum())
+        agree = (idx == idx_p).float().mean().item()
+        log(f"segnet stage1 [{n},{h},{w},{c}]: max_abs_err {err.max().item():.6g} "
+            f"(max |plain| {out_p.float().abs().max().item():.4g}), {bad} outside "
+            f"the bound; idx agree {100 * agree:.4f} % (bound 99.9 %), "
+            f"{100 * (idx_p == 0).float().mean().item():.1f} % index 0")
+        if bad or agree < 0.999 or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"segnet stage1 [{n},{h},{w},{c}] outside the bound")
+        t = ab_ms(lambda: stage1_tail_segnet_plain(z1, k2, b2),
+                  lambda: stage1_tail_segnet(z1, k2, b2))
+        show_ab(f"segnet stage1 at [{n},{h},{w},{c}]", t)
+        if (n, h, w, c) != TRAIN_SHAPE:
+            result["infer_ms"], result["infer_plain_ms"] = t["ms"], t["plain_ms"]
+            continue
+        # z1 in; out (bf16) and idx (u8) pooled out
+        result.update(max_abs_err=err.max().item(), idx_agree=agree, ms=t["ms"],
+                      plain_ms=t["plain_ms"], library_ms=None,
+                      **bound(2 * n * h * w * c + 3 * n * h * w * c / 4
+                              + 2 * 9 * c * c, conv3x3_flops(n, h, w, c)))
+        g = rand(out.shape, 1.0)
+        got = stage1_tail_bwd(g, out_p, idx_p, z1, k2)
+        want = stage1_tail_bwd_plain(g, out_p, idx_p, z1, k2)
+        errs = []
+        for name, a, b, rel, near0 in zip(("dz1", "dk2", "db2"), got, want,
+                                          (2 ** -7, 0.0, 0.0),
+                                          (2 ** -12, 1e-4, 1e-4)):
+            a, b = a.float(), b.float()
+            e = (a - b).abs()
+            errs.append(e.max().item())
+            if int((e > rel * b.abs() + near0 * b.abs().max()).sum()):
+                raise AssertionError(f"segnet stage1 bwd {name} outside the bound")
+        log(f"segnet stage1 backward (kernel 1b on SegNet's index) [{n},{h},{w},"
+            f"{c}] against the f32 reference: max_abs_err dz1 {errs[0]:.6g} dk2 "
+            f"{errs[1]:.6g} db2 {errs[2]:.6g}")
+        del z1, k2, b2, out, idx, out_p, idx_p, g, got, want
+
+    for n, h, w, c in ((2, 16, 48, 64), (8, 64, 256, 64)):
+        for case in (segnet_tie_windows, int_case):
+            z1, k2, b2 = (t.to("cuda", torch.bfloat16)
+                          for t in case(n, h, w, c, 1))
+            out, idx = stage1_tail_segnet(z1, k2, b2)
+            out_p, idx_p = stage1_tail_segnet_plain(z1, k2, b2)
+            if not (torch.equal(out, out_p) and torch.equal(idx, idx_p)):
+                raise AssertionError(f"segnet stage1 {case.__name__}: forward "
+                                     "not exact")
+            if case is segnet_tie_windows and not (
+                    bool((idx_p[..., 1::4] == 0).all())
+                    and bool((idx_p == 1).any())):
+                raise AssertionError("the segnet tie case lacks its windows")
+            cot = torch.randint(-3, 4, out.shape, generator=torch.Generator()
+                                .manual_seed(2)).to("cuda", torch.bfloat16)
+            leaves = [t.clone().requires_grad_() for t in (z1, k2, b2)]
+            got = torch.autograd.grad(SegNetStage1Tail.apply(*leaves)[0], leaves,
+                                      cot)
+            want = stage1_tail_bwd_plain(cot, out_p, idx_p, z1, k2)
+            if not all(torch.equal(a.float(), b.to(a.dtype).float())
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"segnet stage1 {case.__name__} [{n},{h},{w},"
+                                     f"{c}]: gradients not exact")
+            log(f"segnet stage1 {case.__name__} [{n},{h},{w},{c}] (integer; ties "
+                "after the bias add, all-zero windows, c = b > a): out, idx and "
+                "the autograd Function's dz1, dk2, db2 exact")
+    return result
+
+
+def check_pool(torch, gen) -> dict:
+    """Kernel 5's three entry points against their plain versions at every
+    SegNet pool and unpool of a train step and of a full-resolution
+    Predictor forward, random bf16 inputs plus a tie-rich integer case:
+    they only select, so the bytes must be equal. Each is timed at the
+    train step's shapes against its plain version and the one PyTorch call
+    that computes the same function on the channels_last NCHW view:
+    ``F.max_pool2d(return_indices=True)``, ``F.max_unpool2d`` with its
+    int64 indices, and for the unpool's backward ``torch.gather`` by them.
+    Returns the totals over one train step's pools and unpools."""
+    import torch.nn.functional as F
+
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
+        pool_argmax, pool_argmax_plain, unpool, unpool_bwd, unpool_bwd_plain,
+        unpool_plain,
+    )
+
+    def time3(plain, kernel, library):
+        t = [device_ms(f)[0] for f in (plain, kernel, library, kernel, plain,
+                                       library)]
+        return (t[1] + t[3]) / 2, (t[0] + t[4]) / 2, (t[2] + t[5]) / 2
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "elems": 0.0}
+
+    def add(what, shape, count, times):
+        k, p, lib = times
+        log(f"  {what} at {list(shape)} (x{count} per step): kernel {k:.4f} ms, "
+            f"plain {p:.4f} ms, library {lib:.4f} ms")
+        total["ms"] += count * k
+        total["plain_ms"] += count * p
+        total["library_ms"] += count * lib
+        # each entry point moves 2.75 bytes per full-resolution element: the
+        # bf16 full-size tensor, a quarter of it bf16 pooled, a quarter u8
+        total["elems"] += count * shape[0] * shape[1] * shape[2] * shape[3]
+
+    integer = torch.randint(-2, 3, (2, 16, 24, 64), generator=gen, device="cuda")
+    for shape in ((2, 16, 24, 64),) + SEGNET_UNPOOLS + SEGNET_INFER_UNPOOLS:
+        x = (integer.bfloat16() if shape == integer.shape
+             else torch.randn(shape, generator=gen, device="cuda").bfloat16())
+        p, idx = pool_argmax(x)
+        pp, ip = pool_argmax_plain(x)
+        g = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+        checks = {"pool_argmax": torch.equal(p, pp) and torch.equal(idx, ip),
+                  "unpool": torch.equal(unpool(p, idx), unpool_plain(p, idx)),
+                  "unpool_bwd": torch.equal(unpool_bwd(g, idx),
+                                            unpool_bwd_plain(g, idx))}
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"pool kernels {bad} differ from plain at "
+                                 f"{list(x.shape)}")
+        del x, p, idx, pp, ip, g
+    log(f"argmax pool, unpool, unpool backward at the {len(SEGNET_UNPOOLS)} "
+        f"SegNet shapes of a train step {[list(s) for s in SEGNET_UNPOOLS]}, "
+        f"the {len(SEGNET_INFER_UNPOOLS)} of a full-resolution forward "
+        f"{[list(s) for s in SEGNET_INFER_UNPOOLS]} and an integer tie case: "
+        "bytes exact against the plain versions")
+
+    log("argmax pool / unpool timings (device ms per call, mean of two turns):")
+    for shape in SEGNET_UNPOOLS:
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        xc = x.permute(0, 3, 1, 2)                    # channels_last view
+        p, idx = pool_argmax(x)
+        pc, ind = F.max_pool2d(xc, 2, return_indices=True)
+        g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+        gc = g.permute(0, 3, 1, 2)
+        if shape in SEGNET_POOLS:
+            add("pool_argmax", shape, 1, time3(
+                lambda: pool_argmax_plain(x), lambda: pool_argmax(x),
+                lambda: F.max_pool2d(xc, 2, return_indices=True)))
+        # decoder unpool, plus the pool's backward at the pool shapes
+        add("unpool", shape, 1 + (shape in SEGNET_POOLS), time3(
+            lambda: unpool_plain(p, idx), lambda: unpool(p, idx),
+            lambda: F.max_unpool2d(pc, ind, 2)))
+        add("unpool_bwd", shape, 1, time3(
+            lambda: unpool_bwd_plain(g, idx), lambda: unpool_bwd(g, idx),
+            lambda: torch.gather(gc.flatten(2), 2, ind.flatten(2))))
+        del x, xc, p, idx, pc, ind, g, gc
+    log(f"argmax pool / unpool per SegNet train step: kernel {total['ms']:.4f} ms, "
+        f"plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f} ms")
+    return {"max_abs_err": 0.0, "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "library_ms": total["library_ms"], **bound(2.75 * total["elems"])}
+
+
+def rel_l2(a, ref) -> float:
+    return ((a.float() - ref.float()).norm()
+            / ref.float().norm().clamp(min=1e-30)).item()
+
+
+def check_segnet_end_to_end(torch) -> None:
+    """The full segnet_kitti forward with the kernels against the same
+    forward on plain PyTorch (enc1 as a ConvBlock of cuDNN convs, the pools,
+    unpools and overlay by their plain versions), same weights, same image,
+    bf16, and both against the float32 model (plain, TF32 off).
+
+    SegNet's pools route by argmax indices, and a one-ulp difference in a
+    bf16 value can flip one, which moves a value within its window and on
+    through the decoder: on the CPU, the bf16 and f32 runs of SegNet
+    differ by a relative L2 of 0.18 to 0.32 in the logits (labels 89-92 %
+    equal), against 0.014 for FCN-8s, and the JAX package's own SegNet in
+    bf16 by 0.30 to 0.31 from its f32 run on the same weights and input
+    (tools/rounding_sensitivity.py --jax): the spread is the model's in
+    bf16. So the two bf16 builds are not
+    held to each other but to f32: the kernel build's relative L2 distance
+    to the f32 logits at most 1.5x the plain build's plus 0.02, and its
+    labels' agreement with f32 at least the plain build's less 1 point."""
+    import numpy as np
+
+    from profile_train import plain_pools
+
+    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+
+    dev = torch.device("cuda")
+    weights = init_params(build_model("segnet", 2, device=dev),
+                          torch.Generator(device=dev).manual_seed(3)).state_dict()
+
+    def predictor(**kw):
+        model = build_model("segnet", 2, device=dev, **kw)
+        model.load_state_dict(weights)
+        return Predictor(model, IMAGE_HW, device=dev)
+
+    pk = predictor()
+    pp = predictor(packed_stage1=False)
+    pr = predictor(packed_stage1=False, dtype=torch.float32)
+    img = np.random.default_rng(5).integers(0, 256, (1, *IMAGE_HW, 3), np.uint8)
+    x = pk._to_device(img)
+    lk = pk._padded_logits(x)
+    with plain_pools():
+        lp = pp._padded_logits(x)
+        lr = pr._padded_logits(x)
+    if lk.shape != (1, *PADDED_HW, 2) or not torch.isfinite(lk).all():
+        raise AssertionError(f"segnet logits {tuple(lk.shape)} not finite/expected")
+
+    def labels(t):
+        return t[..., 1] > t[..., 0]
+
+    ek, ep = rel_l2(lk, lr), rel_l2(lp, lr)
+    ak = (labels(lk) == labels(lr)).float().mean().item()
+    ap = (labels(lp) == labels(lr)).float().mean().item()
+    akp = (labels(lk) == labels(lp)).float().mean().item()
+    log(f"end to end segnet_kitti: relative L2 to the f32 logits, kernels "
+        f"{ek:.4g}, plain {ep:.4g} (bound 1.5x + 0.02); labels equal to f32's, "
+        f"kernels {100 * ak:.3f} %, plain {100 * ap:.3f} % (bound plain - 1); "
+        f"kernels vs plain: relative L2 {rel_l2(lk, lp):.4g}, labels "
+        f"{100 * akp:.3f} % equal")
+    if ek > 1.5 * ep + 0.02 or ak < ap - 0.01:
+        raise AssertionError("segnet end-to-end check failed")
+
+
+def check_segnet_train_step(torch) -> None:
+    """One segnet_kitti train step with the kernels (SegNet stage1 forward,
+    kernel 1b, the argmax pool/unpool kernels, preprocess) against the same
+    step on plain PyTorch (packed_stage1=False, the pool/unpool and
+    preprocess plain versions) and on the float32 plain model, same weights,
+    same batch; then ten steps on a fixed batch.
+
+    Both bf16 builds are held to the f32 step, as in
+    check_segnet_end_to_end, leaf by leaf, so that a small leaf (enc1's
+    conv1, which kernel 1b computes on SegNet's index, the biases) is not
+    lost in the norm of the large ones. Each leaf's gradient: its relative
+    L2 distance to the f32 step's at most 2x the plain build's, plus
+    2^-8 / sqrt(numel). The floor is one bf16 rounding (half an ulp is at
+    most 2^-8 relative) spread over the leaf: a leaf of a few elements may
+    round one of them to the other neighbour where the plain build did not;
+    in a leaf of 10^5 elements it is 1e-5, nothing. Both builds' distances
+    are bf16's own rounding of the step: 0.002 over all gradients joined,
+    up to 0.03 leaf by leaf, the kernel build's at most 1.17x the plain
+    build's (0.0160 against 0.0158 for enc1.conv1's weight), on an H100. A kernel 1b that routed by a wrong index or lost a tenth of
+    the pixels would put enc1.conv1's gradient ~0.1 or more off, 3x its
+    bound. The loss within 2x the plain build's distance to the f32 loss
+    plus 1e-6 relative (the f32 summation order over 2.9 M pixels; at these
+    weights the logits are small and the loss is ~ln 2, so this check is
+    weak). The labels' agreement with f32 (from the confusion matrices) at
+    least the plain build's less 0.1 point. The loss falling over ten steps
+    on a fixed batch."""
+    from functools import partial
+
+    import numpy as np
+
+    from profile_train import plain_pools
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn, preprocess_normalize_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW) for _ in range(8)))
+    batch = {"image": torch.from_numpy(np.stack(imgs)).to(dev),
+             "label": torch.from_numpy(np.stack(lbls)).to(dev)}
+    crop = (320, 1152)
+    weights = init_params(build_model("segnet", 2, device=dev),
+                          torch.Generator(device=dev).manual_seed(7)).state_dict()
+    aug_p = Augment(partial(preprocess_normalize_plain, crop_hw=crop, mean=MEAN,
+                            std=STD), crop, True)
+
+    def run(augment, **kw):
+        model = build_model("segnet", 2, device=dev, **kw)
+        model.load_state_dict(weights)
+        state = create_train_state(model, make_optimizer("adam", model.parameters(),
+                                                         1e-4),
+                                   make_lr_schedule(1e-4), seed=0)
+        out = make_train_step(2, augment_fn=augment)(state, batch)
+        grads = {k: p.grad.float() for k, p in model.named_parameters()}
+        return state, out["loss"].item(), grads, out["cm"].cpu()
+
+    kern, lk, gk, cm_k = run(make_preprocess_augment_fn(MEAN, STD, crop))
+    with plain_pools():
+        _, lp, gp, cm_p = run(aug_p, packed_stage1=False)
+        _, lr, gr, cm_r = run(aug_p, packed_stage1=False, dtype=torch.float32)
+
+    def agree(a, b):  # a lower bound of the labels' agreement, from the counts
+        return 1 - (a - b).abs().sum().item() / (2 * b.sum().item())
+
+    leaves = []        # (kernels' distance over its bound, name, ek, ep, bound)
+    for name, r in gr.items():
+        ek, ep = rel_l2(gk[name], r), rel_l2(gp[name], r)
+        b = 2 * ep + 2 ** -8 / r.numel() ** 0.5
+        leaves.append((ek / b, name, ek, ep, b))
+    leaves.sort(reverse=True)
+    ak, ap = agree(cm_k, cm_r), agree(cm_p, cm_r)
+    loss_bound = 2 * abs(lp - lr) + 1e-6 * abs(lr)
+    log(f"train step segnet_kitti: loss kernels {lk:.8f}, plain {lp:.8f}, f32 "
+        f"{lr:.8f} (kernels' distance to f32 {abs(lk - lr):.3g}, bound "
+        f"{loss_bound:.3g}); labels agree with f32's >= {100 * ak:.4f} % "
+        f"(kernels), {100 * ap:.4f} % (plain; bound plain - 0.1)")
+    log("gradients' relative L2 to the f32 step, leaf by leaf (bound 2x plain "
+        "+ 2^-8/sqrt(numel)); the worst five, and enc1's:")
+    for i, (frac, name, ek, ep, b) in enumerate(leaves):
+        if i < 5 or name.startswith("enc1."):
+            log(f"  {name}: kernels {ek:.5g}, plain {ep:.5g}, bound {b:.5g} "
+                f"({100 * frac:.1f} % of it)")
+    if not (leaves[0][0] <= 1 and abs(lk - lr) <= loss_bound
+            and ak >= ap - 0.001):
+        raise AssertionError("segnet train step: outside the bound")
+    del gk, gp, gr
+
+    fixed = make_preprocess_augment_fn(MEAN, STD, crop)(
+        torch.Generator().manual_seed(3), batch)
+    step = make_train_step(2, with_metrics=False)
+    losses = [step(kern, fixed)["loss"].item() for _ in range(10)]
+    log(f"segnet, ten steps on one fixed batch: loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} ({['%.4f' % v for v in losses]})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the segnet loss did not fall on a fixed batch")
+
+
 def time_train(torch, smi: str, workload: str) -> dict:
     """Steady-state train images/s, peak device memory and the device's
-    idle share at one of tools/profile_train.py's workloads (FCN-8s, uint8
-    batch on the device, Adam 1e-4, dropout 0.5, the preprocess kernel), by
+    idle share at one of tools/profile_train.py's workloads (FCN-8s or
+    SegNet, uint8 batch on the device, Adam 1e-4, the preprocess kernel), by
     that tool's own timing code."""
     import math
 
@@ -747,8 +1168,11 @@ def main() -> int:
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
             preprocess_normalize,
         )
+        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
+            pool_argmax, unpool, unpool_bwd,
+        )
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-            stage1_tail, stage1_tail_bwd, stage1_tail_train,
+            stage1_tail, stage1_tail_bwd, stage1_tail_segnet, stage1_tail_train,
         )
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from the "
@@ -780,11 +1204,17 @@ def main() -> int:
     overlay = check_overlay(torch, gen)
     stage1_bwd = check_stage1_train(torch, gen)
     preprocess = check_preprocess(torch, gen)
+    segnet_stage1 = check_segnet_stage1(torch, gen)
+    pool = check_pool(torch, gen)
+    torch.cuda.empty_cache()
 
     counters = {"stage1_tail": stage1_tail, "stage1_tail_train": stage1_tail_train,
                 "stage1_tail_bwd": stage1_tail_bwd,
                 "preprocess_normalize": preprocess_normalize,
-                "overlay": argmax_colormap_overlay_cuda}
+                "overlay": argmax_colormap_overlay_cuda,
+                "stage1_tail_segnet": stage1_tail_segnet,
+                "pool_argmax": pool_argmax, "unpool": unpool,
+                "unpool_bwd": unpool_bwd}
 
     def drive(path, fn, *args):
         """Run one main path with every launch counter at 0 just before it
@@ -797,7 +1227,8 @@ def main() -> int:
         return result, launches
 
     with tempfile.TemporaryDirectory() as tmp:
-        times, infer_launches = drive("inference", drive_slice, torch, tmp)
+        times, infer_launches = drive("inference", drive_fcn_inference, torch,
+                                      tmp)
     if not (infer_launches["stage1_tail"] and infer_launches["overlay"]):
         raise AssertionError("a kernel was not launched on the inference path: "
                              f"{infer_launches}")
@@ -806,7 +1237,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         train_times, train_launches = drive("training", drive_training, torch, tmp)
-    missing = [k for k, v in train_launches.items() if not v]
+    missing = [k for k in ("stage1_tail_train", "stage1_tail_bwd",
+                           "preprocess_normalize") if not train_launches[k]]
     if missing:
         raise AssertionError(f"not launched on the training path: {missing}")
     check_train_step(torch)
@@ -814,26 +1246,66 @@ def main() -> int:
     bench = time_train(torch, smi, "bench")
     log("training timings: " + json.dumps(
         dict(train_times, preset=preset, bench_workload=bench)))
+    torch.cuda.empty_cache()
 
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_times, seg_infer_launches = drive("segnet inference", drive_slice,
+                                              torch, tmp, "segnet_kitti")
+    missing = [k for k in ("stage1_tail_segnet", "pool_argmax", "unpool", "overlay")
+               if not seg_infer_launches[k]]
+    if missing:
+        raise AssertionError(f"not launched on the segnet inference path: {missing}")
+    check_segnet_end_to_end(torch)
+    log("segnet timings (s or ms as named): " + json.dumps(seg_times))
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_train_times, seg_train_launches = drive(
+            "segnet training", drive_training, torch, tmp, "segnet_kitti")
+    missing = [k for k in ("stage1_tail_segnet", "stage1_tail_bwd", "pool_argmax",
+                           "unpool", "unpool_bwd", "preprocess_normalize")
+               if not seg_train_launches[k]]
+    if missing:
+        raise AssertionError(f"not launched on the segnet training path: {missing}")
+    check_segnet_train_step(torch)
+    torch.cuda.empty_cache()
+    segnet = time_train(torch, smi, "segnet")
+    log("segnet training timings: " + json.dumps(dict(seg_train_times,
+                                                      segnet=segnet)))
+
+    def total(*keys):
+        return sum(runs[k] for runs in (infer_launches, train_launches,
+                                        seg_infer_launches, seg_train_launches)
+                   for k in keys)
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name="stage1_tail", route="cuda",
              source=f"{PKG}/csrc/stage1_tail.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:155",
-             launches=infer_launches["stage1_tail"]
-             + train_launches["stage1_tail_train"], **stage1),
+             launches=total("stage1_tail", "stage1_tail_train"), **stage1),
         dict(name="stage1_tail_bwd", route="cuda",
              source=f"{PKG}/csrc/stage1_bwd.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:271",
-             launches=train_launches["stage1_tail_bwd"],
-             **{k: stage1_bwd[k] for k in ("max_abs_err", "ms", "plain_ms")}),
+             launches=total("stage1_tail_bwd"),
+             **{k: stage1_bwd[k] for k in keys}),
         dict(name="preprocess_normalize", route="cuda",
              source=f"{PKG}/csrc/preprocess.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/preprocess.py:40",
-             launches=train_launches["preprocess_normalize"], **preprocess),
+             launches=total("preprocess_normalize"), **preprocess),
         dict(name="argmax_colormap_overlay", route="cuda",
              source=f"{PKG}/csrc/overlay.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/overlay.py:29",
-             launches=infer_launches["overlay"], **overlay),
+             launches=total("overlay"), **overlay),
+        dict(name="stage1_tail_segnet", route="cuda",
+             source=f"{PKG}/csrc/stage1_tail.cu",
+             replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:235",
+             launches=total("stage1_tail_segnet"),
+             **{k: segnet_stage1[k] for k in keys}),
+        dict(name="argmax_pool_unpool", route="cuda",
+             source=f"{PKG}/csrc/pool.cu",
+             replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/pool.py:44",
+             launches=total("pool_argmax", "unpool", "unpool_bwd"), **pool),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,11 @@
 // VGG stage1 tail, forward: relu -> 3x3 SAME conv -> 2x2/2 max pool -> +b2 -> relu,
-// and in training also the 2-bit routing codes of the pool.
+// and in training also the 2-bit routing codes of the pool; in SegNet mode
+// relu -> conv -> +b2 -> relu -> 2x2/2 argmax pool.
 //
 // Replaces: semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:_fwd_kernel
-// (FCN mode, single device, b1 already added to z1 by the caller), including
-// its `codes` output.
+// (single device, b1 already added to z1 by the caller): its FCN mode with
+// the `codes` output, and its SegNet mode (`biased_codes=True`, :235-260, the
+// forward of fused_segnet_stage1_tail :799).
 //
 // Contract (per image n, pooled pixel (oy, ox), channel c):
 //   y      = relu(z1)                     zero outside the image (SAME pad)
@@ -16,6 +18,12 @@
 // The halo is zero AFTER the relu: out-of-image pixels contribute 0, never
 // relu(b1) (stage1.py:203-216). The inference launch (codes == nullptr)
 // writes no codes.
+// SegNet mode (the bias and relu come BEFORE the pool, because the decoder
+// unpools by the index and relu reorders negatives):
+//   s      = relu(bf16(bf16(conv) + b2[c])) for each of the four window values
+//   out    = max over the window of s               (no second bias add)
+//   codes  = 2*py + px of the FIRST s equal to out, in row-major order
+// so an all-nonpositive window (all s = 0) gets code 0 (stage1.py:235-260).
 //
 // What bounds it on the H100: the math. At the inference shape
 // (1x384x1248x64) the conv is 17.7 G multiply-adds, 35.3 GFLOP, against
@@ -53,7 +61,9 @@ namespace {
 
 using namespace stage1;
 
-template <int C, bool kCodes>
+enum Mode { kInfer, kCodes, kSegNet };
+
+template <int C, int kMode>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
                    const __nv_bfloat16* __restrict__ w,   // [Cout][3][3][Cin]
@@ -122,10 +132,18 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
       float v[4];
       uint32_t code[4];
 #pragma unroll
+      // q: pixel g (q = 0, 1) or g+8 (q = 2, 3), channel c + (q & 1)
       for (int q = 0; q < 4; ++q) {
-        const float a0 = round_bf16(acc[0][j][q]);  // window (0, 0)
-        const float a2 = round_bf16(acc[1][j][q]);  // window (1, 0)
-        if constexpr (kCodes) {
+        float a0 = round_bf16(acc[0][j][q]);  // window (0, 0)
+        float a2 = round_bf16(acc[1][j][q]);  // window (1, 0)
+        if constexpr (kMode == kSegNet) {
+          // bias and relu on every window value before the pool; the
+          // neighbour (lane + 4) does the same for column 1, same channel
+          const float bias = (q & 1) ? bias1 : bias0;
+          a0 = fmaxf(round_bf16(__fadd_rn(a0, bias)), 0.f);
+          a2 = fmaxf(round_bf16(__fadd_rn(a2, bias)), 0.f);
+        }
+        if constexpr (kMode != kInfer) {
           const float a1 = __shfl_xor_sync(0xffffffffu, a0, 4);  // (0, 1)
           const float a3 = __shfl_xor_sync(0xffffffffu, a2, 4);  // (1, 1)
           v[q] = fmaxf(fmaxf(a0, a1), fmaxf(a2, a3));
@@ -142,10 +160,13 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
         const int col = ox + 4 * half;
         if (store && col < Wo) {
           const size_t o = (((size_t)n * Ho + oy) * Wo + col) * C + c;
-          const float s0 = fmaxf(round_bf16(__fadd_rn(v[2 * half], bias0)), 0.f);
-          const float s1 = fmaxf(round_bf16(__fadd_rn(v[2 * half + 1], bias1)), 0.f);
+          float s0 = v[2 * half], s1 = v[2 * half + 1];
+          if constexpr (kMode != kSegNet) {
+            s0 = fmaxf(round_bf16(__fadd_rn(s0, bias0)), 0.f);
+            s1 = fmaxf(round_bf16(__fadd_rn(s1, bias1)), 0.f);
+          }
           *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(s0, s1);
-          if constexpr (kCodes)
+          if constexpr (kMode != kInfer)
             *reinterpret_cast<uint16_t*>(codes + o) =
                 (uint16_t)(code[2 * half] | (code[2 * half + 1] << 8));
         }
@@ -154,11 +175,11 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
   }
 }
 
-template <int C, bool kCodes>
+template <int C, int kMode>
 cudaError_t launch(const void* z1, const void* w, const void* b2, void* out,
                    void* codes, int n, int h, int w_, cudaStream_t stream) {
   const size_t smem = conv_smem_bytes(C);
-  auto kernel = stage1_tail_kernel<C, kCodes>;
+  auto kernel = stage1_tail_kernel<C, kMode>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -177,9 +198,23 @@ cudaError_t launch(const void* z1, const void* w, const void* b2, void* out,
 
 template <int C>
 cudaError_t launch_c(const void* z1, const void* w, const void* b2, void* out,
-                     void* codes, int n, int h, int w_, cudaStream_t s) {
-  return codes ? launch<C, true>(z1, w, b2, out, codes, n, h, w_, s)
-               : launch<C, false>(z1, w, b2, out, codes, n, h, w_, s);
+                     void* codes, int n, int h, int w_, bool segnet,
+                     cudaStream_t s) {
+  if (segnet) return launch<C, kSegNet>(z1, w, b2, out, codes, n, h, w_, s);
+  return codes ? launch<C, kCodes>(z1, w, b2, out, codes, n, h, w_, s)
+               : launch<C, kInfer>(z1, w, b2, out, codes, n, h, w_, s);
+}
+
+cudaError_t dispatch(const void* z1, const void* w, const void* b2, void* out,
+                     void* codes, int n, int h, int w_, int c, bool segnet,
+                     cudaStream_t s) {
+  switch (c) {
+    case 16: return launch_c<16>(z1, w, b2, out, codes, n, h, w_, segnet, s);
+    case 32: return launch_c<32>(z1, w, b2, out, codes, n, h, w_, segnet, s);
+    case 48: return launch_c<48>(z1, w, b2, out, codes, n, h, w_, segnet, s);
+    case 64: return launch_c<64>(z1, w, b2, out, codes, n, h, w_, segnet, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -192,12 +227,15 @@ cudaError_t launch_c(const void* z1, const void* w, const void* b2, void* out,
 extern "C" int seg_stage1_tail(const void* z1, const void* w, const void* b2,
                                void* out, void* codes, int n, int h, int w_, int c,
                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (c) {
-    case 16: return (int)launch_c<16>(z1, w, b2, out, codes, n, h, w_, s);
-    case 32: return (int)launch_c<32>(z1, w, b2, out, codes, n, h, w_, s);
-    case 48: return (int)launch_c<48>(z1, w, b2, out, codes, n, h, w_, s);
-    case 64: return (int)launch_c<64>(z1, w, b2, out, codes, n, h, w_, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)dispatch(z1, w, b2, out, codes, n, h, w_, c, false,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// SegNet mode: the same arguments; `idx` (u8, out's shape) is required.
+extern "C" int seg_stage1_tail_segnet(const void* z1, const void* w, const void* b2,
+                                      void* out, void* idx, int n, int h, int w_,
+                                      int c, void* stream) {
+  if (idx == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(z1, w, b2, out, idx, n, h, w_, c, true,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -30,7 +30,8 @@ class FCN8s(nn.Module):
 
     ``fast_upsample`` is accepted for preset compatibility: on the TPU it
     chose between two implementations of the same function; the port has
-    one (``F.conv_transpose2d``). Flags the port does not implement raise.
+    one (``F.conv_transpose2d``). ``pallas_pool`` goes to :class:`VGG16`.
+    Flags the port does not implement raise.
     """
 
     total_stride = 32
@@ -46,7 +47,6 @@ class FCN8s(nn.Module):
         super().__init__()
         if variant not in (8, 16, 32):
             raise ValueError(f"FCN variant must be 8/16/32, got {variant}")
-        reject_unported(pallas_pool=pallas_pool is not None)
         self.num_classes = num_classes
         self.variant = variant
         self.dtype = dtype
@@ -57,7 +57,8 @@ class FCN8s(nn.Module):
                            use_bn=use_bn, winograd=winograd,
                            winograd_fc6=winograd_fc6,
                            packed_stage2_entry=packed_stage2_entry,
-                           pallas_spmd=pallas_spmd, device=device)
+                           pallas_spmd=pallas_spmd, pallas_pool=pallas_pool,
+                           device=device)
         feats = [max(8, int(f * width_mult)) for _, f in VGG16_STAGES]
         kw = dict(dtype=dtype, device=device)
         nc = num_classes

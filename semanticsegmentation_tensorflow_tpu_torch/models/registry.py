@@ -1,5 +1,5 @@
 """Name -> model constructor registry (counterpart of the JAX package's
-``models/registry.py``). Only the FCN family is ported so far."""
+``models/registry.py``). The FCN family and SegNet are ported so far."""
 
 from __future__ import annotations
 
@@ -8,14 +8,16 @@ from typing import Any, Callable
 import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.models.fcn8s import FCN8s
+from semanticsegmentation_tensorflow_tpu_torch.models.segnet import SegNet
 from semanticsegmentation_tensorflow_tpu_torch.ops.shape import round_up
 
 MODELS: dict[str, Callable[..., nn.Module]] = {
     "fcn8s": FCN8s,
     "fcn16s": lambda **kw: FCN8s(variant=16, **kw),
     "fcn32s": lambda **kw: FCN8s(variant=32, **kw),
+    "segnet": SegNet,
 }
-_NOT_YET = ("unet", "segnet", "deeplab")
+_NOT_YET = ("unet", "deeplab")
 
 
 def build_model(name: str, num_classes: int, *, device,

@@ -1,0 +1,87 @@
+"""SegNet: VGG-style encoder + max-pool-index unpooling decoder (counterpart
+of the JAX package's ``models/segnet.py``).
+
+The encoder records the within-window argmax of every 2x2 max pool; the
+decoder upsamples by placing each value back at its recorded position (zeros
+elsewhere), then convolves; a 1x1 head gives float32 logits. Input NHWC with
+H, W divisible by 32 (``ops.shape.pad_to_multiple``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
+from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, ConvBlock
+from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import (
+    VGG16_STAGES, reject_unported,
+)
+from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import SegNetStage1
+from semanticsegmentation_tensorflow_tpu_torch.ops.pool import (
+    max_pool_with_argmax, max_unpool,
+)
+
+
+class SegNet(nn.Module):
+    """Encoder ``enc1``..``enc5`` (VGG16's stages), decoder ``dec5``..``dec1``
+    (``ConvBlock``s with stage i's conv count, each giving the width of the
+    previous encoder stage), 1x1 ``head``; the JAX package's parameter names.
+
+    ``packed_stage1`` and ``pallas_pool`` (the JAX flags' names): with
+    ``packed_stage1`` and ``pallas_pool`` not False, ``enc1`` is
+    :class:`SegNetStage1`, conv1_1 then the fused SegNet stage1 tail kernel
+    (``ops/cuda/stage1.py``); otherwise a ``ConvBlock`` followed by
+    ``max_pool_with_argmax``, as the JAX package's jnp path. Same params and
+    the same function either way. ``packed_dec1`` and ``packed_dec2`` name
+    TPU lane layouts of the decoder's stages 1 and 2 (width pairs packed into
+    the 128 lanes) that compute the same function with the same params; both
+    values are accepted and the canonical decoder runs. ``use_bn=True``, a
+    ``winograd`` form and ``pallas_spmd=True`` are not ported and raise.
+    ``forward`` takes a ``generator`` for the train step's calling
+    convention; SegNet has no dropout and draws nothing.
+    """
+
+    total_stride = 32
+
+    def __init__(self, num_classes: int = 2, width_mult: float = 1.0, *,
+                 use_bn: bool = False, packed_stage1: bool = True,
+                 pallas_pool: bool | None = None, pallas_spmd: bool = False,
+                 winograd: str | None = None, packed_dec1: bool = True,
+                 packed_dec2: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
+                 device=None):
+        super().__init__()
+        reject_unported(use_bn=use_bn, winograd=winograd is not None,
+                        pallas_spmd=pallas_spmd)
+        self.num_classes = num_classes
+        self.dtype = dtype
+        self.fused_stage1 = packed_stage1 and pallas_pool is not False
+        feats = [max(8, int(f * width_mult)) for _, f in VGG16_STAGES]
+        kw = dict(dtype=dtype, device=device)
+        cin = 3
+        for i, (n_convs, _) in enumerate(VGG16_STAGES, start=1):
+            f = feats[i - 1]
+            self.add_module(f"enc{i}", SegNetStage1(cin, f, **kw)
+                            if i == 1 and self.fused_stage1
+                            else ConvBlock(cin, f, n_convs, **kw))
+            cin = f
+        for i in range(len(VGG16_STAGES), 0, -1):
+            out = feats[max(i - 2, 0)]
+            self.add_module(f"dec{i}", ConvBlock(cin, out, VGG16_STAGES[i - 1][0],
+                                                 **kw))
+            cin = out
+        self.head = Conv(cin, num_classes, 1, **kw)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        indices = []
+        for i in range(1, len(VGG16_STAGES) + 1):
+            block = getattr(self, f"enc{i}")
+            if i == 1 and self.fused_stage1:
+                x, idx = block(x)
+            else:
+                x, idx = max_pool_with_argmax(block(x), 2)
+            indices.append(idx)
+        for i in range(len(VGG16_STAGES), 0, -1):
+            x = getattr(self, f"dec{i}")(max_unpool(x, indices[i - 1], 2))
+        return self.head(x).float()

@@ -37,10 +37,12 @@ class VGG16(nn.Module):
 
     ``packed_stage1`` (the JAX flag's name, kept so presets and
     ``--model-kw`` carry over): stage1 runs as :class:`Stage1`, conv1_1 then
-    the fused stage1-tail kernels (on even H and W). False runs it as a
-    :class:`PooledConvBlock`, like stages 2-5 (the last bias added after the
-    pool, bit-exact). Same params either way. ``deferred_pool_bias`` is
-    accepted only at its JAX default (True): the port has no other form.
+    the fused stage1-tail kernels (on even H and W), unless ``pallas_pool``
+    is False (the JAX flag that selects the fused kernel; None and True
+    select it here). Otherwise it runs as a :class:`PooledConvBlock`, like
+    stages 2-5 (the last bias added after the pool, bit-exact). Same params
+    either way. ``deferred_pool_bias`` is accepted only at its JAX default
+    (True): the port has no other form.
     ``dropout_rate`` applies to fc6 and fc7 in ``train()`` mode, with masks
     from the ``generator`` given to :meth:`forward`.
     """
@@ -51,7 +53,7 @@ class VGG16(nn.Module):
                  use_bn: bool = False, dilated_last_stages: bool = False,
                  winograd: str | None = None, winograd_fc6: bool | None = None,
                  packed_stage2_entry: bool = False, pallas_spmd: bool = False,
-                 device=None):
+                 pallas_pool: bool | None = None, device=None):
         super().__init__()
         reject_unported(use_bn=use_bn, dilated_last_stages=dilated_last_stages,
                         winograd=winograd, winograd_fc6=winograd_fc6,
@@ -61,7 +63,7 @@ class VGG16(nn.Module):
         cin = 3
         for i, (n_convs, feats) in enumerate(VGG16_STAGES, start=1):
             feats = max(8, int(feats * width_mult))
-            if i == 1 and packed_stage1:
+            if i == 1 and packed_stage1 and pallas_pool is not False:
                 block = Stage1(cin, feats, dtype=dtype, device=device)
             else:
                 block = PooledConvBlock(cin, feats, n_convs, dtype=dtype,

@@ -33,6 +33,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "seg_stage1_tail": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "seg_stage1_tail_segnet": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "seg_pool_argmax": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "seg_unpool": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "seg_unpool_bwd": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     "seg_stage1_bwd_parts": ((_I, _I, _I, _I), _I),
     "seg_stage1_tail_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
                              _I, _I, _P), _I),

@@ -1,11 +1,13 @@
 """VGG stage1 tail: relu -> 3x3 SAME conv -> 2x2 max pool -> +b2 -> relu,
-forward and backward.
+forward and backward, and SegNet's relu -> conv -> +b2 -> relu -> 2x2
+argmax pool.
 
-The port of ``ops/pallas/stage1.py:fused_stage1_tail`` (FCN mode, single
-device). On the TPU the kernels packed width pairs into 128 lanes; on the
-H100 they are plain NHWC implicit GEMMs (``csrc/stage1_tail.cu``,
-``csrc/stage1_bwd.cu``) that never write the full-resolution conv output
-(forward) or its gradient (backward) to device memory.
+The port of ``ops/pallas/stage1.py:fused_stage1_tail`` (FCN mode) and
+``fused_segnet_stage1_tail`` (SegNet mode), single device. On the TPU the
+kernels packed width pairs into 128 lanes; on the H100 they are plain NHWC
+implicit GEMMs (``csrc/stage1_tail.cu``, ``csrc/stage1_bwd.cu``) that never
+write the full-resolution conv output (forward) or its gradient (backward)
+to device memory.
 
 Three wrappers, each with a plain PyTorch version that it takes only for
 tensors on the CPU; for CUDA tensors each launches its kernel or raises:
@@ -16,15 +18,23 @@ tensors on the CPU; for CUDA tensors each launches its kernel or raises:
 * ``stage1_tail_bwd``: the gradients of z1, k2 and b2 from the output's
   gradient, routed by the codes (its plain version is also the f32
   reference the kernel is checked against on the card).
+* ``stage1_tail_segnet``: SegNet's encoder stage1 tail, (pooled, idx) with
+  the bias and relu before the pool; idx is ``max_pool_with_argmax``'s
+  index, which the decoder unpools by.
 
-:class:`Stage1Tail` is the autograd Function over the last two. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+:class:`Stage1Tail` is the autograd Function over the training forward and
+the backward, :class:`SegNetStage1Tail` over the SegNet forward and the same
+backward. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
+    pool_argmax_plain,
+)
 
 _WIDTHS = (16, 32, 48, 64)
 
@@ -63,6 +73,19 @@ def stage1_tail_codes_plain(z1: torch.Tensor, k2: torch.Tensor,
     codes = (win == m.unsqueeze(-1)).to(torch.uint8).argmax(-1)  # first max
     out = torch.relu(m + b2.to(dt))
     return out, codes.to(torch.uint8)
+
+
+def stage1_tail_segnet_plain(z1: torch.Tensor, k2: torch.Tensor,
+                             b2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the SegNet forward, in ``z1``'s dtype: conv of
+    relu(z1), +b2, relu, then the 2x2 argmax pool's plain version (the
+    function ``ops/pool.py:max_pool_with_argmax`` runs on the CPU). Returns
+    (pooled [N,H/2,W/2,C], u8 idx, the first maximum of relu(conv + b2) in
+    row-major window order: ``ops/pallas/stage1.py:235-260``). H, W even."""
+    dt = z1.dtype
+    z = F.conv2d(torch.relu(z1).permute(0, 3, 1, 2), k2.to(dt), padding=1)
+    s = torch.relu(z + b2.to(dt).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
+    return pool_argmax_plain(s)
 
 
 def stage1_tail_bwd_plain(g: torch.Tensor, out: torch.Tensor,
@@ -139,7 +162,7 @@ def _on_cuda(z1: torch.Tensor, what: str) -> bool:
 
 
 def _forward(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
-             with_codes: bool):
+             with_codes: bool, segnet: bool = False):
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
 
     _check(z1, k2, b2)
@@ -155,13 +178,14 @@ def _forward(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
                       device=z1.device)
     codes = torch.empty(out.shape, dtype=torch.uint8,
                         device=z1.device) if with_codes else None
+    entry = "seg_stage1_tail_segnet" if segnet else "seg_stage1_tail"
     with torch.cuda.device(z1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.seg_stage1_tail(z1.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+        err = getattr(lib, entry)(z1.data_ptr(), wk.data_ptr(), bk.data_ptr(),
                                   out.data_ptr(),
                                   codes.data_ptr() if with_codes else None,
                                   n, h, w, c, stream)
-    build.check(err, "seg_stage1_tail")
+    build.check(err, entry)
     return out, codes
 
 
@@ -189,6 +213,18 @@ def stage1_tail_train(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor
     out, codes = _forward(z1, k2, b2, with_codes=True)
     stage1_tail_train.launches += 1
     return out, codes
+
+
+def stage1_tail_segnet(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SegNet's stage1 tail: (pooled, u8 idx) as
+    :func:`stage1_tail_segnet_plain` defines them; on CUDA as
+    :func:`stage1_tail` takes its inputs."""
+    if not _on_cuda(z1, "stage1 tail"):
+        return stage1_tail_segnet_plain(z1, k2, b2)
+    out, idx = _forward(z1, k2, b2, with_codes=True, segnet=True)
+    stage1_tail_segnet.launches += 1
+    return out, idx
 
 
 def stage1_tail_bwd(g: torch.Tensor, out: torch.Tensor, codes: torch.Tensor,
@@ -242,6 +278,7 @@ def stage1_tail_bwd(g: torch.Tensor, out: torch.Tensor, codes: torch.Tensor,
 stage1_tail.launches = 0
 stage1_tail_train.launches = 0
 stage1_tail_bwd.launches = 0
+stage1_tail_segnet.launches = 0
 
 
 class Stage1Tail(torch.autograd.Function):
@@ -263,4 +300,28 @@ class Stage1Tail(torch.autograd.Function):
     def backward(ctx, g):
         z1, k2, out, codes = ctx.saved_tensors
         dz1, dk2, db2 = stage1_tail_bwd(g, out, codes, z1, k2)
+        return dz1, dk2.to(k2.dtype), db2.to(ctx.b2_dtype)
+
+
+class SegNetStage1Tail(torch.autograd.Function):
+    """SegNet's stage1 tail with the hand-written backward (the port of the
+    ``jax.custom_vjp`` around ``fused_segnet_stage1_tail``): forward
+    :func:`stage1_tail_segnet`, returning (out, idx) with idx
+    non-differentiable; backward :func:`stage1_tail_bwd` fed the SegNet
+    index as its codes, as ``_fused_seg_bwd`` does
+    (``ops/pallas/stage1.py:819-826``): the ``out > 0`` mask is the selected
+    element's relu mask, and the index routes the gradient to it."""
+
+    @staticmethod
+    def forward(ctx, z1, k2, b2):
+        out, idx = stage1_tail_segnet(z1, k2, b2)
+        ctx.save_for_backward(z1, k2, out, idx)
+        ctx.mark_non_differentiable(idx)
+        ctx.b2_dtype = b2.dtype
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g, _g_idx):
+        z1, k2, out, idx = ctx.saved_tensors
+        dz1, dk2, db2 = stage1_tail_bwd(g, out, idx, z1, k2)
         return dz1, dk2.to(k2.dtype), db2.to(ctx.b2_dtype)

@@ -6,8 +6,9 @@ a lane trick of the TPU and is not carried over: on the H100, :class:`Stage1`
 runs conv1_1 with cuDNN, adds b1, and hands the NHWC result to the fused
 stage1-tail kernels (``ops/cuda/stage1.py``): the inference kernel, or, when
 autograd records, the training forward and its backward (``Stage1Tail``).
-Parameter names and shapes are the JAX package's (``stage1/conv0``,
-``stage1/conv1``).
+:class:`SegNetStage1` does the same for SegNet's encoder stage1, whose tail
+returns the argmax pool's index. Parameter names and shapes are the JAX
+package's (``stage1/conv0``, ``stage1/conv1``; ``enc1/...`` for SegNet).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from semanticsegmentation_tensorflow_tpu_torch.models.common import (
     ConvBlock, conv3x3_bias_relu,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-    Stage1Tail, stage1_tail,
+    SegNetStage1Tail, Stage1Tail, stage1_tail, stage1_tail_segnet,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.pool import max_pool
 
@@ -67,3 +68,30 @@ class Stage1(PooledConvBlock):
                 t.requires_grad for t in (z1, k2, b2)):
             return Stage1Tail.apply(z1, k2, b2)
         return stage1_tail(z1, k2, b2)
+
+
+class SegNetStage1(ConvBlock):
+    """SegNet encoder stage1: conv3x3 -> relu -> conv3x3 -> +b2 -> relu ->
+    2x2 argmax pool, returning (pooled, u8 idx) (counterpart of the JAX
+    package's ``PackedSegNetStage1``, ``ops/packed_stem.py:327-386``).
+
+    conv1_1 (``conv0``) runs as a plain conv plus b1 in the compute dtype;
+    the rest is one call of the SegNet stage1 tail
+    (``ops/cuda/stage1.py:stage1_tail_segnet``), or :class:`SegNetStage1Tail`
+    when autograd records. Same parameters as ``ConvBlock(features, 2)``;
+    an odd H or W raises, as the JAX module does."""
+
+    def __init__(self, in_features: int, features: int = 64, *,
+                 dtype: torch.dtype = DEFAULT_DTYPE, device=None):
+        super().__init__(in_features, features, 2, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if x.shape[1] % 2 or x.shape[2] % 2:
+            raise ValueError(f"SegNet stage1 needs even H, W; got "
+                             f"{tuple(x.shape[1:3])}")
+        z1 = self.conv0(x).contiguous()
+        k2, b2 = self.conv1.weight, self.conv1.bias
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (z1, k2, b2)):
+            return SegNetStage1Tail.apply(z1, k2, b2)
+        return stage1_tail_segnet(z1, k2, b2)

@@ -20,9 +20,17 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
     preprocess_normalize, preprocess_normalize_plain,
 )
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
+    pool_argmax, pool_argmax_plain, unpool, unpool_bwd, unpool_bwd_plain,
+    unpool_plain,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-    Stage1Tail, stage1_tail, stage1_tail_bwd, stage1_tail_bwd_plain,
-    stage1_tail_codes_plain, stage1_tail_plain, stage1_tail_train,
+    SegNetStage1Tail, Stage1Tail, stage1_tail, stage1_tail_bwd,
+    stage1_tail_bwd_plain, stage1_tail_codes_plain, stage1_tail_plain,
+    stage1_tail_segnet, stage1_tail_segnet_plain, stage1_tail_train,
+)
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.tie_cases import (
+    int_case, segnet_tie_windows, tie_windows,
 )
 
 pytestmark = pytest.mark.cuda
@@ -115,32 +123,8 @@ def test_predictor_runs_both_kernels_on_card(gen):
     assert (lab == want_lab).mean() >= 0.99
 
 
-def _tie_windows(n, h, w, c, seed):
-    """z1 whose 2x2 windows are permutations of tie patterns, among them
-    c = b > a ((0,1) and (1,0) equal maxima above (0,0)), with a centre-tap
-    identity k2 so the conv output is relu(z1) exactly."""
-    g = torch.Generator().manual_seed(seed)
-    pats = torch.tensor([[1, 2, 2, 0], [2, 2, 2, 2], [0, 1, 1, 1], [3, 1, 3, 0],
-                         [0, 0, 0, 0], [-1, -2, 1, 1], [1, 1, 2, 2]],
-                        dtype=torch.float32)
-    pick = torch.randint(0, len(pats), (n, h // 2, w // 2, c), generator=g)
-    win = pats[pick].reshape(n, h // 2, w // 2, c, 2, 2)
-    z1 = win.permute(0, 1, 4, 2, 5, 3).reshape(n, h, w, c)
-    k2 = torch.zeros(c, c, 3, 3)
-    k2[torch.arange(c), torch.arange(c), 1, 1] = 1.0
-    return z1, k2, torch.zeros(c)
-
-
-def _int_case(n, h, w, c, seed):
-    g = torch.Generator().manual_seed(seed)
-    z1 = torch.randint(-2, 3, (n, h, w, c), generator=g).float()
-    k2 = torch.randint(-1, 2, (c, c, 3, 3), generator=g).float()
-    k2[:, :, 1] = k2[:, :, 0]          # repeated taps -> many pooling ties
-    return z1, k2, torch.randint(-1, 2, (c,), generator=g).float()
-
-
 @pytest.mark.parametrize("shape", [(2, 12, 40, 64), (8, 64, 256, 64)])
-@pytest.mark.parametrize("case", [_tie_windows, _int_case])
+@pytest.mark.parametrize("case", [tie_windows, int_case])
 def test_stage1_train_and_bwd_exact_with_ties_on_card(gen, case, shape):
     """Integer inputs: every sum is exact in f32, so the codes (first
     maximum in row-major window order, c = b > a included) and the kernel's
@@ -152,7 +136,7 @@ def test_stage1_train_and_bwd_exact_with_ties_on_card(gen, case, shape):
     out, codes = stage1_tail_train(z1, k2, b2)
     want_out, want_codes = stage1_tail_codes_plain(z1, k2, b2)
     assert torch.equal(out, want_out) and torch.equal(codes, want_codes)
-    if case is _tie_windows:
+    if case is tie_windows:
         assert int((want_codes == 1).sum()) > 0  # c = b > a picks b
     cot = torch.randint(-3, 4, out.shape, generator=torch.Generator().manual_seed(2)
                         ).to("cuda", torch.bfloat16)
@@ -210,3 +194,109 @@ def test_preprocess_kernel_bytes_equal_plain_on_card(gen):
     assert preprocess_normalize.launches == before + 1
     want = preprocess_normalize_plain(img, flip, oy, ox, (32, 32), mean, std)
     assert got.shape == (4, 32, 32, 3) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64), (1, 6, 10, 8),
+                                   (3, 20, 72, 512)])
+@pytest.mark.parametrize("integer", [True, False])
+def test_pool_kernels_bytes_equal_plain_on_card(gen, shape, integer):
+    """Kernel 5's three entry points are selections: pooled values, indices
+    (first maximum, ties from small integers), the unpool and its backward
+    equal the plain versions bit for bit."""
+    if integer:
+        x = torch.randint(-2, 3, shape, generator=gen, device="cuda").bfloat16()
+    else:
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    before = pool_argmax.launches, unpool.launches, unpool_bwd.launches
+    p, idx = pool_argmax(x)
+    want_p, want_idx = pool_argmax_plain(x)
+    assert torch.equal(p, want_p) and torch.equal(idx, want_idx)
+    if integer:
+        assert set(idx.unique().tolist()) == {0, 1, 2, 3}
+    assert torch.equal(unpool(p, idx), unpool_plain(p, idx))
+    assert torch.equal(unpool_bwd(g, idx), unpool_bwd_plain(g, idx))
+    assert (pool_argmax.launches, unpool.launches, unpool_bwd.launches) == tuple(
+        b + 1 for b in before)
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 40, 64), (8, 64, 256, 64),
+                                   (1, 6, 34, 16)])
+@pytest.mark.parametrize("case", [segnet_tie_windows, int_case])
+def test_segnet_tail_exact_with_ties_on_card(gen, case, shape):
+    """Kernel 3 on integer inputs: out and idx (the first maximum of
+    relu(bf16(conv + b2)), ties after the bias add and all-zero windows
+    included) equal the plain version; the autograd Function's gradients
+    equal the f32 backward reference fed the same (out, idx)."""
+    z1, k2, b2 = (t.to("cuda", torch.bfloat16) for t in case(*shape, 3))
+    before = stage1_tail_segnet.launches
+    out, idx = stage1_tail_segnet(z1, k2, b2)
+    assert stage1_tail_segnet.launches == before + 1
+    want_out, want_idx = stage1_tail_segnet_plain(z1, k2, b2)
+    assert torch.equal(out, want_out) and torch.equal(idx, want_idx)
+    if case is segnet_tie_windows:
+        assert bool((idx[..., 1::4] == 0).all())
+        assert int((idx == 1).sum()) > 0
+    cot = torch.randint(-3, 4, out.shape, generator=torch.Generator().manual_seed(4)
+                        ).to("cuda", torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (z1, k2, b2)]
+    got = torch.autograd.grad(SegNetStage1Tail.apply(*leaves)[0], leaves, cot)
+    want = stage1_tail_bwd_plain(cot, want_out, want_idx, z1, k2)
+    for a, b in zip(got, want):
+        assert torch.equal(a.float(), b.to(a.dtype).float())
+
+
+@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (2, 10, 66, 48)])
+def test_segnet_tail_matches_plain_on_card(gen, shape):
+    """Random inputs: out within one bf16 ulp of the conv value plus one of
+    the bias add (another f32 summation order before the rounding); the
+    indices agree except where that ulp reorders a near tie."""
+    n, h, w, c = shape
+    z1 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    k2 = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+          / (9 * c) ** 0.5).bfloat16()
+    b2 = (torch.randn((c,), generator=gen, device="cuda") / 10).bfloat16()
+    out, idx = stage1_tail_segnet(z1, k2, b2)
+    want, want_idx = stage1_tail_segnet_plain(z1, k2, b2)
+    bound = 2 ** -6 * (want.float().abs() + b2.float().abs()) + 1e-6
+    assert bool(((out.float() - want.float()).abs() <= bound).all())
+    assert (idx == want_idx).float().mean().item() >= 0.999
+
+
+def test_segnet_predictor_runs_its_kernels_on_card(gen):
+    """A narrow SegNet through the Predictor on the card launches kernels 3
+    and 5 and stays as close to the float32 model (the CPU's plain path) as
+    the CPU's own bf16 run does. SegNet's pools route by argmax indices that
+    a one-ulp difference can flip, which moves a value within its window:
+    on the CPU the bf16 and f32 runs of these weights differ by a relative
+    L2 of ~0.3 in the logits, as do the JAX package's (test_torch_segnet's
+    test_bf16_spread_is_the_models_not_the_ports). Bound: the
+    card's distance to f32 at most 1.5x the CPU bf16 run's, plus 0.02."""
+    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+
+    def predictor(device, dtype=torch.bfloat16):
+        model = build_model("segnet", 2, device=device, width_mult=0.25, dtype=dtype)
+        model.load_state_dict(weights)
+        return Predictor(model, (40, 70), device=device)
+
+    weights = init_params(build_model("segnet", 2, device="cpu", width_mult=0.25),
+                          torch.Generator().manual_seed(0)).state_dict()
+    img = np.random.default_rng(0).integers(0, 256, (2, 40, 70, 3), np.uint8)
+    card = predictor("cuda")
+    before = (stage1_tail_segnet.launches, pool_argmax.launches, unpool.launches)
+    ov, _ = card(img)
+    assert (stage1_tail_segnet.launches, pool_argmax.launches,
+            unpool.launches) == (before[0] + 1, before[1] + 4, before[2] + 5)
+    assert ov.shape == (2, 40, 70, 3)
+    ref = predictor("cpu", torch.float32)
+    x = ref._to_device(img)
+    want = ref._padded_logits(x)
+    cpu = predictor("cpu")._padded_logits(x)
+    got = card._padded_logits(x.cuda()).cpu()
+
+    def rel(a):
+        return ((a - want).norm() / want.norm()).item()
+
+    assert rel(got) <= 1.5 * rel(cpu) + 0.02

@@ -164,11 +164,30 @@ def test_init_mirrors_flax_distributions():
 @pytest.mark.parametrize("kw", [{"use_bn": True}, {"winograd": "f2"},
                                 {"winograd_fc6": True},
                                 {"packed_stage2_entry": True},
-                                {"pallas_spmd": True}, {"pallas_pool": True},
+                                {"pallas_spmd": True},
                                 {"deferred_pool_bias": False}])
 def test_unported_flags_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model("fcn8s", 2, device="meta", **kw)
+
+
+@pytest.mark.parametrize("pallas_pool", [True, False])
+def test_pallas_pool_flag_matches_jax(pallas_pool):
+    """``pallas_pool`` as the JAX package takes it: True runs the fused
+    stage1 tail (in JAX the Pallas kernel, interpret mode here, which needs
+    the full stage1 width 64), False the plain pooled stage1; the logits
+    equal the JAX model's with the same flag."""
+    kw = dict(width_mult=1.0, pallas_pool=pallas_pool)
+    model = jax_fcn("fcn8s", **kw)
+    variables = jax_init(model, hw=(32, 64))
+    x = nhwc_input((1, 32, 64, 3), seed=6)
+    want = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x)))
+    port = port_fcn("fcn8s", variables, **kw)
+    assert type(port.vgg16.stage1).__name__ == ("Stage1" if pallas_pool
+                                                else "PooledConvBlock")
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    _assert_logits_close(got, want)
 
 
 @pytest.mark.parametrize("hw", [(375, 1242), (64, 96), (1, 33)])
@@ -178,7 +197,7 @@ def test_padded_input_hw_matches_jax(hw):
     assert padded_input_hw(port, (375, 1242)) == (384, 1248)
 
 
-@pytest.mark.parametrize("name", ["unet", "segnet", "deeplab"])
+@pytest.mark.parametrize("name", ["unet", "deeplab"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         build_model(name, 2, device="meta")

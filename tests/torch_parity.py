@@ -23,7 +23,7 @@ def jax_fcn(name: str = "fcn8s", canonical: bool = False, **kw):
     (``registry.quant_safe_kwargs``: every perf-only flag off)."""
     extra = quant_safe_kwargs(name) if canonical else {}
     return jax_build(name, num_classes=kw.pop("num_classes", 2),
-                     dtype=jnp.float32, **SMALL, **extra, **kw)
+                     dtype=jnp.float32, **dict(SMALL, **extra, **kw))
 
 
 def jax_init(model, hw=(64, 96), seed=0):
@@ -38,7 +38,7 @@ def port_fcn(name: str = "fcn8s", variables=None, **kw):
     (strict)."""
     model = build_model(name, num_classes=kw.pop("num_classes", 2),
                         device="cpu", dtype=kw.pop("dtype", torch.float32),
-                        **SMALL, **kw)
+                        **dict(SMALL, **kw))
     if variables is not None:
         sd = convert.to_state_dict(convert.flatten_params(variables), model)
         model.load_state_dict(sd, strict=True)

@@ -4,18 +4,22 @@
     python tools/profile_train.py [--iters 5] [--top 15] \
         [--out chiprun_out/profile_train.json]
 
-Two workloads, each with seeded random weights and a uint8 batch resident
-on the card, Adam 1e-4, dropout 0.5:
+Three workloads, each with seeded random weights and a uint8 batch
+resident on the card, Adam 1e-4 (FCN-8s with dropout 0.5):
 
 - ``preset``: fcn8s_kitti (fc 1024), batch 8 of 384x1248, 320x1152 crops,
   train-time confusion matrix on (what ``scripts/train.py`` runs);
 - ``bench``: bench.py's workload (fc 4096, batch 16, 384x1248, flip only,
-  loss only).
+  loss only);
+- ``segnet``: segnet_kitti (SegNet, full width), batch 8 of 384x1248,
+  320x1152 crops, metrics on.
 
 For each, two builds of the same weights in turns kernel, plain, plain,
-kernel: "kernel" (the stage1 training forward and backward kernels and the
-preprocess kernel) and "plain" (stage1 as cuDNN convs and a max pool, the
-preprocess kernel's plain version). It prints the host ms per step (mean of
+kernel: "kernel" (the stage1 training forward and backward kernels, for
+SegNet the SegNet stage1 forward and the argmax pool/unpool kernels, and the
+preprocess kernel) and "plain" (stage1 as cuDNN convs and a max pool, for
+SegNet a ConvBlock and the pool/unpool plain versions, and the preprocess
+kernel's plain version). It prints the host ms per step (mean of
 ``--iters``, after two warm-up steps), then, from one run of ``--iters``
 steps under torch.profiler, the device ms (summed over ops) and ops per
 step, the device's busy ms (the union of the ops' intervals), the wall per
@@ -33,6 +37,7 @@ times training with.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -40,6 +45,7 @@ import sys
 import time
 from collections import defaultdict
 from functools import partial
+from unittest import mock
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -52,7 +58,36 @@ WORKLOADS = {
     "bench": dict(fc=4096, n=16, crop=None, metrics=False,
                   what="bench.py workload (fc 4096, batch 16, 384x1248, flip "
                        "only, loss only)"),
+    "segnet": dict(model="segnet", n=8, crop=(320, 1152), metrics=True,
+                   what="segnet_kitti preset (SegNet, batch 8, 384x1248 -> "
+                        "320x1152 crops, metrics on)"),
 }
+
+
+@contextlib.contextmanager
+def plain_pools():
+    """Within it, SegNet's argmax pools and unpools run their plain PyTorch
+    versions (differentiable, the same function and gradients) on any
+    device instead of the kernels: the plain build of the kernel-vs-plain
+    comparisons. Nothing on the port's own path uses it."""
+    from semanticsegmentation_tensorflow_tpu_torch.models import segnet
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
+        pool_argmax_plain, unpool_plain,
+    )
+
+    with mock.patch.object(segnet, "max_pool_with_argmax",
+                           lambda x, window=2: pool_argmax_plain(x)), \
+            mock.patch.object(segnet, "max_unpool",
+                              lambda p, idx, window=2: unpool_plain(p, idx)):
+        yield
+
+
+def in_plain_pools(fn):
+    """``fn`` wrapped to run inside :func:`plain_pools`."""
+    def call(*args, **kwargs):
+        with plain_pools():
+            return fn(*args, **kwargs)
+    return call
 
 
 def busy_ms(intervals: list[tuple[float, float]]) -> float:
@@ -113,11 +148,12 @@ def show_idle(share: float | None) -> str:
 
 def train_workload(torch, wl: dict, packed: bool = True, weights=None):
     """A train step of no arguments for workload ``wl`` (a ``WORKLOADS``
-    entry) on the card: FCN-8s at fc width ``wl["fc"]``, seeded random
-    weights (or ``weights``, a state dict), Adam 1e-4, dropout 0.5, a batch
-    of ``wl["n"]`` 384x1248 uint8 images resident on the card, flip and
-    ``wl["crop"]`` by the preprocess kernel (``packed``) or its plain
-    version (stage1 then as cuDNN convs and a max pool)."""
+    entry) on the card: FCN-8s at fc width ``wl["fc"]`` (or SegNet where
+    ``wl["model"]`` says so), seeded random weights (or ``weights``, a state
+    dict), Adam 1e-4, dropout 0.5, a batch of ``wl["n"]`` 384x1248 uint8
+    images resident on the card, flip and ``wl["crop"]`` by the preprocess
+    kernel (``packed``) or its plain version (stage1 then as cuDNN convs and
+    a max pool, SegNet's pools and unpools their plain versions)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
@@ -132,8 +168,9 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None):
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
 
     dev = torch.device("cuda")
-    model = build_model("fcn8s", 2, device=dev, fc_features=wl["fc"],
-                        packed_stage1=packed)
+    name = wl.get("model", "fcn8s")
+    kw = {"fc_features": wl["fc"]} if name == "fcn8s" else {}
+    model = build_model(name, 2, device=dev, packed_stage1=packed, **kw)
     if weights is None:
         init_params(model, torch.Generator(device=dev).manual_seed(0))
     else:
@@ -148,8 +185,9 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None):
                  0, 256, (wl["n"], 384, 1248, 3), np.uint8)).to(dev),
              "label": torch.from_numpy(rng.integers(
                  0, 2, (wl["n"], 384, 1248)).astype(np.int32)).to(dev)}
-    return partial(make_train_step(2, augment_fn=aug, with_metrics=wl["metrics"]),
+    step = partial(make_train_step(2, augment_fn=aug, with_metrics=wl["metrics"]),
                    state, batch)
+    return in_plain_pools(step) if name == "segnet" and not packed else step
 
 
 def time_train(torch, step, n: int, iters: int) -> dict:
@@ -180,7 +218,8 @@ def time_train(torch, step, n: int, iters: int) -> dict:
 
 def group(name: str) -> str:
     low = name.lower()
-    if any(k in low for k in ("stage1_", "preprocess_kernel")):
+    if any(k in low for k in ("stage1_", "preprocess_kernel", "pool_argmax",
+                              "unpool")):
         return "port kernels"
     if any(k in low for k in ("conv", "cudnn", "xmma", "cutlass", "gemm",
                               "wgrad", "dgrad", "fprop")):
