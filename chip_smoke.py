@@ -24,6 +24,12 @@ just before it and read just after:
 Then the same two paths at the full width of the ``segnet_kitti`` preset
 (SegNet), after the SegNet stage1 tail and the argmax pool/unpool kernels
 are checked against their plain versions at the shapes SegNet gives them.
+Then the Winograd paths, after kernel 6 is checked against its plain
+version at every Winograd conv shape of both train steps and of a
+full-resolution forward: FCN-8s with ``--model-kw winograd=f2`` through
+infer_image, serve and train.py (3 steps, --resume), its logits against the
+float32 direct model, and SegNet with ``winograd=f4`` (a Predictor call and
+a train step).
 
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
@@ -425,10 +431,11 @@ def write_png(path: str, seed: int) -> None:
     Image.fromarray(np.clip(base + noise, 0, 255).astype(np.uint8)).save(path)
 
 
-def drive_slice(torch, tmp: str, preset: str) -> dict:
+def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None) -> dict:
     """The inference path through the user's entry points at ``preset``
-    (random weights): infer_image, the server answering requests, the
-    Predictor's steady state. Returns timings."""
+    (random weights; ``model_kw`` as ``--model-kw`` takes it): infer_image,
+    the server answering requests, the Predictor's steady state. Returns
+    timings."""
     import http.client
 
     import numpy as np
@@ -441,11 +448,13 @@ def drive_slice(torch, tmp: str, preset: str) -> dict:
     png = os.path.join(tmp, "kitti_like.png")
     out = os.path.join(tmp, "overlay.png")
     write_png(png, seed=0)
+    kw = ["--model-kw", model_kw] if model_kw else []
+    what = f"{preset} {model_kw}" if model_kw else preset
 
     # 1. infer_image, as a user runs it (random weights)
     t0 = time.perf_counter()
     rc = infer_image.main(["--preset", preset, "--image", png, "--out", out,
-                           "--device", "cuda"])
+                           "--device", "cuda", *kw])
     torch.cuda.synchronize()
     times["infer_image_main_s"] = time.perf_counter() - t0
     if rc != 0:
@@ -459,7 +468,7 @@ def drive_slice(torch, tmp: str, preset: str) -> dict:
 
     # 2. the server, in a thread, answering real HTTP requests
     server, _ = serve.make_server(["--preset", preset, "--device", "cuda",
-                                   "--port", "0"])
+                                   "--port", "0", *kw])
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -513,7 +522,7 @@ def drive_slice(torch, tmp: str, preset: str) -> dict:
             times[name] = float(np.median(ts))
         dev, ops = device_ms(lambda: pred(img), iters=10)
         times["predictor_overlay_device_ms"] = dev
-        log(f"Predictor {preset}, 1x{IMAGE_HW[0]}x{IMAGE_HW[1]}: overlay "
+        log(f"Predictor {what}, 1x{IMAGE_HW[0]}x{IMAGE_HW[1]}: overlay "
             f"{times['predictor_overlay_ms']:.3f} ms/image, packed labels "
             f"{times['predictor_labels_ms']:.3f} ms/image (host clock, median "
             f"of 10); overlay call on the device {dev:.3f} ms in {ops} ops, "
@@ -603,12 +612,13 @@ def check_end_to_end(torch) -> None:
         raise AssertionError("end-to-end check failed")
 
 
-def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti") -> dict:
+def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
+                   model_kw: str | None = None) -> dict:
     """The training path through the user's entry points: the port's
     scripts/train.py on a generated synthetic KITTI set (24 images at
-    375x1242) at ``preset`` (batch 8, 320x1152 crops, full width, 3 steps)
-    with --pallas-preprocess, then --resume, then infer_image on the
-    checkpoint it wrote."""
+    375x1242) at ``preset`` (batch 8, 320x1152 crops, full width, 3 steps;
+    ``model_kw`` as ``--model-kw`` takes it) with --pallas-preprocess, then
+    --resume, then infer_image on the checkpoint it wrote."""
     import contextlib
     import math
 
@@ -623,8 +633,10 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti") -> dict:
     data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
                                     n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=0)
     ck = os.path.join(tmp, "ckpt")
+    kw = ["--model-kw", model_kw] if model_kw else []
+    what = f"{preset} {model_kw}" if model_kw else preset
     argv = ["--preset", preset, "--data-dir", data, "--epochs", "1",
-            "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda"]
+            "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda", *kw]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if train.main(argv) != 0:
@@ -639,7 +651,7 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti") -> dict:
         raise AssertionError(f"train: loss {loss} at step {epoch.get('step')}")
     if not os.path.exists(os.path.join(ck, "ckpt_3.pt")):
         raise AssertionError(f"train wrote no checkpoint: {os.listdir(ck)}")
-    log(f"train.main {preset}, 24 images, batch 8, 320x1152 crops: 3 steps, "
+    log(f"train.main {what}, 24 images, batch 8, 320x1152 crops: 3 steps, "
         f"loss {loss:.4f}, miou {epoch.get('epoch/miou', float('nan')):.4f}, "
         f"{wall:.1f} s wall (data decode, model build, cuDNN setup included), "
         f"peak device memory {peak:.2f} GiB")
@@ -652,7 +664,7 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti") -> dict:
     out = os.path.join(tmp, "trained_overlay.png")
     src = os.path.join(data, "testing", "image_2", "um_000024.png")
     if infer_image.main(["--preset", preset, "--checkpoint-dir", ck, "--image",
-                         src, "--out", out, "--device", "cuda"]) != 0:
+                         src, "--out", out, "--device", "cuda", *kw]) != 0:
         raise AssertionError("infer_image on the trained checkpoint failed")
     ov = np.asarray(Image.open(out))
     if ov.shape != (*IMAGE_HW, 3):
@@ -882,11 +894,6 @@ def check_pool(torch, gen) -> dict:
         pool_argmax, pool_argmax_plain, unpool, unpool_bwd, unpool_bwd_plain,
         unpool_plain,
     )
-
-    def time3(plain, kernel, library):
-        t = [device_ms(f)[0] for f in (plain, kernel, library, kernel, plain,
-                                       library)]
-        return (t[1] + t[3]) / 2, (t[0] + t[4]) / 2, (t[2] + t[5]) / 2
 
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "elems": 0.0}
 
@@ -1122,6 +1129,281 @@ def check_segnet_train_step(torch) -> None:
         raise AssertionError("the segnet loss did not fall on a fixed batch")
 
 
+# --- kernel 6: Winograd F(2,3) / F(4,3) ------------------------------------
+
+# The distinct eligible 3x3 convs of one train step at the presets (batch 8,
+# 320x1152 crops, full width) as ((N, H, W, Cin), Cout, FCN-8s layers,
+# SegNet layers), counted from the models' routing (models.common.
+# winograd_impl); and of one full-resolution Predictor forward (batch 1,
+# 384x1248), where f4 is ineligible at stage 5 (W = 78).
+WINOGRAD_TRAIN = (
+    ((8, 160, 576, 128), 128, 1, 1),
+    ((8, 80, 288, 128), 256, 1, 1),
+    ((8, 80, 288, 256), 256, 2, 2),
+    ((8, 80, 288, 128), 128, 0, 2),
+    ((8, 80, 288, 256), 128, 0, 1),
+    ((8, 40, 144, 256), 512, 1, 1),
+    ((8, 40, 144, 512), 512, 2, 2),
+    ((8, 40, 144, 256), 256, 0, 2),
+    ((8, 40, 144, 512), 256, 0, 1),
+    ((8, 20, 72, 512), 512, 3, 6),
+)
+WINOGRAD_INFER = (
+    ((1, 192, 624, 128), 128), ((1, 96, 312, 128), 256), ((1, 96, 312, 256), 256),
+    ((1, 96, 312, 128), 128), ((1, 96, 312, 256), 128), ((1, 48, 156, 256), 512),
+    ((1, 48, 156, 512), 512), ((1, 48, 156, 256), 256), ((1, 48, 156, 512), 256),
+    ((1, 24, 78, 512), 512),
+)
+
+
+def time3(plain, kernel, library, timer=None) -> tuple[float, float, float]:
+    """ms per call of the kernel, its plain version and the library call, in
+    turns (plain, kernel, library, kernel, plain, library), each the mean of
+    two turns; by ``timer`` (default: the profiler's device time)."""
+    timer = timer or (lambda f: device_ms(f)[0])
+    t = [timer(f) for f in (plain, kernel, library, kernel, plain, library)]
+    return (t[1] + t[3]) / 2, (t[0] + t[4]) / 2, (t[2] + t[5]) / 2
+
+
+def check_winograd(torch, gen) -> dict:
+    """Kernel 6 against its plain version at every eligible conv shape of
+    the FCN-8s and SegNet train steps (WINOGRAD_TRAIN) for f2 and f4: the
+    forward in both epilogues (bias_relu, none), the masked forward that is
+    the bias_relu op's input gradient, and the wgrad with and without the
+    mask; at the inference shapes (WINOGRAD_INFER) the bias_relu forward,
+    for each variant where eligible. Then the forward, dgrad and wgrad of
+    each train shape timed against the plain versions and the library
+    calls (cuDNN through F.conv2d with the bias, and
+    aten.convolution_backward for the input and for the weight and bias
+    gradients), by CUDA events around 5 calls after one warm-up (each call
+    is a large device-bound launch; the profiler lost its events over the
+    hundreds of short sessions this would take), and summed over one train
+    step of each model.
+
+    Bounds, written before the first run: the forward and dgrad are one
+    bf16 rounding of float32 sums taken in another order than the plain
+    version's (the transforms round alike: same order, no fused
+    multiply-add), so one bf16 ulp: |kernel - plain| <= 2^-7 |plain| +
+    2^-12 max |plain|; dU and db are float32 sums over up to 184320 tiles
+    in another order: 1e-4 of max |plain|, as kernel 1b's wgrad. A rerun of
+    the wgrad gives the same bits."""
+    import torch.nn.functional as F
+
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
+    from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
+        VARIANTS, rot180_swap,
+    )
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def events(fn):
+        return cuda_ms(fn, iters=5, warmup=1)
+
+    def held(got, want, rel, near0, what):
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        bad = int((err > rel * want.abs() + near0 * want.abs().max()).sum())
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"winograd {what}: {bad} elements outside the bound")
+        return err.max().item()
+
+    worst = 0.0
+    for variant in ("f2", "f4"):
+        m = VARIANTS[variant].m
+        for shape, co in [(s, c) for s, c, *_ in WINOGRAD_TRAIN] + list(WINOGRAD_INFER):
+            n, h, w, c = shape
+            if h % m or w % m:
+                continue
+            x = rand(shape).bfloat16()
+            wt = rand((co, c, 3, 3), (1.0 / (9 * c)) ** 0.5)
+            b = rand((co,), 0.1).bfloat16()
+            u = cw.u_for(wt, variant, torch.bfloat16)
+            what = f"{variant} {list(shape)}->{co}"
+            worst = max(worst, held(cw.winograd_fwd(x, u, b, None, variant, "bias_relu"),
+                                    cw.winograd_fwd_plain(x, u, b, None, variant,
+                                                          "bias_relu"),
+                                    2 ** -7, 2 ** -12, what + " bias_relu"))
+            if n == 1:
+                log(f"winograd {what} (inference): bias_relu forward within the bound")
+                continue
+            held(cw.winograd_fwd(x, u, b, None, variant, "none"),
+                 cw.winograd_fwd_plain(x, u, b, None, variant, "none"),
+                 2 ** -7, 2 ** -12, what + " none")
+            g, o = rand((n, h, w, co)).bfloat16(), rand((n, h, w, co)).bfloat16()
+            u2 = cw.u_for(rot180_swap(wt), variant, torch.bfloat16)
+            dx_err = held(cw.winograd_fwd(g, u2, None, o, variant, "none"),
+                          cw.winograd_fwd_plain(g, u2, None, o, variant, "none"),
+                          2 ** -7, 2 ** -12, what + " masked dgrad")
+            errs = []
+            for mask in (o, None):
+                du, db = cw.winograd_wgrad(x, g, mask, variant)
+                du_p, db_p = cw.winograd_wgrad_plain(x, g, mask, variant)
+                errs += [held(du, du_p, 0.0, 1e-4, what + " dU"),
+                         held(db, db_p, 0.0, 1e-4, what + " db")]
+                again = cw.winograd_wgrad(x, g, mask, variant)
+                if not (torch.equal(du, again[0]) and torch.equal(db, again[1])):
+                    raise AssertionError(f"winograd {what}: two wgrad runs differ")
+                del du, db, du_p, db_p, again
+            log(f"winograd {what}: forward (both epilogues), masked dgrad (max_abs_err "
+                f"{dx_err:.4g}) and wgrad with and without the mask (dU, db max_abs_err "
+                f"{max(errs[0], errs[2]):.4g}, {max(errs[1], errs[3]):.4g}) within the "
+                "bounds; wgrad reruns bit-identical")
+            del x, g, o, u, u2
+        torch.cuda.empty_cache()
+
+    log("winograd timings per call at the train shapes (ms by CUDA events; kernel, plain, "
+        "library; bound; ops fwd = bias_relu forward, dgrad = masked forward, "
+        "wgrad = dU + db):")
+    step = {(model, variant): {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                               "bytes": 0.0, "flops": 0.0}
+            for model in ("fcn8s", "segnet") for variant in ("f2", "f4")}
+    for variant in ("f2", "f4"):
+        m, a2 = VARIANTS[variant].m, VARIANTS[variant].a ** 2
+        for shape, co, n_fcn, n_seg in WINOGRAD_TRAIN:
+            n, h, w, c = shape
+            tiles = n * (h // m) * (w // m)
+            x = rand(shape).bfloat16()
+            wt = rand((co, c, 3, 3), (1.0 / (9 * c)) ** 0.5)
+            b = rand((co,), 0.1).bfloat16()
+            g, o = rand((n, h, w, co)).bfloat16(), rand((n, h, w, co)).bfloat16()
+            u = cw.u_for(wt, variant, torch.bfloat16)
+            u2 = cw.u_for(rot180_swap(wt), variant, torch.bfloat16)
+            xc, gc = x.permute(0, 3, 1, 2), (g * (o > 0)).permute(0, 3, 1, 2)
+            wc = wt.bfloat16().contiguous(memory_format=torch.channels_last)
+            flops = 2.0 * a2 * tiles * c * co
+            px = n * h * w
+            ops = {
+                "fwd": (lambda: cw.winograd_fwd_plain(x, u, b, None, variant, "bias_relu"),
+                        lambda: cw.winograd_fwd(x, u, b, None, variant, "bias_relu"),
+                        lambda: F.conv2d(xc, wc, b, padding=1),
+                        2 * px * (c + co) + 2 * a2 * c * co),
+                "dgrad": (lambda: cw.winograd_fwd_plain(g, u2, None, o, variant, "none"),
+                          lambda: cw.winograd_fwd(g, u2, None, o, variant, "none"),
+                          lambda: torch.ops.aten.convolution_backward(
+                              gc, xc, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                              1, [True, False, False]),
+                          2 * px * (2 * co + c) + 2 * a2 * c * co),
+                "wgrad": (lambda: cw.winograd_wgrad_plain(x, g, o, variant),
+                          lambda: cw.winograd_wgrad(x, g, o, variant),
+                          lambda: torch.ops.aten.convolution_backward(
+                              gc, xc, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                              1, [False, True, True]),
+                          2 * px * (c + 2 * co) + 4 * a2 * c * co + 4 * co),
+            }
+            line = []
+            for op, (plain, kernel, library, nbytes) in ops.items():
+                k, p, lib = time3(plain, kernel, library, timer=events)
+                bd = bound(nbytes, flops)
+                line.append(f"{op} {k:.4f} / {p:.4f} / {lib:.4f} (bound {bd['bound_ms']:.4f}"
+                            f" {bd['bound_by']})")
+                for model, count in (("fcn8s", n_fcn), ("segnet", n_seg)):
+                    acc = step[(model, variant)]
+                    acc["ms"] += count * k
+                    acc["plain_ms"] += count * p
+                    acc["library_ms"] += count * lib
+                    acc["bytes"] += count * nbytes
+                    acc["flops"] += count * flops
+            log(f"  {variant} {list(shape)}->{co}: " + "; ".join(line))
+            del x, g, o, u, u2, xc, gc, wc, ops
+        torch.cuda.empty_cache()
+    for (model, variant), acc in step.items():
+        log(f"winograd per {model} train step at {variant} (fwd + dgrad + wgrad over "
+            f"its routed layers): kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} "
+            f"ms, library {acc['library_ms']:.4f} ms, bound "
+            f"{bound(acc['bytes'], acc['flops'])['bound_ms']:.4f} ms")
+    main = step[("fcn8s", "f2")]
+    return {"max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "library_ms": main["library_ms"], **bound(main["bytes"], main["flops"])}
+
+
+def drive_segnet_winograd(torch, tmp: str) -> dict:
+    """SegNet (segnet_kitti, full width) with ``--model-kw winograd=f4``:
+    a Predictor built as the serving CLIs build it, called on a generated
+    image, and one train step of the preset's workload
+    (tools/profile_train.py's train_workload)."""
+    import math
+    from argparse import ArgumentParser
+
+    import numpy as np
+    from PIL import Image
+
+    from profile_train import WORKLOADS, train_workload
+    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
+        add_model_args, build_predictor,
+    )
+
+    png = os.path.join(tmp, "kitti_like.png")
+    write_png(png, seed=0)
+    img = np.asarray(Image.open(png).convert("RGB"))
+    p = ArgumentParser()
+    add_model_args(p)
+    args = p.parse_args(["--preset", "segnet_kitti", "--model-kw", "winograd=f4",
+                         "--device", "cuda"])
+    pred = build_predictor(args, torch.device("cuda"))
+    overlay, labels = pred(img)
+    if overlay.shape != (*IMAGE_HW, 3) or labels.shape != IMAGE_HW:
+        raise AssertionError("segnet f4 Predictor: bad output shapes")
+    del pred
+    step = train_workload(torch, WORKLOADS["segnet"], model_kw={"winograd": "f4"})
+    loss = step()["loss"].item()
+    torch.cuda.synchronize()
+    if not math.isfinite(loss):
+        raise AssertionError(f"segnet f4 train step: loss {loss}")
+    log(f"segnet_kitti winograd=f4: Predictor overlay {overlay.shape}, road fraction "
+        f"{float(labels.mean()):.3f}; one train step (batch 8, 320x1152), loss {loss:.5f}")
+    return {"segnet_f4_loss": loss}
+
+
+def check_winograd_end_to_end(torch) -> None:
+    """The full fcn8s_kitti forward with winograd=f2 (bf16, kernel 6 on the
+    routed layers) held against the float32 direct model (plain stage1, TF32
+    off), beside the default bf16 build against the same f32 model, same
+    weights and image.
+
+    Bound, written before the first run: F(2,3) rounds V and U to bf16
+    where the direct conv rounds only its inputs, measured at 1.5-1.7x the
+    direct conv's bf16 error per layer (the JAX package's numerics harness);
+    FCN-8s in bf16 sits ~0.014 relative L2 from f32 (tools/
+    rounding_sensitivity.py). So the f2 build's relative L2 distance to the
+    f32 logits at most 2x the default build's plus 0.005, and its labels'
+    agreement with f32's at least the default build's less 0.5 point."""
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+
+    dev = torch.device("cuda")
+    weights = init_params(build_model("fcn8s", 2, device=dev),
+                          torch.Generator(device=dev).manual_seed(3)).state_dict()
+
+    def logits(x, **kw):
+        model = build_model("fcn8s", 2, device=dev, **kw)
+        model.load_state_dict(weights)
+        return Predictor(model, IMAGE_HW, device=dev)._padded_logits(x)
+
+    img = np.random.default_rng(5).integers(0, 256, (1, *IMAGE_HW, 3), np.uint8)
+    x = torch.from_numpy(img).to(dev)
+    lw = logits(x, winograd="f2")
+    ld = logits(x)
+    lr = logits(x, packed_stage1=False, dtype=torch.float32)
+    if lw.shape != (1, *PADDED_HW, 2) or not torch.isfinite(lw).all():
+        raise AssertionError(f"winograd logits {tuple(lw.shape)} not finite/expected")
+
+    def labels(t):
+        return t[..., 1] > t[..., 0]
+
+    ew, ed = rel_l2(lw, lr), rel_l2(ld, lr)
+    aw = (labels(lw) == labels(lr)).float().mean().item()
+    ad = (labels(ld) == labels(lr)).float().mean().item()
+    log(f"end to end fcn8s_kitti winograd=f2: relative L2 to the f32 direct logits "
+        f"{ew:.4g}, default bf16 build {ed:.4g} (bound 2x + 0.005); labels equal to "
+        f"f32's {100 * aw:.3f} %, default {100 * ad:.3f} % (bound default - 0.5)")
+    if ew > 2 * ed + 0.005 or aw < ad - 0.005:
+        raise AssertionError("winograd end-to-end check failed")
+
+
 def time_train(torch, smi: str, workload: str) -> dict:
     """Steady-state train images/s, peak device memory and the device's
     idle share at one of tools/profile_train.py's workloads (FCN-8s or
@@ -1174,6 +1456,9 @@ def main() -> int:
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
             stage1_tail, stage1_tail_bwd, stage1_tail_segnet, stage1_tail_train,
         )
+        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
+            winograd_fwd, winograd_wgrad,
+        )
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from the "
               "repository root", file=sys.stderr)
@@ -1207,6 +1492,8 @@ def main() -> int:
     segnet_stage1 = check_segnet_stage1(torch, gen)
     pool = check_pool(torch, gen)
     torch.cuda.empty_cache()
+    winograd = check_winograd(torch, gen)
+    torch.cuda.empty_cache()
 
     counters = {"stage1_tail": stage1_tail, "stage1_tail_train": stage1_tail_train,
                 "stage1_tail_bwd": stage1_tail_bwd,
@@ -1214,7 +1501,8 @@ def main() -> int:
                 "overlay": argmax_colormap_overlay_cuda,
                 "stage1_tail_segnet": stage1_tail_segnet,
                 "pool_argmax": pool_argmax, "unpool": unpool,
-                "unpool_bwd": unpool_bwd}
+                "unpool_bwd": unpool_bwd, "winograd_fwd": winograd_fwd,
+                "winograd_wgrad": winograd_wgrad}
 
     def drive(path, fn, *args):
         """Run one main path with every launch counter at 0 just before it
@@ -1272,10 +1560,44 @@ def main() -> int:
     segnet = time_train(torch, smi, "segnet")
     log("segnet training timings: " + json.dumps(dict(seg_train_times,
                                                       segnet=segnet)))
+    torch.cuda.empty_cache()
+
+    # the Winograd paths: FCN-8s winograd=f2 serving and training through the
+    # entry points, SegNet winograd=f4 (a Predictor call and a train step)
+    with tempfile.TemporaryDirectory() as tmp:
+        w_times, w_infer_launches = drive("fcn8s winograd=f2 inference", drive_slice,
+                                          torch, tmp, "fcn8s_kitti", "winograd=f2")
+    missing = [k for k in ("winograd_fwd", "stage1_tail", "overlay")
+               if not w_infer_launches[k]]
+    if missing:
+        raise AssertionError(f"not launched on the winograd inference path: {missing}")
+    check_winograd_end_to_end(torch)
+    log("fcn8s winograd=f2 timings (s or ms as named): " + json.dumps(w_times))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        w_train_times, w_train_launches = drive(
+            "fcn8s winograd=f2 training", drive_training, torch, tmp, "fcn8s_kitti",
+            "winograd=f2")
+    missing = [k for k in ("winograd_fwd", "winograd_wgrad", "stage1_tail_train",
+                           "stage1_tail_bwd") if not w_train_launches[k]]
+    if missing:
+        raise AssertionError(f"not launched on the winograd training path: {missing}")
+    log("fcn8s winograd=f2 training: " + json.dumps(w_train_times))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, w_seg_launches = drive("segnet winograd=f4", drive_segnet_winograd, torch,
+                                  tmp)
+    missing = [k for k in ("winograd_fwd", "winograd_wgrad", "stage1_tail_segnet")
+               if not w_seg_launches[k]]
+    if missing:
+        raise AssertionError(f"not launched on the segnet winograd=f4 path: {missing}")
+    torch.cuda.empty_cache()
 
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, train_launches,
-                                        seg_infer_launches, seg_train_launches)
+                                        seg_infer_launches, seg_train_launches,
+                                        w_infer_launches, w_train_launches,
+                                        w_seg_launches)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1306,7 +1628,14 @@ def main() -> int:
              source=f"{PKG}/csrc/pool.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/pool.py:44",
              launches=total("pool_argmax", "unpool", "unpool_bwd"), **pool),
+        dict(name="winograd", route="cuda",
+             source=f"{PKG}/csrc/winograd.cu",
+             replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/winograd.py:146 "
+                      "and :231",
+             launches=total("winograd_fwd", "winograd_wgrad"),
+             **{k: winograd[k] for k in keys}),
     ]
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

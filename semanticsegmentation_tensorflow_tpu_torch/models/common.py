@@ -88,15 +88,94 @@ class Conv(nn.Module):
         return self.conv(x) + self.bias.to(self.dtype)
 
 
+def winograd_impl(x_shape, kernel_shape, winograd: str | None,
+                  dilation: int = 1) -> str | None:
+    """Per-layer Winograd routing (the JAX package's ``winograd_impl``,
+    ``models/common.py:22-59``, with its gate, so that the same layers take
+    the same numerics): ``"kernel"`` (kernel 6, ``ops/cuda/winograd.py``),
+    ``"materialized"`` (``ops/winograd.winograd_conv2d``; a variant with the
+    suffix ``x``, e.g. ``"f2x"``, asks for it) or None (the direct conv).
+    ``kernel_shape`` is OIHW. Routing depends on the shape alone; an unknown
+    variant raises. Ineligible layers take the direct conv: the flag picks
+    an implementation, never an architecture."""
+    if not winograd or dilation != 1:
+        return None
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
+        eligible,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
+        VARIANTS, xla_eligible,
+    )
+    materialized = winograd.endswith("x")
+    base = winograd[:-1] if materialized else winograd
+    if base not in VARIANTS:
+        raise ValueError(f"unknown winograd variant {winograd!r}")
+    if materialized:
+        return ("materialized" if xla_eligible(x_shape, kernel_shape, base)
+                else None)
+    return "kernel" if eligible(x_shape, kernel_shape, base) else None
+
+
+def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
+                      bias: torch.Tensor, *, dtype: torch.dtype,
+                      dilation: int = 1,
+                      winograd: str | None = None) -> torch.Tensor:
+    """relu(SAME-conv3x3(x, kernel) + bias), the VGG workhorse layer, with
+    the Winograd form :func:`winograd_impl` routes the layer to. ``kernel``
+    is OIHW. The direct conv adds the bias in the compute dtype; the
+    Winograd forms add it (rounded to that dtype) in float32 before the
+    relu and round once, as in the JAX package."""
+    x = x.to(dtype)
+    impl = winograd_impl(x.shape, kernel.shape, winograd, dilation)
+    if impl == "materialized":
+        from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
+            winograd_conv2d,
+        )
+        return winograd_conv2d(x, kernel, bias, winograd[:-1], True)
+    if impl == "kernel":
+        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
+            winograd_conv_bias_relu,
+        )
+        return winograd_conv_bias_relu(x, kernel, bias, winograd)
+    z = conv_nhwc(x, kernel, dtype=dtype, padding=dilation, dilation=dilation)
+    return torch.relu(z + bias.to(dtype))
+
+
+def conv3x3_raw(x: torch.Tensor, conv: Conv,
+                winograd: str | None = None) -> torch.Tensor:
+    """``conv``'s 3x3 SAME conv without its bias, in its compute dtype,
+    through the Winograd form :func:`winograd_impl` routes it to (the raw
+    kernel form, or the materialized one with a zero bias and no relu)."""
+    x = x.to(conv.dtype)
+    impl = winograd_impl(x.shape, conv.weight.shape, winograd, conv.dilation)
+    if impl == "materialized":
+        from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
+            winograd_conv2d,
+        )
+        zero = torch.zeros(conv.weight.shape[0], device=x.device)
+        return winograd_conv2d(x, conv.weight, zero, winograd[:-1], False)
+    if impl == "kernel":
+        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
+            winograd_conv3x3,
+        )
+        return winograd_conv3x3(x, conv.weight, winograd)
+    return conv.conv(x)
+
+
 class ConvBlock(nn.Module):
-    """n x (3x3 conv -> ReLU), params ``conv0``..``conv{n-1}``. Direct conv
-    only: BatchNorm and Winograd are not ported."""
+    """n x (3x3 conv -> ReLU), params ``conv0``..``conv{n-1}``.
+
+    ``winograd``: ``"f2"`` / ``"f4"`` route each eligible layer through
+    kernel 6, ``"f2x"`` / ``"f4x"`` through the materialized form
+    (:func:`winograd_impl`); the same parameters either way. BatchNorm is
+    not ported."""
 
     def __init__(self, in_features: int, features: int, n_convs: int = 2, *,
-                 dilation: int = 1, dtype: torch.dtype = DEFAULT_DTYPE,
-                 device=None):
+                 dilation: int = 1, winograd: str | None = None,
+                 dtype: torch.dtype = DEFAULT_DTYPE, device=None):
         super().__init__()
         self.n_convs = n_convs
+        self.winograd = winograd
         for i in range(n_convs):
             self.add_module(f"conv{i}", Conv(
                 in_features if i == 0 else features, features, 3,
@@ -108,17 +187,9 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for conv in self.convs():
             x = conv3x3_bias_relu(x, conv.weight, conv.bias, dtype=conv.dtype,
-                                  dilation=conv.dilation)
+                                  dilation=conv.dilation,
+                                  winograd=self.winograd)
         return x
-
-
-def conv3x3_bias_relu(x: torch.Tensor, kernel: torch.Tensor,
-                      bias: torch.Tensor, *, dtype: torch.dtype,
-                      dilation: int = 1) -> torch.Tensor:
-    """relu(SAME-conv3x3(x, kernel) + bias), the VGG workhorse layer.
-    Direct conv only (Winograd is not ported); ``kernel`` is OIHW."""
-    z = conv_nhwc(x, kernel, dtype=dtype, padding=dilation, dilation=dilation)
-    return torch.relu(z + bias.to(dtype))
 
 
 def dropout(x: torch.Tensor, rate: float, *, training: bool,

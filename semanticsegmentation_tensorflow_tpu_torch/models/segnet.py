@@ -36,8 +36,11 @@ class SegNet(nn.Module):
     the same function either way. ``packed_dec1`` and ``packed_dec2`` name
     TPU lane layouts of the decoder's stages 1 and 2 (width pairs packed into
     the 128 lanes) that compute the same function with the same params; both
-    values are accepted and the canonical decoder runs. ``use_bn=True``, a
-    ``winograd`` form and ``pallas_spmd=True`` are not ported and raise.
+    values are accepted and the canonical decoder runs. ``winograd``
+    (``"f2"``, ``"f4"``, ``"f2x"``, ``"f4x"``) goes to every ``ConvBlock``
+    (enc2-enc5, dec5-dec1; ``models.common.winograd_impl`` picks the
+    eligible layers), as in the JAX package; the parameters do not change.
+    ``use_bn=True`` and ``pallas_spmd=True`` are not ported and raise.
     ``forward`` takes a ``generator`` for the train step's calling
     convention; SegNet has no dropout and draws nothing.
     """
@@ -51,24 +54,24 @@ class SegNet(nn.Module):
                  packed_dec2: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None):
         super().__init__()
-        reject_unported(use_bn=use_bn, winograd=winograd is not None,
-                        pallas_spmd=pallas_spmd)
+        reject_unported(use_bn=use_bn, pallas_spmd=pallas_spmd)
         self.num_classes = num_classes
         self.dtype = dtype
         self.fused_stage1 = packed_stage1 and pallas_pool is not False
         feats = [max(8, int(f * width_mult)) for _, f in VGG16_STAGES]
         kw = dict(dtype=dtype, device=device)
+        wkw = dict(kw, winograd=winograd)
         cin = 3
         for i, (n_convs, _) in enumerate(VGG16_STAGES, start=1):
             f = feats[i - 1]
             self.add_module(f"enc{i}", SegNetStage1(cin, f, **kw)
                             if i == 1 and self.fused_stage1
-                            else ConvBlock(cin, f, n_convs, **kw))
+                            else ConvBlock(cin, f, n_convs, **wkw))
             cin = f
         for i in range(len(VGG16_STAGES), 0, -1):
             out = feats[max(i - 2, 0)]
             self.add_module(f"dec{i}", ConvBlock(cin, out, VGG16_STAGES[i - 1][0],
-                                                 **kw))
+                                                 **wkw))
             cin = out
         self.head = Conv(cin, num_classes, 1, **kw)
 

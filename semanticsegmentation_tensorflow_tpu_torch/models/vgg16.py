@@ -14,6 +14,9 @@ from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, dropou
 from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import (
     PooledConvBlock, Stage1,
 )
+from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
+    winograd_conv_large,
+)
 
 # (n_convs, features) per VGG16 stage.
 VGG16_STAGES: tuple[tuple[int, int], ...] = (
@@ -56,7 +59,6 @@ class VGG16(nn.Module):
                  pallas_pool: bool | None = None, device=None):
         super().__init__()
         reject_unported(use_bn=use_bn, dilated_last_stages=dilated_last_stages,
-                        winograd=winograd, winograd_fc6=winograd_fc6,
                         packed_stage2_entry=packed_stage2_entry,
                         pallas_spmd=pallas_spmd,
                         deferred_pool_bias=not deferred_pool_bias)
@@ -64,16 +66,18 @@ class VGG16(nn.Module):
         for i, (n_convs, feats) in enumerate(VGG16_STAGES, start=1):
             feats = max(8, int(feats * width_mult))
             if i == 1 and packed_stage1 and pallas_pool is not False:
-                block = Stage1(cin, feats, dtype=dtype, device=device)
+                block = Stage1(cin, feats, winograd=winograd, dtype=dtype,
+                               device=device)
             else:
-                block = PooledConvBlock(cin, feats, n_convs, dtype=dtype,
-                                        device=device)
+                block = PooledConvBlock(cin, feats, n_convs, winograd=winograd,
+                                        dtype=dtype, device=device)
             self.add_module(f"stage{i}", block)
             cin = feats
         self.conv6 = Conv(cin, fc_features, 7, dtype=dtype, device=device)
         self.conv7 = Conv(fc_features, fc_features, 1, dtype=dtype,
                           device=device)
         self.dropout_rate = dropout_rate
+        self.winograd_fc6 = bool(winograd_fc6)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None
@@ -83,7 +87,12 @@ class VGG16(nn.Module):
             x = getattr(self, f"stage{i}")(x)
             ends[f"pool{i}"] = x
         drop = dict(training=self.training, generator=generator)
-        x = dropout(torch.relu(self.conv6(x)), self.dropout_rate, **drop)
+        if self.winograd_fc6:
+            c6 = self.conv6
+            x = winograd_conv_large(x.to(c6.dtype), c6.weight, c6.bias, "f3", True)
+        else:
+            x = torch.relu(self.conv6(x))
+        x = dropout(x, self.dropout_rate, **drop)
         x = dropout(torch.relu(self.conv7(x)), self.dropout_rate, **drop)
         ends["conv7"] = x
         return ends

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers: seconds to
-build instead of minutes). The build happens at first use, never at import,
+Each ``csrc/*.cu`` source compiles in its own ``nvcc`` process, all in
+parallel, and the objects link into ONE shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers: seconds to build
+instead of minutes). The build happens at first use, never at import,
 into ``build/kernels/`` at the repository root (gitignored). The file name
 carries a hash of the sources, their headers (``csrc/*.cuh``) and the flags,
 so editing a kernel rebuilds it.
@@ -45,6 +46,11 @@ _SIGNATURES = {
     "seg_error_string": ((_I,), ctypes.c_char_p),
     "seg_overlay": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                      _P), _I),
+    "seg_winograd_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+                         _I),
+    "seg_winograd_wgrad_parts": ((_I, _I, _I, _I, _I, _I), _I),
+    "seg_winograd_wgrad": ((_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P), _I),
 }
 
 
@@ -73,20 +79,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as ``<name>.log``."""
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc -c`` per source, all started together, then one link. The
+    compiler's report (registers, shared memory, spills) is kept beside the
+    library as ``<name>.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in sources():
+        obj = path.with_suffix(f".{src.stem}.{os.getpid()}.o")
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = [proc.communicate()[0] for _, proc in jobs]
+    objs = [str(obj) for obj, _ in jobs]
+    try:
+        failed = [(obj, proc.returncode) for obj, proc in jobs if proc.returncode]
+        if not failed:
+            tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode:
+                failed.append((tmp, link.returncode))
+        path.with_suffix(".log").write_text("".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed: {failed}\n" + "".join(logs)[-4000:])
+        os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return path
 
 

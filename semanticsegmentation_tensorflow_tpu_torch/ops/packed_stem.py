@@ -17,7 +17,7 @@ import torch
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    ConvBlock, conv3x3_bias_relu,
+    ConvBlock, conv3x3_bias_relu, conv3x3_raw,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
     SegNetStage1Tail, Stage1Tail, stage1_tail, stage1_tail_segnet,
@@ -31,14 +31,18 @@ class PooledConvBlock(ConvBlock):
     Exact: ``relu(pool(z) + b) == pool(relu(z + b))`` bit for bit (the max
     commutes with the per-channel bias add, with its monotone rounding and
     with the relu), while the bias add and relu run at 1/4 resolution.
-    Same parameters as ``ConvBlock(features, n_convs)``."""
+    Same parameters as ``ConvBlock(features, n_convs)``. With ``winograd``
+    (the JAX package's ``PooledConvBlock``, ``ops/packed_stem.py:190-256``)
+    the inner convs take the fused bias+relu form and the last conv the raw
+    one, so its bias and relu stay deferred past the pool."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         *head, last = self.convs()
         for conv in head:
             x = conv3x3_bias_relu(x, conv.weight, conv.bias, dtype=conv.dtype,
-                                  dilation=conv.dilation)
-        z = last.conv(x)
+                                  dilation=conv.dilation,
+                                  winograd=self.winograd)
+        z = conv3x3_raw(x, last, self.winograd)
         return torch.relu(max_pool(z, 2) + last.bias.to(last.dtype))
 
 
@@ -51,12 +55,15 @@ class Stage1(PooledConvBlock):
     the CPU. When autograd records, the tail is :class:`Stage1Tail` (the
     training forward, which also writes the pool's routing codes, and the
     backward kernel); b1 stays in conv1_1, so autograd gives db1 = sum(dz1).
-    An odd H or W runs the same params as the plain :class:`PooledConvBlock`,
-    as the JAX package's VGG16 does (``models/vgg16.py:97-98``)."""
+    An odd H or W runs the same params as the plain :class:`PooledConvBlock`
+    (with ``winograd``), as the JAX package's VGG16 does
+    (``models/vgg16.py:97-118``)."""
 
     def __init__(self, in_features: int, features: int = 64, *,
+                 winograd: str | None = None,
                  dtype: torch.dtype = DEFAULT_DTYPE, device=None):
-        super().__init__(in_features, features, 2, dtype=dtype, device=device)
+        super().__init__(in_features, features, 2, winograd=winograd,
+                         dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] % 2 or x.shape[2] % 2:

@@ -300,3 +300,81 @@ def test_segnet_predictor_runs_its_kernels_on_card(gen):
         return ((a - want).norm() / want.norm()).item()
 
     assert rel(got) <= 1.5 * rel(cpu) + 0.02
+
+
+# kernel 6: Winograd F(2,3) / F(4,3)
+
+def _wino_inputs(gen, n, h, w, c, co):
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import u_for
+
+    x = torch.randn((n, h, w, c), generator=gen, device="cuda").bfloat16()
+    wt = torch.randn((co, c, 3, 3), generator=gen, device="cuda") / (9 * c) ** 0.5
+    b = (torch.randn((co,), generator=gen, device="cuda") / 10).bfloat16()
+    g = torch.randn((n, h, w, co), generator=gen, device="cuda").bfloat16()
+    o = torch.randn((n, h, w, co), generator=gen, device="cuda").bfloat16()
+    return x, wt, b, g, o, u_for
+
+
+def _within(got, want, rel, near0):
+    got, want = got.float(), want.float()
+    bound = rel * want.abs() + near0 * want.abs().max()
+    return bool(torch.isfinite(got).all()) and bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("variant", ["f2", "f4"])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 128, 128), (3, 12, 20, 64, 96)])
+def test_winograd_kernels_match_plain_on_card(gen, variant, shape):
+    """Forward (bias_relu and raw), the masked forward (the input gradient)
+    and the wgrad against their plain versions on the same bf16 inputs, at
+    an eligible shape and a ragged one (partial tile blocks and chunks).
+    The outputs are one bf16 rounding of float32 sums taken in another
+    order: one bf16 ulp (2^-7 of the value) plus 2^-12 of the scale near
+    zero. dU and db are float32 sums over the tiles: 1e-4 of the scale. A
+    rerun gives the same bits."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
+    from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import rot180_swap
+
+    n, h, w, c, co = shape
+    x, wt, b, g, o, u_for = _wino_inputs(gen, n, h, w, c, co)
+    u = u_for(wt, variant, torch.bfloat16)
+    before = (cw.winograd_fwd.launches, cw.winograd_wgrad.launches)
+    for epi in ("bias_relu", "none"):
+        got = cw.winograd_fwd(x, u, b, None, variant, epi)
+        want = cw.winograd_fwd_plain(x, u, b, None, variant, epi)
+        assert got.shape == (n, h, w, co) and _within(got, want, 2 ** -7, 2 ** -12), epi
+    u2 = u_for(rot180_swap(wt), variant, torch.bfloat16)
+    got = cw.winograd_fwd(g, u2, None, o, variant, "none")
+    assert _within(got, cw.winograd_fwd_plain(g, u2, None, o, variant, "none"),
+                   2 ** -7, 2 ** -12)
+    for mask in (o, None):
+        du, db = cw.winograd_wgrad(x, g, mask, variant)
+        du_p, db_p = cw.winograd_wgrad_plain(x, g, mask, variant)
+        assert _within(du, du_p, 0.0, 1e-4) and _within(db, db_p, 0.0, 1e-4)
+        again = cw.winograd_wgrad(x, g, mask, variant)
+        assert torch.equal(du, again[0]) and torch.equal(db, again[1])
+    assert (cw.winograd_fwd.launches, cw.winograd_wgrad.launches) == (
+        before[0] + 3, before[1] + 4)
+
+
+@pytest.mark.parametrize("variant", ["f2", "f4"])
+def test_winograd_functions_on_card_match_cpu(gen, variant):
+    """The autograd Functions through the kernels on the card against the
+    same Functions through the plain versions on the CPU, same bf16
+    inputs: the forward and dx within one bf16 ulp plus 2^-12 of the scale,
+    dw and db (float32) within 1e-4 of theirs."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
+        winograd_conv3x3, winograd_conv_bias_relu,
+    )
+
+    x, wt, b, g, _, _ = _wino_inputs(gen, 2, 16, 24, 128, 128)
+    for fn, args in ((winograd_conv_bias_relu, (x, wt, b.float())),
+                     (winograd_conv3x3, (x, wt))):
+        results = []
+        for dev in ("cuda", "cpu"):
+            leaves = [a.detach().to(dev).requires_grad_() for a in args]
+            out = fn(*leaves, variant)
+            out.backward(g.to(dev))
+            results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+        (out, dx, *dp), (out_c, dx_c, *dp_c) = results
+        assert _within(out, out_c, 2 ** -7, 2 ** -12) and _within(dx, dx_c, 2 ** -7, 2 ** -12)
+        assert all(_within(a, b_, 0.0, 1e-4) for a, b_ in zip(dp, dp_c))

@@ -161,8 +161,7 @@ def test_init_mirrors_flax_distributions():
                                                  again.state_dict().values()))
 
 
-@pytest.mark.parametrize("kw", [{"use_bn": True}, {"winograd": "f2"},
-                                {"winograd_fc6": True},
+@pytest.mark.parametrize("kw", [{"use_bn": True},
                                 {"packed_stage2_entry": True},
                                 {"pallas_spmd": True},
                                 {"deferred_pool_bias": False}])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's training step goes, on one CUDA card.
 
-    python tools/profile_train.py [--iters 5] [--top 15] \
+    python tools/profile_train.py [--iters 5] [--top 15] [--workloads a,b] \
         [--out chiprun_out/profile_train.json]
 
 Three workloads, each with seeded random weights and a uint8 batch
@@ -14,12 +14,17 @@ resident on the card, Adam 1e-4 (FCN-8s with dropout 0.5):
 - ``segnet``: segnet_kitti (SegNet, full width), batch 8 of 384x1248,
   320x1152 crops, metrics on.
 
-For each, two builds of the same weights in turns kernel, plain, plain,
-kernel: "kernel" (the stage1 training forward and backward kernels, for
-SegNet the SegNet stage1 forward and the argmax pool/unpool kernels, and the
-preprocess kernel) and "plain" (stage1 as cuDNN convs and a max pool, for
+and four Winograd forms of them: ``preset_f2`` (``winograd="f2"``),
+``segnet_f2``, ``segnet_f4`` and ``bench_fc6`` (``winograd_fc6=True``).
+
+For each of the first three, two builds of the same weights in turns
+kernel, plain, plain, kernel: "kernel" (the stage1 training forward and
+backward kernels, for SegNet the SegNet stage1 forward and the argmax
+pool/unpool kernels, and the preprocess kernel) and "plain" (stage1 as cuDNN convs and a max pool, for
 SegNet a ConvBlock and the pool/unpool plain versions, and the preprocess
-kernel's plain version). It prints the host ms per step (mean of
+kernel's plain version); for a Winograd form, "winograd" (the flag on,
+kernel 6 on the routed layers) and "direct" (the flag off), both with the
+kernels. It prints the host ms per step (mean of
 ``--iters``, after two warm-up steps), then, from one run of ``--iters``
 steps under torch.profiler, the device ms (summed over ops) and ops per
 step, the device's busy ms (the union of the ops' intervals), the wall per
@@ -62,6 +67,17 @@ WORKLOADS = {
                    what="segnet_kitti preset (SegNet, batch 8, 384x1248 -> "
                         "320x1152 crops, metrics on)"),
 }
+# the Winograd forms: the workload named by "base" with these model flags,
+# timed against the same workload without them
+WINOGRAD_FORMS = {
+    "preset_f2": ("preset", {"winograd": "f2"}),
+    "segnet_f2": ("segnet", {"winograd": "f2"}),
+    "segnet_f4": ("segnet", {"winograd": "f4"}),
+    "bench_fc6": ("bench", {"winograd_fc6": True}),
+}
+WORKLOADS.update({name: dict(WORKLOADS[base], model_kw=kw,
+                             what=f"{WORKLOADS[base]['what']}, {kw}")
+                  for name, (base, kw) in WINOGRAD_FORMS.items()})
 
 
 @contextlib.contextmanager
@@ -146,14 +162,17 @@ def show_idle(share: float | None) -> str:
     return "unresolved (device busy > wall)" if share is None else f"{share:.4f}"
 
 
-def train_workload(torch, wl: dict, packed: bool = True, weights=None):
+def train_workload(torch, wl: dict, packed: bool = True, weights=None,
+                   model_kw: dict | None = None):
     """A train step of no arguments for workload ``wl`` (a ``WORKLOADS``
     entry) on the card: FCN-8s at fc width ``wl["fc"]`` (or SegNet where
-    ``wl["model"]`` says so), seeded random weights (or ``weights``, a state
-    dict), Adam 1e-4, dropout 0.5, a batch of ``wl["n"]`` 384x1248 uint8
-    images resident on the card, flip and ``wl["crop"]`` by the preprocess
-    kernel (``packed``) or its plain version (stage1 then as cuDNN convs and
-    a max pool, SegNet's pools and unpools their plain versions)."""
+    ``wl["model"]`` says so) with the model flags ``model_kw`` (default
+    ``wl["model_kw"]``, if any), seeded random weights (or ``weights``, a
+    state dict), Adam 1e-4, dropout 0.5, a batch of ``wl["n"]`` 384x1248
+    uint8 images resident on the card, flip and ``wl["crop"]`` by the
+    preprocess kernel (``packed``) or its plain version (stage1 then as cuDNN
+    convs and a max pool, SegNet's pools and unpools their plain
+    versions)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
@@ -170,6 +189,7 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None):
     dev = torch.device("cuda")
     name = wl.get("model", "fcn8s")
     kw = {"fc_features": wl["fc"]} if name == "fcn8s" else {}
+    kw.update(wl.get("model_kw", {}) if model_kw is None else model_kw)
     model = build_model(name, 2, device=dev, packed_stage1=packed, **kw)
     if weights is None:
         init_params(model, torch.Generator(device=dev).manual_seed(0))
@@ -219,7 +239,7 @@ def time_train(torch, step, n: int, iters: int) -> dict:
 def group(name: str) -> str:
     low = name.lower()
     if any(k in low for k in ("stage1_", "preprocess_kernel", "pool_argmax",
-                              "unpool")):
+                              "unpool", "winograd_")):
         return "port kernels"
     if any(k in low for k in ("conv", "cudnn", "xmma", "cutlass", "gemm",
                               "wgrad", "dgrad", "fprop")):
@@ -257,6 +277,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--workloads", default=",".join(WORKLOADS),
+                   help=f"comma-separated, of {list(WORKLOADS)}")
     p.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
                                                  "profile_train.json"))
     args = p.parse_args(argv)
@@ -271,14 +293,19 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     result = {"device": smi, "iters": args.iters}
-    for wname, wl in WORKLOADS.items():
+    for wname in args.workloads.split(","):
+        wl = WORKLOADS[wname]
         steps, weights = {}, None
-        for form, packed in (("kernel", True), ("plain", False)):
-            steps[form] = train_workload(torch, wl, packed, weights)
+        forms = ((("winograd", True, None), ("direct", True, {}))
+                 if "model_kw" in wl else
+                 (("kernel", True, None), ("plain", False, None)))
+        for form, packed, model_kw in forms:
+            steps[form] = train_workload(torch, wl, packed, weights, model_kw)
             if weights is None:
                 weights = steps[form].args[0].model.state_dict()
+        first, second = forms[0][0], forms[1][0]
         runs = defaultdict(list)
-        for form in ("kernel", "plain", "plain", "kernel"):
+        for form in (first, second, second, first):
             r = time_train(torch, steps[form], wl["n"], args.iters)
             by_op = r.pop("by_op")
             runs[form].append(r)
@@ -288,21 +315,21 @@ def main(argv=None) -> int:
                   f"{r['busy_ms']:.2f} ms, wall "
                   f"{r['profiled_wall_ms']:.2f} ms, idle share "
                   f"{show_idle(r['idle_share'])}", flush=True)
-            if form == "kernel":
+            if form == first:
                 top = dict(sorted(by_op.items(), key=lambda kv: -kv[1])[:args.top])
                 groups: dict[str, float] = defaultdict(float)
                 for name, ms in by_op.items():
                     groups[group(name)] += ms
-        convs = dict(list(conv_kernels_by_shape(torch, steps["kernel"]).items())
+        convs = dict(list(conv_kernels_by_shape(torch, steps[first]).items())
                      [:args.top])
-        result[wname] = {"runs": runs, "kernel_by_op_ms": top,
-                         "kernel_by_group_ms": dict(groups),
-                         "kernel_conv_ms_by_shape": convs}
-        print(f"{wname}, kernel build, device ms per step by group: "
+        result[wname] = {"runs": runs, f"{first}_by_op_ms": top,
+                         f"{first}_by_group_ms": dict(groups),
+                         f"{first}_conv_ms_by_shape": convs}
+        print(f"{wname}, {first} build, device ms per step by group: "
               + json.dumps({k: round(v, 3) for k, v in groups.items()}))
         for name, ms in top.items():
             print(f"  {ms:9.4f}  {name[:100]}")
-        print(f"{wname}, kernel build, conv ops' kernels by input shapes:")
+        print(f"{wname}, {first} build, conv ops' kernels by input shapes:")
         for name, ms in convs.items():
             print(f"  {ms:9.4f}  {name[:140]}")
         del steps, weights
