@@ -30,6 +30,14 @@ full-resolution forward: FCN-8s with ``--model-kw winograd=f2`` through
 infer_image, serve and train.py (3 steps, --resume), its logits against the
 float32 direct model, and SegNet with ``winograd=f4`` (a Predictor call and
 a train step).
+Then kernel 1c (the halo mode of the stage1 tail, ``pallas_spmd``) against
+its plain version at the training and inference shapes, whole and as two
+halves with real halo rows, and beside kernels 1/1b; ``train.main --spatial
+2`` at one rank for ``fcn8s_kitti`` and ``segnet_kitti`` (launches of the
+halo kernels > 0, of the single-device stage1 kernels 0); the preset step
+with 1c beside the default; and a 2-rank grid (data 1 x spatial 2, gloo on
+cuda:0, this script re-run as ``--grid-rank``) at full ``fcn8s_kitti`` width
+and 384x1248, two steps held against the single-process step.
 
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
@@ -1404,6 +1412,437 @@ def check_winograd_end_to_end(torch) -> None:
         raise AssertionError("winograd end-to-end check failed")
 
 
+# --- kernel 1c (the halo mode of the stage1 tail) and the spatial grid -------
+
+
+def _band(t, parts, i, fill):
+    """Rows band i of ``parts`` of ``t`` and its halo rows (the neighbours'
+    boundary rows, ``fill`` at the image's edge), each contiguous."""
+    rows = t.shape[1] // parts
+    lo, hi = i * rows, (i + 1) * rows
+    edge = t[:, :1].clone().fill_(fill)
+    top = t[:, lo - 1:lo] if i else edge
+    bot = t[:, hi:hi + 1] if i < parts - 1 else edge
+    return t[:, lo:hi].contiguous(), top.contiguous(), bot.contiguous()
+
+
+def _halo_fwd(torch, fn, z1, k2, b2, b1, mode, parts):
+    outs = [fn(*_band(z1, parts, i, float("-inf")), k2, b2, b1, mode)
+            for i in range(parts)]
+    if parts == 1:            # no copy of a single band
+        return (outs[0], None) if mode == "infer" else outs[0]
+    if mode == "infer":
+        return torch.cat(outs, 1), None
+    return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
+
+
+def _halo_bwd(torch, fn, g, out, codes, z1, k2, b1, parts):
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import BwdHalos
+
+    res = []
+    for i in range(parts):
+        gb, gt, gbt = _band(g, parts, i, 0.0)
+        ob, ot, obt = _band(out, parts, i, 0.0)
+        cb, ct, cbt = _band(codes, parts, i, 0)
+        zb, zt, zbt = _band(z1, parts, i, float("-inf"))
+        res.append(fn(gb, ob, cb, zb, k2, b1,
+                      BwdHalos(gt, gbt, ot, obt, ct, cbt, zt, zbt)))
+    if parts == 1:
+        return res[0]
+    return (torch.cat([r[0] for r in res], 1),
+            *(sum(r[k] for r in res) for k in (1, 2, 3)))
+
+
+def check_stage1_halo(torch, gen) -> dict:
+    """Kernel 1c (the halo mode of kernels 1/1b and 3: z1 without b1, rows
+    -1 and H from halo rows) on the card, at the training shape
+    [8,320,1152,64] and the inference shape [1,384,1248,64], over the whole
+    image (-inf halo rows) and as two halves with real halo rows.
+
+    Forward, all three epilogues: bit-equal to the single-device kernel on
+    z1 + b1 (the same bf16 add), codes included; against the plain version
+    within check_stage1's bf16 bound, codes on >= 99.9 %; the halves joined
+    bit-equal to the whole image. Backward: against its f32 plain version
+    with kernel 1b's bounds (dz1 one bf16 ulp + 2^-12 of the scale; dk2,
+    db2, db1 1e-4 of the scale); the halves' dz1 bit-equal to the whole
+    image's, their summed dk2, db2, db1 within 1e-4 of its scale; reruns
+    bit-identical. Integer inputs with an integer b1 (every sum exact),
+    whole and as halves, at a shape where each block takes one tile and at
+    one where it walks several: every output bit-equal to the plain
+    versions. Then 1c's forward and backward timed against their plain
+    versions and beside kernels 1 and 1b on the same inputs, in turns."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        stage1_tail, stage1_tail_bwd, stage1_tail_halo, stage1_tail_halo_bwd,
+        stage1_tail_halo_bwd_plain, stage1_tail_halo_plain, stage1_tail_segnet,
+        stage1_tail_train,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.tie_cases import (
+        int_case, tie_windows,
+    )
+
+    single = {"infer": lambda z, k, b: (stage1_tail(z, k, b), None),
+              "codes": stage1_tail_train, "segnet": stage1_tail_segnet}
+
+    def rand(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+
+    result = {}
+    for (n, h, w, c), modes in ((TRAIN_SHAPE, ("codes", "segnet")),
+                                ((1, *PADDED_HW, 64), ("infer", "codes", "segnet"))):
+        z1, b1 = rand((n, h, w, c), 1.0), rand((c,), 0.5)
+        k2 = rand((c, c, 3, 3), (1.0 / (9 * c)) ** 0.5).contiguous(
+            memory_format=torch.channels_last)
+        b2, g = rand((c,), 0.1), rand((n, h // 2, w // 2, c), 1.0)
+        fwd_err = 0.0
+        for mode in modes:
+            out, codes = _halo_fwd(torch, stage1_tail_halo, z1, k2, b2, b1, mode, 1)
+            ref_out, ref_codes = single[mode]((z1 + b1).contiguous(), k2, b2)
+            p_out, p_codes = _halo_fwd(torch, stage1_tail_halo_plain, z1, k2, b2, b1,
+                                       mode, 1)
+            h_out, h_codes = _halo_fwd(torch, stage1_tail_halo, z1, k2, b2, b1, mode, 2)
+            torch.cuda.synchronize()
+            err = (out.float() - p_out.float()).abs()
+            bad = int((err > 2 ** -6 * (p_out.float().abs() + b2.float().abs())
+                       + 1e-6).sum())
+            agree = 1.0 if codes is None else (codes == p_codes).float().mean().item()
+            exact = torch.equal(out, ref_out) and torch.equal(h_out, out) and (
+                codes is None or (torch.equal(codes, ref_codes)
+                                  and torch.equal(h_codes, codes)))
+            log(f"stage1 halo {mode} [{n},{h},{w},{c}]: max_abs_err {err.max().item():.6g}"
+                f" vs plain ({bad} outside the bf16 bound), codes agree "
+                f"{100 * agree:.4f} %; bit-equal to the single-device kernel on "
+                f"z1 + b1 and, as two halves, to the whole image: {exact}")
+            if bad or agree < 0.999 or not exact:
+                raise AssertionError(f"stage1 halo {mode} forward [{n},{h},{w},{c}]")
+            fwd_err = max(fwd_err, err.max().item())
+        out, codes = _halo_fwd(torch, stage1_tail_halo, z1, k2, b2, b1, "codes", 1)
+        got = _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes, z1, k2, b1, 1)
+        want = _halo_bwd(torch, stage1_tail_halo_bwd_plain, g, out, codes, z1, k2,
+                         b1, 1)
+        halves = _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes, z1, k2, b1, 2)
+        again = _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes, z1, k2, b1, 1)
+        errs = []
+        for name, a, b, rel, near0 in zip(("dz1", "dk2", "db2", "db1"), got, want,
+                                          (2 ** -7, 0, 0, 0),
+                                          (2 ** -12, 1e-4, 1e-4, 1e-4)):
+            a, b = a.float(), b.float()
+            e = (a - b).abs()
+            errs.append(e.max().item())
+            if int((e > rel * b.abs() + near0 * b.abs().max()).sum()) or \
+                    not torch.isfinite(a).all():
+                raise AssertionError(f"stage1 halo bwd [{n},{h},{w},{c}] {name}")
+        halves_ok = torch.equal(halves[0], got[0]) and all(
+            bool(((a - b).abs() <= 1e-4 * b.abs().max()).all())
+            for a, b in zip(halves[1:], got[1:]))
+        rerun = all(torch.equal(a, b) for a, b in zip(got, again))
+        log(f"stage1 halo bwd [{n},{h},{w},{c}] against the f32 reference: max_abs_err "
+            f"dz1 {errs[0]:.6g} dk2 {errs[1]:.6g} db2 {errs[2]:.6g} db1 {errs[3]:.6g} "
+            f"(max |ref| {[round(t.abs().max().item(), 4) for t in want]}); halves: "
+            f"dz1 bit-equal, dk2/db2/db1 within 1e-4 of scale: {halves_ok}; "
+            f"bit-identical rerun: {rerun}")
+        if not (halves_ok and rerun):
+            raise AssertionError(f"stage1 halo bwd [{n},{h},{w},{c}]: halves or rerun")
+        if (n, h, w, c) == TRAIN_SHAPE:
+            result = {"max_abs_err": max(fwd_err, *errs), "fwd_err": fwd_err,
+                      "dz1_err": errs[0], "dk2_err": errs[1], "db2_err": errs[2],
+                      "db1_err": errs[3]}
+            zb = (z1 + b1).contiguous()
+            ob, cb = stage1_tail_train(zb, k2, b2)
+            tf = ab_ms(lambda: _halo_fwd(torch, stage1_tail_halo_plain, z1, k2, b2,
+                                         b1, "codes", 1),
+                       lambda: _halo_fwd(torch, stage1_tail_halo, z1, k2, b2, b1,
+                                         "codes", 1))
+            tb = ab_ms(lambda: _halo_bwd(torch, stage1_tail_halo_bwd_plain, g, out,
+                                         codes, z1, k2, b1, 1),
+                       lambda: _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes,
+                                         z1, k2, b1, 1))
+            show_ab(f"stage1 halo forward (codes) at {list(TRAIN_SHAPE)}", tf)
+            show_ab(f"stage1 halo backward at {list(TRAIN_SHAPE)}", tb)
+            # kernels 1 (training forward) and 1b on the same inputs, in turns
+            # with 1c: forward 1, 1c, 1c, 1; backward likewise
+            one = [device_ms(f)[0] for f in (
+                lambda: stage1_tail_train(zb, k2, b2),
+                lambda: _halo_fwd(torch, stage1_tail_halo, z1, k2, b2, b1, "codes", 1),
+                lambda: _halo_fwd(torch, stage1_tail_halo, z1, k2, b2, b1, "codes", 1),
+                lambda: stage1_tail_train(zb, k2, b2),
+                lambda: stage1_tail_bwd(g, ob, cb, zb, k2),
+                lambda: _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes, z1,
+                                  k2, b1, 1),
+                lambda: _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes, z1,
+                                  k2, b1, 1),
+                lambda: stage1_tail_bwd(g, ob, cb, zb, k2))]
+            log(f"beside kernels 1/1b at {list(TRAIN_SHAPE)} (device ms, in turns): "
+                f"forward 1 {(one[0] + one[3]) / 2:.4f} vs 1c {(one[1] + one[2]) / 2:.4f},"
+                f" backward 1b {(one[4] + one[7]) / 2:.4f} vs 1c "
+                f"{(one[5] + one[6]) / 2:.4f}")
+            from profile_train import profile_device
+
+            for what, fn in (("1b", lambda: stage1_tail_bwd(g, ob, cb, zb, k2)),
+                             ("1c", lambda: _halo_bwd(torch, stage1_tail_halo_bwd, g,
+                                                      out, codes, z1, k2, b1, 1))):
+                by_op = profile_device(torch, fn, 10)["by_op"]
+                log(f"backward {what} by launch (device ms): " + ", ".join(
+                    f"{k[max(k.find('stage1_'), 0):].split('(')[0]} {v:.4f}"
+                    for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:5]))
+            nhwc = n * h * w * c
+            # forward: z1 and its halo rows, b1, b2, weights in; out, codes out
+            bf = bound(2 * nhwc + 4 * n * w * c + 3 * nhwc / 4 + 2 * 9 * c * c + 4 * c,
+                       conv3x3_flops(n, h, w, c))
+            # backward: g, out, codes and their halo rows, z1 and its halo
+            # rows, b1, weights in; dz1, dk2, db2, db1 out; dgrad + wgrad
+            bb = bound(5 * nhwc / 4 + 5 * n * w * c + 4 * nhwc + 4 * n * w * c
+                       + 2 * 9 * c * c + 4 * 9 * c * c + 8 * c + 2 * c,
+                       2 * conv3x3_flops(n, h, w, c))
+            result.update(ms=tf["ms"] + tb["ms"], plain_ms=tf["plain_ms"] + tb["plain_ms"],
+                          bound_ms=bf["bound_ms"] + bb["bound_ms"],
+                          bound_by="operations", library_ms=None,
+                          fwd_ms=tf["ms"], fwd_plain_ms=tf["plain_ms"],
+                          fwd_bound_ms=bf["bound_ms"], bwd_ms=tb["ms"],
+                          bwd_plain_ms=tb["plain_ms"], bwd_bound_ms=bb["bound_ms"],
+                          kernel1_fwd_ms=(one[0] + one[3]) / 2,
+                          kernel1b_bwd_ms=(one[4] + one[7]) / 2)
+        del z1, k2, b2, b1, g, out, codes, got, want, halves, again
+
+    for n, h, w, c in ((2, 16, 48, 64), (8, 64, 256, 64)):
+        for case in (tie_windows, int_case):
+            z1, k2, b2 = (t.to("cuda", torch.bfloat16) for t in case(n, h, w, c, 1))
+            b1 = torch.randint(-1, 2, (c,), generator=torch.Generator().manual_seed(3)
+                               ).to("cuda", torch.bfloat16)
+            z1 = (z1 - b1).contiguous()               # pre-bias, still integer
+            cot = torch.randint(-3, 4, (n, h // 2, w // 2, c), generator=torch.Generator()
+                                .manual_seed(2)).to("cuda", torch.bfloat16)
+            p_out, p_codes = _halo_fwd(torch, stage1_tail_halo_plain, z1, k2, b2, b1,
+                                       "codes", 1)
+            want = _halo_bwd(torch, stage1_tail_halo_bwd_plain, cot, p_out, p_codes,
+                             z1, k2, b1, 1)
+            for parts in (1, 2):
+                out, codes = _halo_fwd(torch, stage1_tail_halo, z1, k2, b2, b1,
+                                       "codes", parts)
+                got = _halo_bwd(torch, stage1_tail_halo_bwd, cot, out, codes, z1, k2,
+                                b1, parts)
+                if not (torch.equal(out, p_out) and torch.equal(codes, p_codes)
+                        and all(torch.equal(a, b) for a, b in zip(got, want))):
+                    raise AssertionError(f"stage1 halo {case.__name__} [{n},{h},{w},"
+                                         f"{c}] in {parts} part(s): not exact")
+            log(f"stage1 halo {case.__name__} [{n},{h},{w},{c}] (integer, integer b1):"
+                " codes, out, dz1, dk2, db2, db1 exact, whole and as halves")
+    return result
+
+
+def drive_spatial_training(torch, tmp: str, preset: str) -> dict:
+    """``train.main --spatial 2`` at one rank, through the entry point: the
+    SPMD-safe kwargs merge in and the step runs unsharded through kernel 1c
+    (3 steps at ``preset``, its crops kept as the JAX script keeps them on
+    one device, --pallas-preprocess, then --resume)."""
+    import math
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import train
+
+    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
+                                    n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=0)
+    ck = os.path.join(tmp, "ckpt")
+    argv = ["--preset", preset, "--data-dir", data, "--epochs", "1", "--spatial", "2",
+            "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda"]
+    t0 = time.perf_counter()
+    if train.main(argv) != 0:
+        raise AssertionError(f"train.main --spatial 2 {preset} failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(ck, "logs", "train.jsonl")) as f:
+        epoch = [json.loads(line) for line in f][-1]
+    loss = epoch.get("epoch/loss", float("nan"))
+    if not math.isfinite(loss) or epoch.get("step") != 3:
+        raise AssertionError(f"train --spatial 2: loss {loss} at {epoch.get('step')}")
+    if train.main(argv[:5] + ["0"] + argv[6:] + ["--resume"]) != 0:
+        raise AssertionError(f"train.main --spatial 2 {preset} --resume failed")
+    log(f"train.main --spatial 2 {preset} at one rank: 3 steps, loss {loss:.4f}, then "
+        f"--resume; {wall:.1f} s wall")
+    return {"spatial_cli_wall_s": wall, "spatial_cli_loss": loss}
+
+
+GRID_N = 8              # fcn8s_kitti's batch, full 384x1248 images (no crop)
+
+
+def _grid_state(torch, dev, weights=None):
+    """fcn8s_kitti at full width with the SPMD-safe kwargs (pallas_spmd,
+    no Winograd), dropout 0, Adam 1e-4, seeded (or given) weights."""
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+        build_model, merge_spmd_safe_kwargs,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+
+    kw = merge_spmd_safe_kwargs("fcn8s", dict(get_preset("fcn8s_kitti").model_kwargs,
+                                              dropout_rate=0.0))
+    model = build_model("fcn8s", 2, device=dev, **kw)
+    if weights is None:
+        init_params(model, torch.Generator(device=dev).manual_seed(11))
+    else:
+        model.load_state_dict(weights)
+    return create_train_state(model, make_optimizer("adam", model.parameters(), 1e-4),
+                              make_lr_schedule(1e-4), seed=0)
+
+
+def _grid_batch(torch, dev):
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
+
+    rng = np.random.default_rng(4)
+    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW) for _ in range(GRID_N)))
+    return {"image": torch.from_numpy(np.stack(imgs)).to(dev),
+            "label": torch.from_numpy(np.stack(lbls)).to(dev)}
+
+
+def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
+    """One rank of the grid phase (``chip_smoke.py --grid-rank``): gloo on
+    cuda:0, a data 1 x spatial 2 grid, two train steps of fcn8s_kitti on
+    this rank's rows of the job's batch from the job's weights, then timed
+    steps and one profiled step; rank 0 saves the first step's gradients."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path[:0] = [REPO]
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        stage1_tail_halo, stage1_tail_halo_bwd,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import make_grid
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    dev = torch.device("cuda", 0)
+    grid = make_grid(1, world)
+    state = _grid_state(torch, dev, torch.load(job, map_location=dev))
+    batch = {k: v[:, grid.rows(v.shape[1])].contiguous()
+             for k, v in _grid_batch(torch, dev).items()}
+    step = make_train_step(2, mesh=grid,
+                           augment_fn=make_preprocess_augment_fn(MEAN, STD, None))
+    stage1_tail_halo.launches = stage1_tail_halo_bwd.launches = 0
+    losses, cms = [], []
+    for i in range(2):
+        o = step(state, batch)
+        losses.append(o["loss"].item())
+        cms.append(o["cm"].cpu())
+        if i == 0 and rank == 0:
+            torch.save({k: p.grad.float().cpu() for k, p in
+                        state.model.named_parameters()}, out + ".grads")
+    launches = (stage1_tail_halo.launches, stage1_tail_halo_bwd.launches)
+    ms = cuda_ms(lambda: step(state, batch), iters=4, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = {k: 0.0 for k in ("halo_exchange", "grid_all_reduce")}
+    for e in prof.key_averages():
+        if e.key in spans:
+            spans[e.key] = e.cpu_time_total / 1e3
+    torch.save({"losses": losses, "cms": cms, "launches": launches, "ms": ms,
+                "profiled_wall_ms": wall, "spans_ms": spans,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def check_grid(torch, tmp: str, smi: str) -> dict:
+    """The 2-rank grid (data 1 x spatial 2) with gloo on cuda:0: two ranks
+    sharing one GPU, each holding 192 of the 384 rows of an fcn8s_kitti
+    batch (8 full 384x1248 images, flips by the preprocess kernel), two
+    Adam steps through the halo exchange and kernel 1c, held against the
+    single-process run of the same step (pallas_spmd at one rank) with
+    check_train_step's bounds: both losses within 1e-3 relative, each
+    parameter's first gradient within 5e-2 of its L2 norm, the confusion
+    matrices on >= 99.5 % of the labels. Then ms per step (4 steps, CUDA
+    events) and the exchange's and the gradient all-reduce's share of one
+    profiled step. Two ranks on one card over gloo: not a multi-GPU number."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    ref = _grid_state(torch, dev)
+    job = os.path.join(tmp, "grid_weights.pt")
+    torch.save(ref.model.state_dict(), job)
+    store = os.path.join(tmp, "grid_store")
+    outs = [os.path.join(tmp, f"grid_rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--grid-rank",
+                               str(r), "2", store, job, outs[r]]) for r in range(2)]
+    try:
+        # the single-process reference runs while the ranks start
+        batch = _grid_batch(torch, dev)
+        step = make_train_step(2, augment_fn=make_preprocess_augment_fn(MEAN, STD, None))
+        ref_losses, ref_cms = [], []
+        for i in range(2):
+            o = step(ref, batch)
+            ref_losses.append(o["loss"].item())
+            ref_cms.append(o["cm"].cpu())
+            if i == 0:
+                ref_grads = {k: p.grad.float().cpu()
+                             for k, p in ref.model.named_parameters()}
+        single_ms = cuda_ms(lambda: step(ref, batch), iters=4, warmup=1)
+        del ref, batch
+        torch.cuda.empty_cache()
+        for p in procs:
+            if p.wait(timeout=600) != 0:
+                raise AssertionError(f"grid rank exited with {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    ranks = [torch.load(o) for o in outs]
+    grads = torch.load(outs[0] + ".grads")
+    worst, worst_name = 0.0, ""
+    for k, g in ref_grads.items():
+        rel = ((grads[k] - g).norm() / g.norm().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, k
+    agree = min(1 - (a - b).abs().sum().item() / (2 * b.sum().item())
+                for a, b in zip(ranks[0]["cms"], ref_cms))
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref_losses))
+    same = ranks[0]["losses"] == ranks[1]["losses"]
+    r0 = ranks[0]
+    share = {k: v / r0["profiled_wall_ms"] for k, v in r0["spans_ms"].items()}
+    log(f"grid data1 x spatial2 (2 gloo ranks sharing cuda:0), fcn8s_kitti, {GRID_N} x "
+        f"384x1248: losses {r0['losses']} vs single-process {ref_losses} (max rel "
+        f"{rel_loss:.3g}, bound 1e-3); worst first gradient |dg|/|g| {worst:.4g} "
+        f"({worst_name}, bound 5e-2); labels agree >= {100 * agree:.4f} % (bound "
+        f"99.5 %); both ranks' losses equal: {same}; launches on rank 0 (halo fwd, bwd)"
+        f" {r0['launches']}")
+    log(f"grid step: {r0['ms']:.2f} ms/step, {GRID_N / r0['ms'] * 1e3:.2f} images/s "
+        f"(two ranks sharing one GPU over gloo, not a multi-GPU number; the "
+        f"single-process step of the same model {single_ms:.2f} ms); one profiled "
+        f"step {r0['profiled_wall_ms']:.2f} ms: halo exchange "
+        f"{r0['spans_ms']['halo_exchange']:.2f} ms ({100 * share['halo_exchange']:.1f} %)"
+        f", gradient all-reduce {r0['spans_ms']['grid_all_reduce']:.2f} ms "
+        f"({100 * share['grid_all_reduce']:.1f} %); peak memory per rank "
+        f"{r0['peak_gib']:.2f} GiB | {smi}")
+    if not (rel_loss <= 1e-3 and worst <= 5e-2 and agree >= 0.995 and same
+            and all(r0["launches"])):
+        raise AssertionError("the grid step is outside the bounds")
+    return {"grid_ms": r0["ms"], "grid_images_per_s": GRID_N / r0["ms"] * 1e3,
+            "grid_single_ms": single_ms, "grid_exchange_share": share["halo_exchange"],
+            "grid_all_reduce_share": share["grid_all_reduce"],
+            "grid_launches": list(r0["launches"])}
+
+
 def time_train(torch, smi: str, workload: str) -> dict:
     """Steady-state train images/s, peak device memory and the device's
     idle share at one of tools/profile_train.py's workloads (FCN-8s or
@@ -1432,6 +1871,9 @@ def time_train(torch, smi: str, workload: str) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--grid-rank"]:     # a rank of check_grid's phase
+        rank, world, store, job, out = sys.argv[2:7]
+        return grid_rank(int(rank), int(world), store, job, out)
     try:
         import torch
     except ImportError:
@@ -1454,7 +1896,8 @@ def main() -> int:
             pool_argmax, unpool, unpool_bwd,
         )
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-            stage1_tail, stage1_tail_bwd, stage1_tail_segnet, stage1_tail_train,
+            stage1_tail, stage1_tail_bwd, stage1_tail_halo, stage1_tail_halo_bwd,
+            stage1_tail_segnet, stage1_tail_train,
         )
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
             winograd_fwd, winograd_wgrad,
@@ -1494,6 +1937,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     winograd = check_winograd(torch, gen)
     torch.cuda.empty_cache()
+    halo = check_stage1_halo(torch, gen)
+    torch.cuda.empty_cache()
 
     counters = {"stage1_tail": stage1_tail, "stage1_tail_train": stage1_tail_train,
                 "stage1_tail_bwd": stage1_tail_bwd,
@@ -1502,7 +1947,8 @@ def main() -> int:
                 "stage1_tail_segnet": stage1_tail_segnet,
                 "pool_argmax": pool_argmax, "unpool": unpool,
                 "unpool_bwd": unpool_bwd, "winograd_fwd": winograd_fwd,
-                "winograd_wgrad": winograd_wgrad}
+                "winograd_wgrad": winograd_wgrad, "stage1_tail_halo": stage1_tail_halo,
+                "stage1_tail_halo_bwd": stage1_tail_halo_bwd}
 
     def drive(path, fn, *args):
         """Run one main path with every launch counter at 0 just before it
@@ -1534,6 +1980,33 @@ def main() -> int:
     bench = time_train(torch, smi, "bench")
     log("training timings: " + json.dumps(
         dict(train_times, preset=preset, bench_workload=bench)))
+    torch.cuda.empty_cache()
+
+    # --spatial: at one rank through train.main (kernel 1c, no single-device
+    # stage1 kernel), the preset step with 1c beside the one with 1/1b, and
+    # the 2-rank grid on this card
+    single_stage1 = ("stage1_tail", "stage1_tail_train", "stage1_tail_bwd",
+                     "stage1_tail_segnet")
+    spatial_runs = []
+    for sp_preset in ("fcn8s_kitti", "segnet_kitti"):
+        with tempfile.TemporaryDirectory() as tmp:
+            sp_times, sp_launches = drive(f"{sp_preset} --spatial 2 training",
+                                          drive_spatial_training, torch, tmp, sp_preset)
+        spatial_runs.append(sp_launches)
+        missing = [k for k in ("stage1_tail_halo", "stage1_tail_halo_bwd",
+                               "preprocess_normalize") if not sp_launches[k]]
+        if missing or any(sp_launches[k] for k in single_stage1):
+            raise AssertionError(f"{sp_preset} --spatial 2: launches {sp_launches}")
+        torch.cuda.empty_cache()
+    spmd = time_train(torch, smi, "preset_spmd")
+    preset_again = time_train(torch, smi, "preset")
+    log("--spatial at one rank, preset step (1c) beside the default (1/1b): "
+        f"{spmd['host_ms']:.2f} vs {preset['host_ms']:.2f} and "
+        f"{preset_again['host_ms']:.2f} ms/step")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = check_grid(torch, tmp, smi)
+    log("grid timings: " + json.dumps(grid))
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1597,7 +2070,7 @@ def main() -> int:
         return sum(runs[k] for runs in (infer_launches, train_launches,
                                         seg_infer_launches, seg_train_launches,
                                         w_infer_launches, w_train_launches,
-                                        w_seg_launches)
+                                        w_seg_launches, *spatial_runs)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1634,6 +2107,14 @@ def main() -> int:
                       "and :231",
              launches=total("winograd_fwd", "winograd_wgrad"),
              **{k: winograd[k] for k in keys}),
+        # the --spatial train.main runs, and the grid phase's rank 0
+        dict(name="stage1_tail_halo", route="cuda",
+             source=f"{PKG}/csrc/stage1_tail.cu and {PKG}/csrc/stage1_bwd.cu",
+             replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:636 "
+                      "and :652",
+             launches=total("stage1_tail_halo", "stage1_tail_halo_bwd")
+             + sum(grid["grid_launches"]),
+             **{k: halo[k] for k in keys}),
     ]
 
     print(json.dumps({"kernels": kernels}))

@@ -50,6 +50,19 @@
 // math bounds it, the next step is wgmma (Hopper's warpgroup MMA; mma.sync
 // does not reach the dense peak on sm_90), with TMA feeding it; both are
 // later work.
+//
+// Halo mode (kernel 1c; replaces the same _fwd_kernel with spmd=True, reached
+// through _fwd_cp :636, fused_stage1_tail(..., spmd=True) :679 and
+// fused_segnet_stage1_tail(..., spmd=True) :799): the image's rows are split
+// across ranks, z1 holds this rank's rows WITHOUT the conv1_1 bias b1, and
+// `top` / `bot` [N][1][W][C] are the pre-bias conv1_1 rows just above and
+// below them (a neighbour's boundary row, or -inf at the image's edge). Every
+// loaded value becomes relu(bf16(z + b1)) (stage1.py:213), so an -inf row
+// relus to an exact 0, the SAME padding. Rows -1 and H come from top and bot
+// instead of zero fill; the rest is the same kernel. The TPU kernel's
+// per-block halo arrays (stage1.py:457-475) come from its VMEM blocking: a
+// block here reads its neighbours inside the shard directly and needs
+// halo rows only at the shard's edge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,11 +76,40 @@ using namespace stage1;
 
 enum Mode { kInfer, kCodes, kSegNet };
 
-template <int C, int kMode>
+// Halo mode: the z1 row y of image n, y = -1 and y = H from the halo rows,
+// or nullptr where the SAME padding is zero (outside the columns).
+template <int C>
+__device__ __forceinline__ const __nv_bfloat16* halo_row(
+    const __nv_bfloat16* __restrict__ z1, const __nv_bfloat16* __restrict__ top,
+    const __nv_bfloat16* __restrict__ bot, int n, int y, int x, int H, int W) {
+  if (x < 0 || x >= W || y < -1 || y > H) return nullptr;
+  if (y == -1) return top + ((size_t)n * W + x) * C;
+  if (y == H) return bot + ((size_t)n * W + x) * C;
+  return z1 + (((size_t)n * H + y) * W + x) * C;
+}
+
+// Halo mode: relu(bf16(z + b1)) of 8 values, by a packed bf16 add (one
+// rounding), which for two bf16 operands equals PyTorch's f32 add rounded
+// to bf16 (an f32 sum of two bf16 values never sits on a bf16 rounding
+// midpoint that the exact sum does not)
+__device__ __forceinline__ uint4 halo_relu8(uint4 v, const __nv_bfloat16* __restrict__ b1) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+  const uint4 bv = *reinterpret_cast<const uint4*>(b1);
+  const __nv_bfloat162* bh = reinterpret_cast<const __nv_bfloat162*>(&bv);
+  const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.f);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) h[k] = __hmax2(__hadd2(h[k], bh[k]), zero2);
+  return v;
+}
+
+template <int C, int kMode, bool kHalo>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
+                   const __nv_bfloat16* __restrict__ top, // [N][1][W][C] halo mode
+                   const __nv_bfloat16* __restrict__ bot, // [N][1][W][C] halo mode
                    const __nv_bfloat16* __restrict__ w,   // [Cout][3][3][Cin]
                    const __nv_bfloat16* __restrict__ b2,  // [C]
+                   const __nv_bfloat16* __restrict__ b1,  // [C] halo mode
                    __nv_bfloat16* __restrict__ out,       // [N][H/2][W/2][C]
                    uint8_t* __restrict__ codes,           // [N][H/2][W/2][C]
                    int n_img, int H, int W) {
@@ -103,7 +145,10 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
       const int tc = p % kTileCols, tr = p / kTileCols;
       const int y = r0 - 1 + tr, x = c0 - 1 + tc;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (y >= 0 && y < H && x >= 0 && x < W) {
+      if constexpr (kHalo) {
+        const __nv_bfloat16* src = halo_row<C>(z1, top, bot, n, y, x, H, W);
+        if (src) v = halo_relu8(*reinterpret_cast<const uint4*>(src + ch * 8), b1 + ch * 8);
+      } else if (y >= 0 && y < H && x >= 0 && x < W) {
         v = *reinterpret_cast<const uint4*>(
             z1 + (((size_t)n * H + y) * W + x) * C + ch * 8);
         __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
@@ -175,11 +220,16 @@ stage1_tail_kernel(const __nv_bfloat16* __restrict__ z1,  // [N][H][W][C]
   }
 }
 
-template <int C, int kMode>
-cudaError_t launch(const void* z1, const void* w, const void* b2, void* out,
-                   void* codes, int n, int h, int w_, cudaStream_t stream) {
+// the kernel's pointer arguments; top, bot and b1 are read in halo mode only
+struct Args {
+  const void *z1, *top, *bot, *w, *b2, *b1;
+  void *out, *codes;
+};
+
+template <int C, int kMode, bool kHalo>
+cudaError_t launch(const Args& a, int n, int h, int w_, cudaStream_t stream) {
   const size_t smem = conv_smem_bytes(C);
-  auto kernel = stage1_tail_kernel<C, kMode>;
+  auto kernel = stage1_tail_kernel<C, kMode, kHalo>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -189,30 +239,31 @@ cudaError_t launch(const void* z1, const void* w, const void* b2, void* out,
   int grid = 0;
   if ((err = persistent_grid(kernel, kThreads, smem, tiles, &grid)) != cudaSuccess)
     return err;
+  using B = __nv_bfloat16;
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(z1), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(b2), static_cast<__nv_bfloat16*>(out),
-      static_cast<uint8_t*>(codes), n, h, w_);
+      static_cast<const B*>(a.z1), static_cast<const B*>(a.top),
+      static_cast<const B*>(a.bot), static_cast<const B*>(a.w),
+      static_cast<const B*>(a.b2), static_cast<const B*>(a.b1),
+      static_cast<B*>(a.out), static_cast<uint8_t*>(a.codes), n, h, w_);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_c(const void* z1, const void* w, const void* b2, void* out,
-                     void* codes, int n, int h, int w_, bool segnet,
+template <int C, bool kHalo>
+cudaError_t launch_c(const Args& a, int n, int h, int w_, bool segnet,
                      cudaStream_t s) {
-  if (segnet) return launch<C, kSegNet>(z1, w, b2, out, codes, n, h, w_, s);
-  return codes ? launch<C, kCodes>(z1, w, b2, out, codes, n, h, w_, s)
-               : launch<C, kInfer>(z1, w, b2, out, codes, n, h, w_, s);
+  if (segnet) return launch<C, kSegNet, kHalo>(a, n, h, w_, s);
+  return a.codes ? launch<C, kCodes, kHalo>(a, n, h, w_, s)
+                 : launch<C, kInfer, kHalo>(a, n, h, w_, s);
 }
 
-cudaError_t dispatch(const void* z1, const void* w, const void* b2, void* out,
-                     void* codes, int n, int h, int w_, int c, bool segnet,
+template <bool kHalo>
+cudaError_t dispatch(const Args& a, int n, int h, int w_, int c, bool segnet,
                      cudaStream_t s) {
   switch (c) {
-    case 16: return launch_c<16>(z1, w, b2, out, codes, n, h, w_, segnet, s);
-    case 32: return launch_c<32>(z1, w, b2, out, codes, n, h, w_, segnet, s);
-    case 48: return launch_c<48>(z1, w, b2, out, codes, n, h, w_, segnet, s);
-    case 64: return launch_c<64>(z1, w, b2, out, codes, n, h, w_, segnet, s);
+    case 16: return launch_c<16, kHalo>(a, n, h, w_, segnet, s);
+    case 32: return launch_c<32, kHalo>(a, n, h, w_, segnet, s);
+    case 48: return launch_c<48, kHalo>(a, n, h, w_, segnet, s);
+    case 64: return launch_c<64, kHalo>(a, n, h, w_, segnet, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -227,8 +278,8 @@ cudaError_t dispatch(const void* z1, const void* w, const void* b2, void* out,
 extern "C" int seg_stage1_tail(const void* z1, const void* w, const void* b2,
                                void* out, void* codes, int n, int h, int w_, int c,
                                void* stream) {
-  return (int)dispatch(z1, w, b2, out, codes, n, h, w_, c, false,
-                       static_cast<cudaStream_t>(stream));
+  return (int)dispatch<false>({z1, nullptr, nullptr, w, b2, nullptr, out, codes}, n,
+                              h, w_, c, false, static_cast<cudaStream_t>(stream));
 }
 
 // SegNet mode: the same arguments; `idx` (u8, out's shape) is required.
@@ -236,6 +287,28 @@ extern "C" int seg_stage1_tail_segnet(const void* z1, const void* w, const void*
                                       void* out, void* idx, int n, int h, int w_,
                                       int c, void* stream) {
   if (idx == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(z1, w, b2, out, idx, n, h, w_, c, true,
-                       static_cast<cudaStream_t>(stream));
+  return (int)dispatch<false>({z1, nullptr, nullptr, w, b2, nullptr, out, idx}, n,
+                              h, w_, c, true, static_cast<cudaStream_t>(stream));
+}
+
+// Halo mode (kernel 1c), FCN epilogue: z1 [N][H][W][C] WITHOUT b1, the halo
+// rows top and bot [N][1][W][C] (pre-bias; -inf at the image's edge), b1 [C]
+// bf16, all 16-byte aligned; the rest as seg_stage1_tail.
+extern "C" int seg_stage1_tail_halo(const void* z1, const void* top, const void* bot,
+                                    const void* w, const void* b2, const void* b1,
+                                    void* out, void* codes, int n, int h, int w_,
+                                    int c, void* stream) {
+  return (int)dispatch<true>({z1, top, bot, w, b2, b1, out, codes}, n, h, w_, c,
+                             false, static_cast<cudaStream_t>(stream));
+}
+
+// Halo mode, SegNet epilogue; `idx` is required.
+extern "C" int seg_stage1_tail_halo_segnet(const void* z1, const void* top,
+                                           const void* bot, const void* w,
+                                           const void* b2, const void* b1, void* out,
+                                           void* idx, int n, int h, int w_, int c,
+                                           void* stream) {
+  if (idx == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<true>({z1, top, bot, w, b2, b1, out, idx}, n, h, w_, c, true,
+                             static_cast<cudaStream_t>(stream));
 }

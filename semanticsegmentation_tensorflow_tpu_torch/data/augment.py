@@ -8,6 +8,13 @@ both augment paths (this module's, which divides by std like the JAX
 package's ``make_augment_fn``, and ``ops.cuda.preprocess``'s kernel, which
 multiplies by 1/std like ``make_pallas_augment_fn``) consume them. Scale and
 color jitter are not ported yet.
+
+Under an active grid of several ranks (``parallel/mesh.py``) each rank holds
+its images and rows of the global batch: the flips are drawn for the global
+batch from the shared generator and each rank keeps its images', so the grid
+step equals the single-process step. A grid trains without crop (the JAX
+package's ``scripts/train.py:265-269``); flip and normalize need no
+neighbouring row, so the preprocess kernel runs on each rank's rows.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import current_grid
 
 
 def normalize_images(images: torch.Tensor,
@@ -81,8 +90,16 @@ class Augment:
 
     def __call__(self, generator: torch.Generator, batch: dict) -> dict:
         n, h, w = batch["label"].shape
-        return self.apply(batch, *sample_augment_params(
-            generator, n, h, w, self.crop_size))
+        grid = current_grid()
+        if grid is None or grid.world == 1:
+            return self.apply(batch, *sample_augment_params(
+                generator, n, h, w, self.crop_size))
+        if self.crop_size is not None:
+            raise ValueError("a grid of ranks trains without random crop")
+        flip, oy, ox = sample_augment_params(
+            generator, n * grid.data, h * grid.spatial, w, None)
+        mine = grid.images(n * grid.data)
+        return self.apply(batch, flip[mine], oy[mine], ox[mine])
 
     def apply(self, batch: dict, flip: torch.Tensor, oy: torch.Tensor,
               ox: torch.Tensor) -> dict:

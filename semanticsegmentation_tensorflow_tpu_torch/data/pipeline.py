@@ -7,6 +7,10 @@ shuffled with a seeded numpy RNG, edge-padded to the model's stride with
 device, see ``data.augment``). A thread assembles host batches into pinned
 memory; the device copy of the next batch is queued on a side stream while
 the current one trains.
+
+With a grid of ranks (``mesh=``, ``parallel/mesh.py``) every rank shuffles
+the same way and loads only its data slice of each batch (the JAX package's
+``pipeline.py:149-162``), pads it to the stride and keeps its rows.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import check_rows
+
 
 class BatchLoader:
     """Shuffled, padded, prefetched uint8 batches from a KITTI-style dataset
@@ -27,7 +33,10 @@ class BatchLoader:
     Spatial dims are edge-padded up to ``pad_multiple``; padded pixels get
     valid=0 so they are invisible to loss and metrics. ``drop_remainder=
     False`` wrap-pads the last batch and marks the repeated examples
-    entirely invalid. Data-parallel slicing (``mesh``) is not ported yet.
+    entirely invalid. ``mesh``: a ``parallel.mesh.Grid``; this rank's images
+    and rows of every batch (``batch_size`` is global and must divide over
+    the grid's data ranks; the padded height over ``pad_multiple`` times
+    its spatial ranks, else a batch raises).
     """
 
     DEFAULT_CACHE_BYTES = 2 << 30
@@ -36,9 +45,10 @@ class BatchLoader:
                  seed: int = 0, *, device, drop_remainder: bool = True,
                  cache: bool = True, cache_bytes: int | None = None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("BatchLoader(mesh=...): data-parallel "
-                                      "loading is not ported yet")
+        if mesh is not None and batch_size % mesh.data:
+            raise ValueError(f"batch_size {batch_size} must divide over the "
+                             f"grid's {mesh.data} data ranks")
+        self.mesh = mesh
         self.ds = dataset
         self.batch_size = batch_size
         self.pad_multiple = pad_multiple
@@ -85,8 +95,14 @@ class BatchLoader:
         for p in paths:
             i, l, v = self._pad(*self._get(p))
             imgs.append(i); lbls.append(l); vals.append(v)
-        return {"image": np.stack(imgs), "label": np.stack(lbls),
-                "valid": np.stack(vals)}
+        batch = {"image": np.stack(imgs), "label": np.stack(lbls),
+                 "valid": np.stack(vals)}
+        if self.mesh is not None and self.mesh.spatial > 1:
+            h = batch["label"].shape[1]
+            check_rows(h, self.mesh.spatial, self.pad_multiple)
+            rows = self.mesh.rows(h)
+            batch = {k: v[:, rows] for k, v in batch.items()}
+        return batch
 
     def _host_epoch(self) -> Iterator[dict[str, np.ndarray]]:
         paths = list(self.ds.train_images)
@@ -101,9 +117,13 @@ class BatchLoader:
                 # wrap-pad to keep shapes static, but mark the duplicated
                 # examples entirely invalid so loss/metrics never count them
                 chunk = chunk + paths[: bs - n_real]
+            idx = np.arange(bs)
+            if self.mesh is not None:          # this rank's images only
+                idx = idx[self.mesh.images(bs)]
+                chunk = [chunk[j] for j in idx]
             batch = self._stack(chunk)
             if n_real < bs:
-                batch["valid"] &= ~(np.arange(bs) >= n_real)[:, None, None]
+                batch["valid"] &= ~(idx >= n_real)[:, None, None]
             yield batch
 
     # -- device staging, one batch ahead ---------------------------------

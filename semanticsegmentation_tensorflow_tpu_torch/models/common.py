@@ -17,6 +17,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
+from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import exchange_rows
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import (
+    current_grid, spatial_grid,
+)
 
 # flax lecun_normal: truncated normal on [-2, 2] std units, rescaled by this
 # constant so the truncated distribution has variance 1/fan_in
@@ -42,9 +46,22 @@ def fill_init(t: torch.Tensor, generator: torch.Generator, std: float,
 def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, *, dtype: torch.dtype,
               padding: int, dilation: int = 1) -> torch.Tensor:
     """Stride-1 conv of NHWC ``x`` with OIHW ``kernel``, both cast to
-    ``dtype``; accumulates in f32 and returns NHWC in ``dtype``."""
-    y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), kernel.to(dtype),
-                 padding=padding, dilation=dilation)
+    ``dtype``; accumulates in f32 and returns NHWC in ``dtype``.
+
+    Under an active grid that splits rows (``parallel.mesh.spatial_grid``),
+    the ``padding`` rows above and below are the neighbouring ranks' rows
+    (``parallel.halo.exchange_rows``; zero at the image's edge) instead of
+    zeros, so each rank computes its rows of the whole image's conv; the
+    columns keep their zero padding. Raises when a rank holds fewer rows
+    than the halo (fc6's 7x7 needs 3 at stride 32)."""
+    x = x.to(dtype)
+    grid = spatial_grid()
+    pad = padding
+    if grid is not None and padding:
+        x = exchange_rows(x, padding, padding, grid)
+        pad = (0, padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(dtype), padding=pad,
+                 dilation=dilation)
     return y.permute(0, 2, 3, 1)
 
 
@@ -100,6 +117,10 @@ def winograd_impl(x_shape, kernel_shape, winograd: str | None,
     an implementation, never an architecture."""
     if not winograd or dilation != 1:
         return None
+    if spatial_grid() is not None:
+        raise NotImplementedError(
+            "the Winograd forms exchange no halo rows: train a spatial grid "
+            "with winograd=None (what --spatial merges in)")
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
         eligible,
     )
@@ -197,14 +218,24 @@ def dropout(x: torch.Tensor, rate: float, *, training: bool,
     """flax ``nn.Dropout``: ``where(bernoulli(1 - rate), x / (1 - rate), 0)``
     in x's dtype, the mask drawn from ``generator`` (on x's device). The
     identity in eval or at rate 0; in training with rate > 0 it needs a
-    generator (it never draws from the global one)."""
+    generator (it never draws from the global one). Under an active grid of
+    several ranks the mask is drawn at the global batch's shape (every rank
+    holds the same generator state) and each rank keeps its images and
+    rows, so the grid step equals the single-process step."""
     if not training or rate == 0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit generator "
                          "(model(x, generator=g))")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    grid = current_grid()
+    if grid is None or grid.world == 1:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    else:
+        n, h = x.shape[:2]
+        shape = (n * grid.data, h * grid.spatial, *x.shape[2:])
+        mask = (torch.rand(shape, generator=generator, device=x.device)
+                [grid.images(shape[0]), grid.rows(shape[1])] < keep)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -34,6 +34,40 @@ def build_model(name: str, num_classes: int, *, device,
     return cls(num_classes=num_classes, device=device, **kwargs)
 
 
+def spmd_safe_kwargs(name: str) -> dict[str, Any]:
+    """Model kwargs required under a height-partitioned (spatial) grid (the
+    JAX package's table, ``models/registry.py:43-61``): the fused stage1 in
+    its halo mode (``pallas_spmd=True``, kernel 1c) and no Winograd forms
+    (they exchange no halo rows). Every entry point that builds a model for
+    a spatial grid merges these in (setdefault, so explicit user choices
+    still win)."""
+    if name in ("fcn8s", "fcn16s", "fcn32s", "segnet", "deeplab"):
+        return {"winograd": None, "pallas_spmd": True}
+    if name == "unet":
+        return {"winograd": None}
+    return {}
+
+
+def merge_spmd_safe_kwargs(name: str, kwargs: dict[str, Any]) -> dict[str, Any]:
+    """Merge :func:`spmd_safe_kwargs` into user kwargs for a spatial grid,
+    warning on any conflict instead of silently dropping or silently keeping
+    the user's choice. The user's explicit value still wins (setdefault
+    semantics), so the failure, if any, is the raise of a layer that cannot
+    run on split rows, preceded by a warning that names the flag."""
+    import warnings
+
+    for k, v in spmd_safe_kwargs(name).items():
+        if k in kwargs and kwargs[k] != v:
+            warnings.warn(
+                f"model kwarg {k}={kwargs[k]!r} has no halo exchange under a "
+                f"spatially-partitioned (2-D) grid; the SPMD-safe value is "
+                f"{k}={v!r}. Keeping your explicit choice; expect an error "
+                f"if this path is exercised.",
+                stacklevel=2)
+        kwargs.setdefault(k, v)
+    return kwargs
+
+
 def padded_input_hw(model: nn.Module,
                     image_size: tuple[int, int]) -> tuple[int, int]:
     """(H, W) of ``image_size`` ceil-padded to the model's total stride."""

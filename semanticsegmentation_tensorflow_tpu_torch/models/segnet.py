@@ -40,7 +40,8 @@ class SegNet(nn.Module):
     (``"f2"``, ``"f4"``, ``"f2x"``, ``"f4x"``) goes to every ``ConvBlock``
     (enc2-enc5, dec5-dec1; ``models.common.winograd_impl`` picks the
     eligible layers), as in the JAX package; the parameters do not change.
-    ``use_bn=True`` and ``pallas_spmd=True`` are not ported and raise.
+    ``pallas_spmd`` goes to :class:`SegNetStage1` (its halo mode, kernel
+    1c). ``use_bn=True`` is not ported and raises.
     ``forward`` takes a ``generator`` for the train step's calling
     convention; SegNet has no dropout and draws nothing.
     """
@@ -54,7 +55,7 @@ class SegNet(nn.Module):
                  packed_dec2: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None):
         super().__init__()
-        reject_unported(use_bn=use_bn, pallas_spmd=pallas_spmd)
+        reject_unported(use_bn=use_bn)
         self.num_classes = num_classes
         self.dtype = dtype
         self.fused_stage1 = packed_stage1 and pallas_pool is not False
@@ -64,7 +65,8 @@ class SegNet(nn.Module):
         cin = 3
         for i, (n_convs, _) in enumerate(VGG16_STAGES, start=1):
             f = feats[i - 1]
-            self.add_module(f"enc{i}", SegNetStage1(cin, f, **kw)
+            self.add_module(f"enc{i}", SegNetStage1(cin, f, pallas_spmd=pallas_spmd,
+                                                    **kw)
                             if i == 1 and self.fused_stage1
                             else ConvBlock(cin, f, n_convs, **wkw))
             cin = f

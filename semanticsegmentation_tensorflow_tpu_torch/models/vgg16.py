@@ -17,6 +17,7 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import (
 from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
     winograd_conv_large,
 )
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import spatial_grid
 
 # (n_convs, features) per VGG16 stage.
 VGG16_STAGES: tuple[tuple[int, int], ...] = (
@@ -47,7 +48,8 @@ class VGG16(nn.Module):
     either way. ``deferred_pool_bias`` is accepted only at its JAX default
     (True): the port has no other form.
     ``dropout_rate`` applies to fc6 and fc7 in ``train()`` mode, with masks
-    from the ``generator`` given to :meth:`forward`.
+    from the ``generator`` given to :meth:`forward`. ``pallas_spmd`` goes to
+    :class:`Stage1` (its halo mode, kernel 1c).
     """
 
     def __init__(self, fc_features: int = 1024, width_mult: float = 1.0, *,
@@ -60,13 +62,13 @@ class VGG16(nn.Module):
         super().__init__()
         reject_unported(use_bn=use_bn, dilated_last_stages=dilated_last_stages,
                         packed_stage2_entry=packed_stage2_entry,
-                        pallas_spmd=pallas_spmd,
                         deferred_pool_bias=not deferred_pool_bias)
         cin = 3
         for i, (n_convs, feats) in enumerate(VGG16_STAGES, start=1):
             feats = max(8, int(feats * width_mult))
             if i == 1 and packed_stage1 and pallas_pool is not False:
-                block = Stage1(cin, feats, winograd=winograd, dtype=dtype,
+                block = Stage1(cin, feats, winograd=winograd,
+                               pallas_spmd=pallas_spmd, dtype=dtype,
                                device=device)
             else:
                 block = PooledConvBlock(cin, feats, n_convs, winograd=winograd,
@@ -88,6 +90,10 @@ class VGG16(nn.Module):
             ends[f"pool{i}"] = x
         drop = dict(training=self.training, generator=generator)
         if self.winograd_fc6:
+            if spatial_grid() is not None:
+                raise NotImplementedError(
+                    "winograd_fc6 exchanges no halo rows: train a spatial "
+                    "grid without it")
             c6 = self.conv6
             x = winograd_conv_large(x.to(c6.dtype), c6.weight, c6.bias, "f3", True)
         else:

@@ -35,6 +35,11 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "seg_stage1_tail": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "seg_stage1_tail_segnet": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "seg_stage1_tail_halo": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
+    "seg_stage1_tail_halo_segnet": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
+    "seg_stage1_tail_bwd_halo": ((_P,) * 18 + (_I, _I, _P, _P, _P, _I, _I, _I, _I,
+                                                _P), _I),
+    "seg_stage1_bwd_dgrad_parts": ((_I, _I, _I, _I), _I),
     "seg_pool_argmax": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     "seg_unpool": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),
     "seg_unpool_bwd": ((_P, _P, _P, _I, _I, _I, _I, _P), _I),

@@ -25,9 +25,27 @@ tensors on the CPU; for CUDA tensors each launches its kernel or raises:
 :class:`Stage1Tail` is the autograd Function over the training forward and
 the backward, :class:`SegNetStage1Tail` over the SegNet forward and the same
 backward. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+The halo mode (kernel 1c, the port of the same two Pallas calls with
+``spmd=True``: ``fused_stage1_tail(..., spmd=True)`` and
+``fused_segnet_stage1_tail(..., spmd=True)``) serves an image whose rows are
+split across ranks: z1 arrives WITHOUT the conv1_1 bias b1, which the kernel
+folds in as relu(z + b1), and rows -1 and H come from the halo rows ``top``
+and ``bot`` [N,1,W,C] (a neighbour's boundary row, or ``-inf`` at the image's
+edge, so that relu(z + b1) is exactly 0 there). ``stage1_tail_halo`` runs the
+three epilogues (``mode`` "infer", "codes", "segnet"); ``stage1_tail_halo_bwd``
+returns (dz1, dk2, db2, db1), db1 included, from the neighbours' boundary
+pooled rows of g, out and codes (:class:`BwdHalos`). :class:`Stage1TailHalo`
+and :class:`SegNetStage1TailHalo` take (z1, k2, b2, b1) and a spatial grid (or
+None for a whole image) and exchange the halo rows themselves
+(``parallel/halo.py``). The TPU's per-block halo arrays came from its VMEM
+blocking; the H100 kernels read their neighbours inside a rank's rows and
+need halo rows only at its edge.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +53,7 @@ import torch.nn.functional as F
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
     pool_argmax_plain,
 )
+from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import boundary_rows
 
 _WIDTHS = (16, 32, 48, 64)
 
@@ -64,14 +83,19 @@ def stage1_tail_codes_plain(z1: torch.Tensor, k2: torch.Tensor,
     (u8) is the position ``2*dy + dx`` of the first maximum of each 2x2
     window in row-major order, on the conv values in ``z1``'s dtype
     (``ops/pallas/stage1.py:252-257``). H and W even."""
-    dt = z1.dtype
-    n, h, w, c = z1.shape
-    z = F.conv2d(torch.relu(z1).permute(0, 3, 1, 2), k2.to(dt), padding=1)
+    z = F.conv2d(torch.relu(z1).permute(0, 3, 1, 2), k2.to(z1.dtype), padding=1)
+    return _pool_codes(z, b2)
+
+
+def _pool_codes(z: torch.Tensor, b2: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """NCHW conv output -> (relu(maxpool2(z) + b2), first-max codes), NHWC."""
+    n, c, h, w = z.shape
     win = (z.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3, 5)
            .reshape(n, h // 2, w // 2, c, 4))
     m = win.amax(-1)
     codes = (win == m.unsqueeze(-1)).to(torch.uint8).argmax(-1)  # first max
-    out = torch.relu(m + b2.to(dt))
+    out = torch.relu(m + b2.to(z.dtype))
     return out, codes.to(torch.uint8)
 
 
@@ -82,9 +106,14 @@ def stage1_tail_segnet_plain(z1: torch.Tensor, k2: torch.Tensor,
     function ``ops/pool.py:max_pool_with_argmax`` runs on the CPU). Returns
     (pooled [N,H/2,W/2,C], u8 idx, the first maximum of relu(conv + b2) in
     row-major window order: ``ops/pallas/stage1.py:235-260``). H, W even."""
-    dt = z1.dtype
-    z = F.conv2d(torch.relu(z1).permute(0, 3, 1, 2), k2.to(dt), padding=1)
-    s = torch.relu(z + b2.to(dt).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
+    z = F.conv2d(torch.relu(z1).permute(0, 3, 1, 2), k2.to(z1.dtype), padding=1)
+    return _segnet_pool(z, b2)
+
+
+def _segnet_pool(z: torch.Tensor, b2: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """NCHW conv output -> the argmax pool of relu(z + b2), NHWC."""
+    s = torch.relu(z + b2.to(z.dtype).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
     return pool_argmax_plain(s)
 
 
@@ -106,25 +135,109 @@ def stage1_tail_bwd_plain(g: torch.Tensor, out: torch.Tensor,
     the same bf16 products, summed in another order. On the CPU it is
     tested against autograd through :func:`stage1_tail_plain`."""
     dt = z1.dtype
-    n, h, w, c = z1.shape
     gr = torch.where(out > 0, g.to(dt), torch.zeros((), dtype=dt))
-    pos = torch.arange(4, device=g.device).view(1, 1, 1, 1, 4)
+    dz2 = F.pad(_route(gr, codes), (0, 0, 0, 0, 1, 1))   # rows -1..H, zero
+    y = F.pad(torch.relu(z1).float(), (0, 0, 0, 0, 1, 1))
+    dk2, dy = _conv_grads(dz2, y, k2.to(dt).float())
+    dz1 = torch.where(z1 > 0, dy, 0.0).to(dt)
+    return dz1, dk2, gr.float().sum((0, 1, 2))
+
+
+def _route(gr: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Each pooled gradient [N,Hp,Wp,C] to the conv pixel its code names:
+    [N,2Hp,2Wp,C] f32 (the values in gr's dtype, zero elsewhere)."""
+    n, hp, wp, c = gr.shape
+    pos = torch.arange(4, device=gr.device).view(1, 1, 1, 1, 4)
     dz2 = torch.where(codes.long().unsqueeze(-1) == pos, gr.unsqueeze(-1),
-                      torch.zeros((), dtype=dt))            # [N,Ho,Wo,C,4]
-    dz2 = (dz2.reshape(n, h // 2, w // 2, c, 2, 2).permute(0, 1, 4, 2, 5, 3)
-           .reshape(n, h, w, c).float())                    # NHWC
-    ypad = F.pad(torch.relu(z1).float(), (0, 0, 1, 1, 1, 1))
-    dzpad = F.pad(dz2, (0, 0, 1, 1, 1, 1))
-    kf = k2.to(dt).float()
-    dk2 = torch.empty((c, c, 3, 3), dtype=torch.float32, device=z1.device)
-    dy = torch.zeros((n, h, w, c), dtype=torch.float32, device=z1.device)
-    rows = dz2.reshape(-1, c).t()
+                      torch.zeros((), dtype=gr.dtype))      # [N,Hp,Wp,C,4]
+    return (dz2.reshape(n, hp, wp, c, 2, 2).permute(0, 1, 4, 2, 5, 3)
+            .reshape(n, 2 * hp, 2 * wp, c).float())
+
+
+def _conv_grads(dz2: torch.Tensor, y: torch.Tensor, kf: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 3x3 SAME conv's gradients as nine per-tap f32 GEMMs. dz2 and y
+    (the conv's relu'd input) are f32 NHWC with rows -1..H (the halo rows,
+    zero at an image edge); the columns are zero-padded here. Returns (dk2
+    OIHW over the conv rows 0..H-1, the input gradient dy of rows 0..H-1)."""
+    n, h2, w, c = dz2.shape
+    h = h2 - 2
+    ypad = F.pad(y, (0, 0, 1, 1))
+    dzpad = F.pad(dz2, (0, 0, 1, 1))
+    dk2 = torch.empty((c, c, 3, 3), dtype=torch.float32, device=dz2.device)
+    dy = torch.zeros((n, h, w, c), dtype=torch.float32, device=dz2.device)
+    rows = dz2[:, 1:h + 1].reshape(-1, c).t()
     for i in range(3):
         for j in range(3):
             dk2[:, :, i, j] = rows @ ypad[:, i:i + h, j:j + w].reshape(-1, c)
             dy += dzpad[:, 2 - i:2 - i + h, 2 - j:2 - j + w] @ kf[:, :, i, j]
-    dz1 = torch.where(z1 > 0, dy, 0.0).to(dt)
-    return dz1, dk2, gr.float().sum((0, 1, 2))
+    return dk2, dy
+
+
+_HALO_MODES = ("infer", "codes", "segnet")
+
+
+def stage1_tail_halo_plain(z1: torch.Tensor, top: torch.Tensor,
+                           bot: torch.Tensor, k2: torch.Tensor,
+                           b2: torch.Tensor, b1: torch.Tensor, mode: str):
+    """Plain version of the halo mode, in ``z1``'s dtype. z1 [N,H,W,C]
+    WITHOUT b1; top, bot [N,1,W,C] the pre-bias rows -1 and H (``-inf`` at
+    the image's edge). The conv input is relu(z + b1) with the bias added
+    in z1's dtype (``ops/pallas/stage1.py:213``). ``mode``: "infer" returns
+    the pooled output as :func:`stage1_tail_plain`; "codes" (out, codes) as
+    :func:`stage1_tail_codes_plain`; "segnet" (out, idx) as
+    :func:`stage1_tail_segnet_plain`."""
+    if mode not in _HALO_MODES:
+        raise ValueError(f"mode must be one of {_HALO_MODES}, got {mode!r}")
+    dt = z1.dtype
+    y = torch.relu(torch.cat([top, z1, bot], 1).to(dt) + b1.to(dt))
+    z = F.conv2d(y.permute(0, 3, 1, 2), k2.to(dt), padding=(0, 1))
+    if mode == "codes":
+        return _pool_codes(z, b2)
+    if mode == "segnet":
+        return _segnet_pool(z, b2)
+    p = F.max_pool2d(z, 2, ceil_mode=True)
+    return torch.relu(p + b2.to(dt).view(1, -1, 1, 1)).permute(0, 2, 3, 1)
+
+
+class BwdHalos(NamedTuple):
+    """The halo rows of the backward: the pooled row just above this rank's
+    rows (``*_top``) and just below them (``*_bot``) of g, out and codes
+    [N,1,W/2,C] (zero at the image's edge), and of z1 [N,1,W,C] (pre-bias,
+    ``-inf`` at the edge)."""
+    g_top: torch.Tensor
+    g_bot: torch.Tensor
+    out_top: torch.Tensor
+    out_bot: torch.Tensor
+    codes_top: torch.Tensor
+    codes_bot: torch.Tensor
+    z1_top: torch.Tensor
+    z1_bot: torch.Tensor
+
+
+def stage1_tail_halo_bwd_plain(g: torch.Tensor, out: torch.Tensor,
+                               codes: torch.Tensor, z1: torch.Tensor,
+                               k2: torch.Tensor, b1: torch.Tensor,
+                               halos: BwdHalos):
+    """Plain version of the halo-mode backward: (dz1 in z1's dtype, dk2 f32
+    OIHW, db2 f32, db1 f32) of this rank's rows. As
+    :func:`stage1_tail_bwd_plain`, with the routed gradient of conv rows -1
+    and H rebuilt from the halo rows of g, out and codes, relu(z1 + b1) read
+    with the z1 halo rows, and the relu mask of dz1 taken on z1 + b1
+    (``ops/pallas/stage1.py:375-381``). dk2 sums over this rank's conv rows,
+    db2 over its pooled rows and db1 = sum(dz1) over its rows: the sums over
+    the ranks are the whole image's."""
+    dt = z1.dtype
+    h = z1.shape[1]
+    gx = torch.cat([halos.g_top, g, halos.g_bot], 1).to(dt)
+    ox = torch.cat([halos.out_top, out, halos.out_bot], 1)
+    cx = torch.cat([halos.codes_top, codes, halos.codes_bot], 1)
+    gr = torch.where(ox > 0, gx, torch.zeros((), dtype=dt))
+    dz2 = _route(gr, cx)[:, 1:h + 3]                      # conv rows -1..H
+    zx = torch.cat([halos.z1_top, z1, halos.z1_bot], 1).to(dt) + b1.to(dt)
+    dk2, dy = _conv_grads(dz2, torch.relu(zx).float(), k2.to(dt).float())
+    dz1 = torch.where(zx[:, 1:h + 1] > 0, dy, 0.0).to(dt)
+    return dz1, dk2, gr[:, 1:-1].float().sum((0, 1, 2)), dz1.float().sum((0, 1, 2))
 
 
 def _check(z1: torch.Tensor, k2: torch.Tensor,
@@ -161,8 +274,18 @@ def _on_cuda(z1: torch.Tensor, what: str) -> bool:
     return True
 
 
+def _check_like(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} must be {dtype} {list(shape)} on {device}, "
+                         f"got {t.dtype} {list(t.shape)} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
 def _forward(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
-             with_codes: bool, segnet: bool = False):
+             with_codes: bool, segnet: bool = False, halo=None):
+    """Launch the forward kernel; ``halo`` = (top, bot, b1) selects the
+    halo mode (tensors already checked and in bf16)."""
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
 
     _check(z1, k2, b2)
@@ -178,11 +301,16 @@ def _forward(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor,
                       device=z1.device)
     codes = torch.empty(out.shape, dtype=torch.uint8,
                         device=z1.device) if with_codes else None
-    entry = "seg_stage1_tail_segnet" if segnet else "seg_stage1_tail"
+    entry = ("seg_stage1_tail" + ("_halo" if halo else "")
+             + ("_segnet" if segnet else ""))
+    ptrs = [z1.data_ptr(), wk.data_ptr(), bk.data_ptr()]
+    if halo:
+        top, bot, b1 = halo
+        ptrs = [z1.data_ptr(), top.data_ptr(), bot.data_ptr(), wk.data_ptr(),
+                bk.data_ptr(), b1.data_ptr()]
     with torch.cuda.device(z1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(z1.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-                                  out.data_ptr(),
+        err = getattr(lib, entry)(*ptrs, out.data_ptr(),
                                   codes.data_ptr() if with_codes else None,
                                   n, h, w, c, stream)
     build.check(err, entry)
@@ -238,47 +366,119 @@ def stage1_tail_bwd(g: torch.Tensor, out: torch.Tensor, codes: torch.Tensor,
     atomics)."""
     if not _on_cuda(z1, "stage1 tail backward"):
         return stage1_tail_bwd_plain(g, out, codes, z1, k2)
+    dz1, dk2, db2, _ = _backward(g, out, codes, z1, k2)
+    stage1_tail_bwd.launches += 1
+    return dz1, dk2, db2
+
+
+def _backward(g, out, codes, z1, k2, b1=None, halos: BwdHalos | None = None):
+    """Launch the backward kernels; with ``halos`` (and b1) the halo mode,
+    which also returns db1 (None otherwise)."""
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
 
     _check(z1, k2)
     n, h, w, c = z1.shape
-    pooled = (n, h // 2, w // 2, c)
-    gk = g.to(torch.bfloat16).contiguous()
-    for name, t, dt in (("g", gk, torch.bfloat16), ("out", out, torch.bfloat16),
-                        ("codes", codes, torch.uint8)):
-        if tuple(t.shape) != pooled or t.dtype != dt or t.device != z1.device:
-            raise ValueError(f"{name} must be {dt} {list(pooled)} on {z1.device}, "
-                             f"got {t.dtype} {list(t.shape)} on {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    # dgrad is the forward conv of dz2 with wt[ci][dy][dx][co] = k2[co][ci][2-dy][2-dx]
-    wt = (k2.to(torch.bfloat16).flip((2, 3)).transpose(0, 1)
-          .permute(0, 2, 3, 1).contiguous())
-    lib = build.lib()
     dev = z1.device
+    pooled = (n, h // 2, w // 2, c)
+    bf = torch.bfloat16
+    gk = g.to(bf).contiguous()
+    for name, t, dt in (("g", gk, bf), ("out", out, bf), ("codes", codes, torch.uint8)):
+        _check_like(name, t, pooled, dt, dev)
+    ptrs = [gk.data_ptr(), out.data_ptr(), codes.data_ptr()]
+    if halos is not None:
+        halos = BwdHalos(*(t.to(bf).contiguous() if i < 4 or i > 5 else t
+                           for i, t in enumerate(halos)))
+        for i, (name, t) in enumerate(zip(BwdHalos._fields, halos)):
+            _check_like(name, t, (n, 1, w, c) if i > 5 else (n, 1, w // 2, c),
+                        torch.uint8 if i in (4, 5) else bf, dev)
+        b1k = b1.to(bf).contiguous()
+        _check_like("b1", b1k, (c,), bf, dev)
+        ptrs += [halos.g_top.data_ptr(), halos.out_top.data_ptr(),
+                 halos.codes_top.data_ptr(), halos.g_bot.data_ptr(),
+                 halos.out_bot.data_ptr(), halos.codes_bot.data_ptr(),
+                 z1.data_ptr(), halos.z1_top.data_ptr(), halos.z1_bot.data_ptr(),
+                 b1k.data_ptr()]
+    else:
+        ptrs.append(z1.data_ptr())
+    # dgrad is the forward conv of dz2 with wt[ci][dy][dx][co] = k2[co][ci][2-dy][2-dx]
+    wt = (k2.to(bf).flip((2, 3)).transpose(0, 1).permute(0, 2, 3, 1).contiguous())
+    lib = build.lib()
     with torch.cuda.device(dev):
         parts = lib.seg_stage1_bwd_parts(n, h, w, c)
         if parts <= 0:
             build.check(-parts, "seg_stage1_bwd_parts")
+        f32 = dict(dtype=torch.float32, device=dev)
         dz1 = torch.empty_like(z1)
-        dk2 = torch.empty((c, 3, 3, c), dtype=torch.float32, device=dev)
-        db2 = torch.empty((c,), dtype=torch.float32, device=dev)
-        dk_part = torch.empty((parts, 9 * c * c), dtype=torch.float32, device=dev)
-        db_part = torch.empty((parts, c), dtype=torch.float32, device=dev)
+        dk2 = torch.empty((c, 3, 3, c), **f32)
+        db2 = torch.empty((c,), **f32)
+        dk_part = torch.empty((parts, 9 * c * c), **f32)
+        db_part = torch.empty((parts, c), **f32)
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.seg_stage1_tail_bwd(
-            gk.data_ptr(), out.data_ptr(), codes.data_ptr(), z1.data_ptr(),
-            wt.data_ptr(), dz1.data_ptr(), dk_part.data_ptr(), db_part.data_ptr(),
-            parts, dk2.data_ptr(), db2.data_ptr(), n, h, w, c, stream)
-    build.check(err, "seg_stage1_tail_bwd")
-    stage1_tail_bwd.launches += 1
-    return dz1, dk2.permute(0, 3, 1, 2).contiguous(), db2
+        if halos is None:
+            db1 = None
+            entry = "seg_stage1_tail_bwd"
+            err = lib.seg_stage1_tail_bwd(
+                *ptrs, wt.data_ptr(), dz1.data_ptr(), dk_part.data_ptr(),
+                db_part.data_ptr(), parts, dk2.data_ptr(), db2.data_ptr(),
+                n, h, w, c, stream)
+        else:
+            dparts = lib.seg_stage1_bwd_dgrad_parts(n, h, w, c)
+            if dparts <= 0:
+                build.check(-dparts, "seg_stage1_bwd_dgrad_parts")
+            db1 = torch.empty((c,), **f32)
+            db1_part = torch.empty((dparts, c), **f32)
+            entry = "seg_stage1_tail_bwd_halo"
+            err = lib.seg_stage1_tail_bwd_halo(
+                *ptrs, wt.data_ptr(), dz1.data_ptr(), dk_part.data_ptr(),
+                db_part.data_ptr(), db1_part.data_ptr(), parts, dparts,
+                dk2.data_ptr(), db2.data_ptr(), db1.data_ptr(), n, h, w, c, stream)
+    build.check(err, entry)
+    return dz1, dk2.permute(0, 3, 1, 2).contiguous(), db2, db1
+
+
+def stage1_tail_halo(z1: torch.Tensor, top: torch.Tensor, bot: torch.Tensor,
+                     k2: torch.Tensor, b2: torch.Tensor, b1: torch.Tensor,
+                     mode: str):
+    """Kernel 1c's forward: as :func:`stage1_tail_halo_plain` defines it
+    ("infer": out; "codes", "segnet": (out, codes)). CUDA: z1 as
+    :func:`stage1_tail` takes it (bf16, contiguous NHWC), top and bot bf16
+    contiguous [N,1,W,C]; k2, b2, b1 may be f32 (cast to bf16)."""
+    if not _on_cuda(z1, "stage1 tail (halo mode)"):
+        return stage1_tail_halo_plain(z1, top, bot, k2, b2, b1, mode)
+    if mode not in _HALO_MODES:
+        raise ValueError(f"mode must be one of {_HALO_MODES}, got {mode!r}")
+    n, h, w, c = z1.shape
+    for name, t in (("top", top), ("bot", bot)):
+        _check_like(name, t, (n, 1, w, c), torch.bfloat16, z1.device)
+    b1k = b1.to(torch.bfloat16).contiguous()
+    _check_like("b1", b1k, (c,), torch.bfloat16, z1.device)
+    out, codes = _forward(z1, k2, b2, with_codes=mode != "infer",
+                          segnet=mode == "segnet", halo=(top, bot, b1k))
+    stage1_tail_halo.launches += 1
+    return out if mode == "infer" else (out, codes)
+
+
+def stage1_tail_halo_bwd(g: torch.Tensor, out: torch.Tensor, codes: torch.Tensor,
+                         z1: torch.Tensor, k2: torch.Tensor, b1: torch.Tensor,
+                         halos: BwdHalos):
+    """Kernel 1c's backward: (dz1, dk2 f32 OIHW, db2 f32, db1 f32) as
+    :func:`stage1_tail_halo_bwd_plain` defines them. CUDA: z1 as
+    :func:`stage1_tail_halo` takes it, out and codes as it made them; g and
+    the float halos are cast to bf16. Two calls on the same inputs give the
+    same bits (no float atomics)."""
+    if not _on_cuda(z1, "stage1 tail backward (halo mode)"):
+        return stage1_tail_halo_bwd_plain(g, out, codes, z1, k2, b1, halos)
+    result = _backward(g, out, codes, z1, k2, b1, halos)
+    stage1_tail_halo_bwd.launches += 1
+    return result
 
 
 stage1_tail.launches = 0
 stage1_tail_train.launches = 0
 stage1_tail_bwd.launches = 0
 stage1_tail_segnet.launches = 0
+stage1_tail_halo.launches = 0
+stage1_tail_halo_bwd.launches = 0
 
 
 class Stage1Tail(torch.autograd.Function):
@@ -325,3 +525,62 @@ class SegNetStage1Tail(torch.autograd.Function):
         z1, k2, out, idx = ctx.saved_tensors
         dz1, dk2, db2 = stage1_tail_bwd(g, out, idx, z1, k2)
         return dz1, dk2.to(k2.dtype), db2.to(ctx.b2_dtype)
+
+
+def _halo_forward(ctx, z1, k2, b2, b1, grid, mode):
+    [(top, bot)] = boundary_rows([z1], [float("-inf")], grid)
+    out, codes = stage1_tail_halo(z1, top, bot, k2, b2, b1, mode)
+    ctx.save_for_backward(z1, top, bot, k2, b1, out, codes)
+    ctx.grid = grid
+    ctx.dtypes = (k2.dtype, b2.dtype, b1.dtype)
+    return out, codes
+
+
+def _halo_backward(ctx, g):
+    z1, top, bot, k2, b1, out, codes = ctx.saved_tensors
+    g = g.to(z1.dtype).contiguous()
+    (gt, gb), (ot, ob), (ct, cb) = boundary_rows([g, out, codes], [0, 0, 0],
+                                                 ctx.grid)
+    dz1, dk2, db2, db1 = stage1_tail_halo_bwd(
+        g, out, codes, z1, k2, b1, BwdHalos(gt, gb, ot, ob, ct, cb, top, bot))
+    kd, b2d, b1d = ctx.dtypes
+    return dz1, dk2.to(kd), db2.to(b2d), db1.to(b1d), None
+
+
+class Stage1TailHalo(torch.autograd.Function):
+    """The stage1 tail in halo mode (the port of the ``jax.custom_vjp``
+    around ``fused_stage1_tail(..., spmd=True)``, ``stage1.py:731-768``):
+    ``apply(z1, k2, b2, b1, grid)`` with z1 this rank's rows of the conv1_1
+    output WITHOUT b1 and ``grid`` the spatial grid the rows are split over
+    (``parallel/mesh.py``; None for a whole image). Forward exchanges z1's
+    boundary rows (``-inf`` at the image's edge) and runs
+    :func:`stage1_tail_halo`; backward exchanges the boundary pooled rows of
+    g, out and codes (0 at the edge) and returns (dz1, dk2, db2, db1) of this
+    rank's rows. No gradient flows into the halo rows."""
+
+    @staticmethod
+    def forward(ctx, z1, k2, b2, b1, grid=None):
+        out, codes = _halo_forward(ctx, z1, k2, b2, b1, grid, "codes")
+        ctx.mark_non_differentiable(codes)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _halo_backward(ctx, g)
+
+
+class SegNetStage1TailHalo(torch.autograd.Function):
+    """SegNet's stage1 tail in halo mode (``fused_segnet_stage1_tail(...,
+    spmd=True)``): ``apply(z1, k2, b2, b1, grid)`` returns (out, idx), idx
+    non-differentiable; the backward is :class:`Stage1TailHalo`'s, routed by
+    the index (``ops/pallas/stage1.py:819-826``)."""
+
+    @staticmethod
+    def forward(ctx, z1, k2, b2, b1, grid=None):
+        out, idx = _halo_forward(ctx, z1, k2, b2, b1, grid, "segnet")
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, g, _g_idx):
+        return _halo_backward(ctx, g)

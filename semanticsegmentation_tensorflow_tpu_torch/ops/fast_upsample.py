@@ -8,6 +8,11 @@ flip its kernel (``transpose_kernel=False``), and its SAME padding for a
 kernel flipped in space and permuted to [Cin, Cout, kh, kw]; ``convert.py``
 does that permutation when weights cross between the two packages. The
 TPU's pixel-shuffle decomposition is a lane trick and is not carried over.
+
+Under an active grid that splits rows (``parallel.mesh.spatial_grid``), each
+rank takes one halo row from each neighbour, runs the transposed conv on the
+extended rows and keeps its own output rows: an output row reads input rows
+within one row of its own, so the result is the whole image's.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import torch.nn.functional as F
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import fill_init
+from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import exchange_rows
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import spatial_grid
 
 
 class ConvTranspose(nn.Module):
@@ -48,7 +55,17 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.stride
-        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
-                               self.weight.to(self.dtype), stride=s,
-                               padding=s // 2)
+        x = x.to(self.dtype)
+        w = self.weight.to(self.dtype)
+        grid = spatial_grid()
+        if grid is None:
+            y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=s,
+                                   padding=s // 2)
+        else:
+            h = x.shape[1]
+            xe = exchange_rows(x, 1, 1, grid)          # input rows -1..H
+            y = F.conv_transpose2d(xe.permute(0, 3, 1, 2), w, stride=s,
+                                   padding=(0, s // 2))
+            # extended output row o' is the image's row o' - s - s/2
+            y = y[:, :, s + s // 2:s + s // 2 + h * s]
         return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)

@@ -1,11 +1,26 @@
 """Train entry point of the PyTorch port (counterpart of the JAX package's
-``scripts/train.py``): one device, the flags of the JAX CLI.
+``scripts/train.py``): the flags of the JAX CLI, one process per GPU.
 
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.train \
         --preset fcn8s_kitti --data-dir data_road --checkpoint-dir ckpts
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.train \
         --synthetic --epochs 1 --device cpu \
         --model-kw fc_features=64,width_mult=0.25
+    torchrun --nproc-per-node 4 -m \
+        semanticsegmentation_tensorflow_tpu_torch.scripts.train \
+        --distributed --spatial 2 --data-dir data_road --checkpoint-dir ckpts
+
+``--distributed`` joins a process group (``parallel/launch.py``: the
+coordinator, world size and rank from the flags, the ``SEG_*`` env vars or
+torchrun's env; NCCL for CUDA, gloo for the CPU). Where the JAX script counts
+devices, the port counts ranks: with more than one, the batch shards over a
+``data x spatial`` grid (``--spatial S`` splits each image's height over S
+ranks and turns random crop off; without it a 1-D data grid), unless
+``--no-mesh``. ``--spatial S`` also merges the spatial-safe model kwargs
+(``pallas_spmd=True``, no Winograd); at one rank the step then runs
+unsharded, as the JAX script does on one device, and trains through the halo
+mode of the fused stage1 (kernel 1c). Only rank 0 writes checkpoints and
+logs.
 
 ``--pallas-preprocess`` keeps the JAX flag's name: it selects the CUDA
 preprocess kernel (``ops/cuda/preprocess.py``) for the image leg of the
@@ -23,8 +38,7 @@ import tempfile
 
 # flags of the JAX CLI that the port does not implement yet: each raises
 # when set away from its default
-UNPORTED = {"shard_opt": False, "distributed": False, "coordinator": None,
-            "num_processes": None, "process_id": None, "spatial": 1,
+UNPORTED = {"shard_opt": False,
             "qat": False, "scale_jitter": None, "color_jitter": None,
             "val_frac": 0.0, "keep_best": False, "loader_workers": 0,
             "vgg_weights": None, "strict_import": False}
@@ -67,7 +81,20 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--device", default="cuda",
-                   help="torch device; cuda raises without a card")
+                   help="torch device; cuda raises without a card (with "
+                        "--distributed, cuda:<local rank>)")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="shard image height across N ranks (2-D data x "
+                        "spatial grid; disables random crop)")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="no grid (each rank trains alone) even with >1 rank")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed process group before "
+                        "touching devices (parallel/launch.py)")
+    p.add_argument("--coordinator", default=None,
+                   help="rank 0's host:port")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     for name, default in UNPORTED.items():
         flag = "--" + name.replace("_", "-")
         if isinstance(default, bool):
@@ -114,7 +141,27 @@ def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
     from semanticsegmentation_tensorflow_tpu_torch.utils.logging import MetricsLogger
 
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.launch import (
+        barrier, initialize_distributed, is_primary, local_device,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import (
+        check_rows, make_grid,
+    )
+
+    if args.spatial < 1:
+        raise ValueError(f"--spatial must be >= 1, got {args.spatial}")
     device = resolve_device(args.device)
+    world = 1
+    if args.distributed:
+        _, world = initialize_distributed(args.coordinator, args.num_processes,
+                                          args.process_id, device=device)
+        device = local_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    if world > 1 and world % args.spatial:
+        raise ValueError(f"--spatial {args.spatial} does not divide the "
+                         f"{world} ranks")
+    primary = is_primary()
     cfg = get_preset(args.preset)
     if args.model:
         cfg = dataclasses.replace(cfg, model=args.model)
@@ -134,6 +181,16 @@ def main(argv=None) -> int:
         dc = dataclasses.replace(dc, image_size=tuple(args.image_size),
                                  crop_size=None)
 
+    grid = None
+    if world > 1 and not args.no_mesh:
+        grid = make_grid(world // args.spatial, args.spatial)
+        if args.spatial > 1 and dc.crop_size is not None:
+            # random crops gather across spatial shards; train at full size
+            dc = dataclasses.replace(dc, crop_size=None)
+            print("note: --spatial disables random crop (full-size training)")
+    if args.spatial > 1:   # before any work, at any world size
+        check_rows(-(-dc.image_size[0] // 32) * 32, args.spatial)
+
     data_dir = args.data_dir or dc.data_dir
     if args.synthetic:
         if dc.dataset == "cityscapes":
@@ -147,11 +204,20 @@ def main(argv=None) -> int:
     n_train = len(ds.train_images)
 
     model_kwargs = dict(cfg.model_kwargs, **parse_model_kw(args.model_kw))
+    if args.spatial > 1:
+        from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+            merge_spmd_safe_kwargs,
+        )
+        model_kwargs = merge_spmd_safe_kwargs(cfg.model, model_kwargs)
     model = build_model(cfg.model, num_classes=dc.num_classes, device=device,
                         **model_kwargs)
     init_params(model, torch.Generator(device=device).manual_seed(tr.seed))
     stride = getattr(model, "total_stride", 32)
-    print(f"model={cfg.model} device={device} train_images={n_train}")
+    mesh_kind = ("none" if grid is None else f"1d-data{grid.data}"
+                 if grid.spatial == 1 else f"data{grid.data}xspatial{grid.spatial}")
+    if primary:
+        print(f"model={cfg.model} device={device} ranks={world} mesh={mesh_kind} "
+              f"train_images={n_train}")
 
     cache_kw = {}
     if args.cache_gb is not None:
@@ -160,7 +226,7 @@ def main(argv=None) -> int:
         else:
             cache_kw["cache_bytes"] = int(args.cache_gb * (1 << 30))
     loader = BatchLoader(ds, tr.batch_size, pad_multiple=stride, seed=tr.seed,
-                         device=device, **cache_kw)
+                         device=device, mesh=grid, **cache_kw)
     if args.pallas_preprocess:
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
             make_preprocess_augment_fn,
@@ -174,7 +240,7 @@ def main(argv=None) -> int:
     total_steps = tr.epochs * loader.steps_per_epoch()
     lr_fn = make_lr_schedule(tr.learning_rate, tr.lr_schedule, total_steps,
                              tr.warmup_steps)
-    if tr.lr_schedule != "constant" or tr.warmup_steps:
+    if primary and (tr.lr_schedule != "constant" or tr.warmup_steps):
         print(f"lr schedule: {tr.lr_schedule} over {total_steps} steps"
               + (f" (+{tr.warmup_steps} warmup)" if tr.warmup_steps else ""))
     class_weights = None
@@ -187,8 +253,9 @@ def main(argv=None) -> int:
         )
         class_weights = median_frequency_weights(
             class_pixel_counts(ds, dc.num_classes))
-        print("class balance (median-frequency): "
-              + " ".join(f"{float(w):.3f}" for w in class_weights))
+        if primary:
+            print("class balance (median-frequency): "
+                  + " ".join(f"{float(w):.3f}" for w in class_weights))
 
     optimizer = make_optimizer(tr.optimizer, model.parameters(),
                                tr.learning_rate, tr.weight_decay)
@@ -197,23 +264,28 @@ def main(argv=None) -> int:
     ckpt = CheckpointManager(tr.checkpoint_dir)
     if args.resume:
         state = ckpt.restore(state)
-        print(f"resumed at step {state.step}")
+        if primary:
+            print(f"resumed at step {state.step}")
+    if not primary:           # rank 0 alone writes checkpoints and logs
+        ckpt = None
 
-    logger = MetricsLogger(os.path.join(tr.checkpoint_dir, "logs"))
+    logger = MetricsLogger(os.path.join(tr.checkpoint_dir, "logs")) if primary \
+        else None
 
     def log_step(step, m):
-        logger.log(step, m)
-        print(f"step {step}: " + " ".join(f"{k}={float(v):.4f}"
-                                          for k, v in m.items()))
+        if logger is not None:
+            logger.log(step, m)
+            print(f"step {step}: " + " ".join(f"{k}={float(v):.4f}"
+                                              for k, v in m.items()))
 
     hooks = LoopHooks(
         on_log=log_step,
         # epoch summaries keyed by the global step under epoch/ tags, so
         # they never collide with the per-step series
-        on_epoch=lambda epoch, s: logger.log(
+        on_epoch=lambda epoch, s: logger is not None and logger.log(
             s["step"], {f"epoch/{k}": v for k, v in s.items()
                         if isinstance(v, (int, float)) and k != "step"}))
-    step_fn = make_train_step(dc.num_classes, augment_fn=aug,
+    step_fn = make_train_step(dc.num_classes, mesh=grid, augment_fn=aug,
                               class_weights=class_weights,
                               grad_accum=args.grad_accum, loss=args.loss,
                               focal_gamma=args.focal_gamma)
@@ -221,10 +293,14 @@ def main(argv=None) -> int:
         state, summary = train(
             state, step_fn, loader.epoch, epochs=tr.epochs,
             num_classes=dc.num_classes, log_every=tr.log_every,
-            checkpoint_every=tr.checkpoint_every, ckpt=ckpt, hooks=hooks)
+            checkpoint_every=tr.checkpoint_every, ckpt=ckpt, hooks=hooks,
+            images_per_batch=tr.batch_size if grid is not None else None)
     finally:
-        logger.close()
-    print("final:", summary)
+        if logger is not None:
+            logger.close()
+    barrier()   # the ranks leave together, after rank 0's last checkpoint
+    if primary:
+        print("final:", summary)
     return 0
 
 

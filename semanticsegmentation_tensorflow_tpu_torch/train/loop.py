@@ -33,11 +33,14 @@ def _sync(device: torch.device) -> None:
 def train(state: TrainState, train_step: Callable,
           batches_per_epoch: Callable[[], Iterable], *, epochs: int,
           num_classes: int, log_every: int = 10, checkpoint_every: int = 0,
-          ckpt=None, hooks: LoopHooks | None = None) -> tuple[TrainState, dict]:
+          ckpt=None, hooks: LoopHooks | None = None,
+          images_per_batch: int | None = None) -> tuple[TrainState, dict]:
     """Runs the loop; returns (final state, last epoch summary). The summary
     holds loss, miou, pixel_acc, iou (as Python numbers and lists),
     images_per_sec, epoch and the global step. A step without metrics
-    (``with_metrics=False``) contributes its loss only."""
+    (``with_metrics=False``) contributes its loss only. ``images_per_batch``:
+    the global batch a step trains on, where a batch holds only this rank's
+    share of it (a grid of ranks); default the batch's own size."""
     hooks = hooks or LoopHooks()
     summary: dict = {}
     device = state.device
@@ -46,7 +49,7 @@ def train(state: TrainState, train_step: Callable,
         _sync(device)
         t0, n_imgs = time.perf_counter(), 0
         for batch in batches_per_epoch():
-            n_imgs += int(batch["label"].shape[0])
+            n_imgs += images_per_batch or int(batch["label"].shape[0])
             out = train_step(state, batch)
             metrics.update(out.get("cm"), out["loss"])
             if log_every and state.step % log_every == 0:

@@ -1,5 +1,4 @@
-"""The train step (counterpart of the JAX package's ``train/step.py``,
-without a mesh).
+"""The train step (counterpart of the JAX package's ``train/step.py``).
 
 One step: per microbatch, augment, forward in ``train()`` mode (dropout from
 the state's generator), the masked loss in SUM form and its backward, which
@@ -7,6 +6,14 @@ accumulates into ``.grad``; then one divide of the gradients by the total
 valid-pixel count (``max(valid_sum, 1)``), the optimizer update and the EMA.
 Keeping the loss a sum until that single divide makes ``grad_accum=k`` equal
 the full-batch step up to summation order.
+
+With a grid of ranks (``mesh``, a ``parallel.mesh.Grid``: each rank holds its
+images and rows of the batch) the step runs with the grid active
+(``parallel.mesh.use_grid``: the convs exchange halo rows, dropout and the
+augment draw for the global batch), then the local loss sums, every
+gradient and the confusion matrix get one ``all_reduce(SUM)`` over the
+world before the single divide, so the grid step equals the single-process
+step up to summation order and the update is the same on every rank.
 
 Batch contract (leading dim = batch): image [N,H,W,3] (uint8 with an
 augment function, or float32 already normalized), label [N,H,W] class ids,
@@ -19,7 +26,9 @@ from functools import partial
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import use_grid
 from semanticsegmentation_tensorflow_tpu_torch.train.loss import (
     focal_loss_sum, softmax_cross_entropy_sum,
 )
@@ -36,10 +45,11 @@ def make_train_step(num_classes: int, mesh=None,
                     loss: str = "ce", focal_gamma: float = 2.0) -> Callable:
     """Build ``step(state, batch) -> {"loss", "cm"}`` (``cm``, the [C, C]
     train-time confusion matrix, only ``with_metrics``). The step updates
-    ``state`` in place. ``mesh``, ``shard_opt`` and ``remat`` are not
-    ported yet and raise."""
-    if mesh is not None or shard_opt or remat:
-        raise NotImplementedError("mesh, shard_opt and remat are not ported yet")
+    ``state`` in place. ``mesh``: a ``parallel.mesh.Grid`` (module
+    docstring); the batch holds this rank's images and rows. ``shard_opt``
+    and ``remat`` are not ported yet and raise."""
+    if shard_opt or remat:
+        raise NotImplementedError("shard_opt and remat are not ported yet")
     if loss == "ce":
         loss_sum_fn = softmax_cross_entropy_sum
     elif loss == "focal":
@@ -65,18 +75,22 @@ def make_train_step(num_classes: int, mesh=None,
         k = n // grad_accum
         for i in range(grad_accum):
             mb = {key: v[i * k:(i + 1) * k] for key, v in batch.items()}
-            if augment_fn is not None:
-                mb = augment_fn(state.aug_gen, mb)
-            logits = model(mb["image"], generator=state.dropout_gen)
-            ce_sum, valid_sum = loss_sum_fn(logits, mb["label"], mb.get("valid"),
-                                            weights)
-            ce_sum.backward()
+            with use_grid(mesh):
+                if augment_fn is not None:
+                    mb = augment_fn(state.aug_gen, mb)
+                logits = model(mb["image"], generator=state.dropout_gen)
+                ce_sum, valid_sum = loss_sum_fn(logits, mb["label"],
+                                                mb.get("valid"), weights)
+                ce_sum.backward()
             ce_total += ce_sum.detach()
             valid_total += valid_sum
             if with_metrics:
                 mcm = confusion_matrix(mb["label"], logits.detach().argmax(-1),
                                        num_classes, mb.get("valid"))
                 cm = mcm if cm is None else cm + mcm
+        if mesh is not None and mesh.world > 1:
+            ce_total, valid_total, cm = _all_reduce(model, ce_total, valid_total,
+                                                    cm)
         denom = valid_total.clamp(min=1.0)
         with torch.no_grad():
             for p in model.parameters():
@@ -89,3 +103,23 @@ def make_train_step(num_classes: int, mesh=None,
         return out
 
     return step
+
+
+def _all_reduce(model, ce_total, valid_total, cm):
+    """One SUM over the world of the loss sums and every gradient (a
+    parameter without one gets zeros), and one of the confusion matrix."""
+    params = list(model.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    with torch.profiler.record_function("grid_all_reduce"):
+        flat = torch.cat([p.grad.reshape(-1) for p in params]
+                         + [ce_total.reshape(1), valid_total.reshape(1)])
+        dist.all_reduce(flat)
+        if cm is not None:
+            dist.all_reduce(cm)
+    off = 0
+    for p in params:
+        p.grad.copy_(flat[off:off + p.numel()].view_as(p))
+        off += p.numel()
+    return flat[off], flat[off + 1], cm

@@ -150,7 +150,8 @@ def test_synthetic_dataset_and_loader_match_jax(tmp_path):
 
 def test_loader_epoch_yields_the_host_batches():
     """epoch() hands out the host batches as tensors on the device (the
-    CPU here), in order, and re-raises a failure of the decode thread."""
+    CPU here), in order, and re-raises a failure of the decode thread; a
+    grid whose data ranks do not divide the batch raises."""
 
     class Fixed:
         train_images = [f"im{i}" for i in range(5)]
@@ -174,8 +175,10 @@ def test_loader_epoch_yields_the_host_batches():
 
     with pytest.raises(OSError, match="corrupt"):
         list(BatchLoader(Broken(), 2, 8, device="cpu").epoch())
-    with pytest.raises(NotImplementedError):
-        BatchLoader(Fixed(), 2, device="cpu", mesh=object())
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import Grid
+
+    with pytest.raises(ValueError, match="data ranks"):  # 3 images over 2 ranks
+        BatchLoader(Fixed(), 3, device="cpu", mesh=Grid(data=2, spatial=1, rank=0))
 
 
 def test_label_codec_and_dataset_factory():

@@ -25,9 +25,11 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
     unpool_plain,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-    SegNetStage1Tail, Stage1Tail, stage1_tail, stage1_tail_bwd,
-    stage1_tail_bwd_plain, stage1_tail_codes_plain, stage1_tail_plain,
-    stage1_tail_segnet, stage1_tail_segnet_plain, stage1_tail_train,
+    BwdHalos, SegNetStage1Tail, Stage1Tail, Stage1TailHalo, stage1_tail,
+    stage1_tail_bwd, stage1_tail_bwd_plain, stage1_tail_codes_plain,
+    stage1_tail_halo, stage1_tail_halo_bwd, stage1_tail_halo_bwd_plain,
+    stage1_tail_halo_plain, stage1_tail_plain, stage1_tail_segnet,
+    stage1_tail_segnet_plain, stage1_tail_train,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.tie_cases import (
     int_case, segnet_tie_windows, tie_windows,
@@ -378,3 +380,132 @@ def test_winograd_functions_on_card_match_cpu(gen, variant):
         (out, dx, *dp), (out_c, dx_c, *dp_c) = results
         assert _within(out, out_c, 2 ** -7, 2 ** -12) and _within(dx, dx_c, 2 ** -7, 2 ** -12)
         assert all(_within(a, b_, 0.0, 1e-4) for a, b_ in zip(dp, dp_c))
+
+
+# --- kernel 1c: the halo mode of the stage1 tail ----------------------------
+
+_HALO_SINGLE = {"infer": lambda z, k, b: (stage1_tail(z, k, b), None),
+                "codes": stage1_tail_train, "segnet": stage1_tail_segnet}
+
+
+def _band(t, parts, i, fill):
+    """Rows band i of ``parts`` and its halo rows (the neighbours' boundary
+    rows, ``fill`` at the image's edge), each contiguous."""
+    rows = t.shape[1] // parts
+    lo, hi = i * rows, (i + 1) * rows
+    edge = torch.full_like(t[:, :1], fill)
+    top = t[:, lo - 1:lo] if i else edge
+    bot = t[:, hi:hi + 1] if i < parts - 1 else edge
+    return t[:, lo:hi].contiguous(), top.contiguous(), bot.contiguous()
+
+
+def _halo_fwd(z1, k2, b2, b1, mode, parts):
+    outs = [stage1_tail_halo(*_band(z1, parts, i, float("-inf")), k2, b2, b1, mode)
+            for i in range(parts)]
+    if parts == 1:            # no copy of a single band
+        return (outs[0], None) if mode == "infer" else outs[0]
+    if mode == "infer":
+        return torch.cat(outs, 1), None
+    return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
+
+
+def _halo_bwd(g, out, codes, z1, k2, b1, parts, fn=stage1_tail_halo_bwd):
+    res = []
+    for i in range(parts):
+        gb, gt, gbt = _band(g, parts, i, 0.0)
+        ob, ot, obt = _band(out, parts, i, 0.0)
+        cb, ct, cbt = _band(codes, parts, i, 0)
+        zb, zt, zbt = _band(z1, parts, i, float("-inf"))
+        res.append(fn(gb, ob, cb, zb, k2, b1, BwdHalos(gt, gbt, ot, obt, ct, cbt, zt, zbt)))
+    if parts == 1:
+        return res[0]
+    return (torch.cat([r[0] for r in res], 1), *(sum(r[k] for r in res) for k in (1, 2, 3)))
+
+
+def _halo_inputs(gen, shape):
+    n, h, w, c = shape
+    return (torch.randn(shape, generator=gen, device="cuda").bfloat16(),
+            (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
+             / (9 * c) ** 0.5).bfloat16(),
+            (torch.randn((c,), generator=gen, device="cuda") / 10).bfloat16(),
+            (torch.randn((c,), generator=gen, device="cuda") / 2).bfloat16(),
+            torch.randn((n, h // 2, w // 2, c), generator=gen, device="cuda").bfloat16())
+
+
+@pytest.mark.parametrize("mode", ["infer", "codes", "segnet"])
+@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (2, 20, 66, 48)])
+def test_stage1_halo_kernel_matches_plain_on_card(gen, mode, shape):
+    """Kernel 1c's forward over the whole image (-inf halo rows) equals the
+    single-device kernel on z1 + b1 (the same bf16 add) bit for bit, codes
+    included; against its plain version within check_stage1's bf16 bound
+    (2^-6 (|plain| + |b2|) + 1e-6), codes on >= 99.9 %. Split in two halves
+    with real halo rows it equals the whole-image call bit for bit."""
+    z1, k2, b2, b1, _ = _halo_inputs(gen, shape)
+    before = stage1_tail_halo.launches
+    out, codes = _halo_fwd(z1, k2, b2, b1, mode, 1)
+    assert stage1_tail_halo.launches == before + 1
+    ref_out, ref_codes = _HALO_SINGLE[mode]((z1 + b1).contiguous(), k2, b2)
+    assert torch.equal(out, ref_out)
+    plain = stage1_tail_halo_plain(z1, *_band(z1, 1, 0, float("-inf"))[1:], k2, b2, b1,
+                                   mode)
+    p_out = plain if mode == "infer" else plain[0]
+    err = (out.float() - p_out.float()).abs()
+    assert bool((err <= 2 ** -6 * (p_out.float().abs() + b2.float().abs()) + 1e-6).all())
+    if mode != "infer":
+        assert torch.equal(codes, ref_codes)
+        assert (codes == plain[1]).float().mean().item() >= 0.999
+    h_out, h_codes = _halo_fwd(z1, k2, b2, b1, mode, 2)
+    assert torch.equal(h_out, out)
+    if mode != "infer":
+        assert torch.equal(h_codes, codes)
+
+
+@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (1, 8, 64, 32), (8, 64, 256, 64)])
+def test_stage1_halo_bwd_matches_plain_on_card(gen, shape):
+    """Kernel 1c's backward against its f32 plain version on the same
+    (g, out, codes), with the bounds of test_stage1_bwd_kernel_matches_plain
+    (dz1 one bf16 ulp + 2^-12 of the scale; dk2, db2, db1 1e-4 of the
+    scale); as two halves with real halo rows, dz1 bit-equal to the whole
+    image's and dk2, db2, db1 within 1e-4 of the scale; reruns bit-identical."""
+    z1, k2, b2, b1, g = _halo_inputs(gen, shape)
+    out, codes = _halo_fwd(z1, k2, b2, b1, "codes", 1)
+    before = stage1_tail_halo_bwd.launches
+    got = _halo_bwd(g, out, codes, z1, k2, b1, 1)
+    assert stage1_tail_halo_bwd.launches == before + 1
+    want = _halo_bwd(g, out, codes, z1, k2, b1, 1, fn=stage1_tail_halo_bwd_plain)
+    for a, ref, rel, near0 in zip(got, want, (2 ** -7, 0, 0, 0),
+                                  (2 ** -12, 1e-4, 1e-4, 1e-4)):
+        a, ref = a.float(), ref.float()
+        scale = ref.abs().max().item()
+        assert bool(((a - ref).abs() <= rel * ref.abs() + near0 * scale).all())
+    halves = _halo_bwd(g, out, codes, z1, k2, b1, 2)
+    assert torch.equal(halves[0], got[0])
+    for a, ref in zip(halves[1:], got[1:]):
+        assert bool(((a - ref).abs() <= 1e-4 * ref.abs().max()).all())
+    again = _halo_bwd(g, out, codes, z1, k2, b1, 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", [tie_windows, int_case])
+def test_stage1_halo_exact_with_ties_on_card(gen, case):
+    """Integer inputs and an integer b1: every sum exact, so kernel 1c's
+    codes, out, dz1, dk2, db2 and db1 equal the plain versions bit for bit,
+    whole and as halves; the autograd Function over the whole image equals
+    the halo kernels called directly."""
+    z1, k2, b2 = (t.to("cuda", torch.bfloat16) for t in case(2, 16, 48, 64, 1))
+    b1 = torch.randint(-1, 2, (64,), generator=torch.Generator().manual_seed(3)
+                       ).to("cuda", torch.bfloat16)
+    z1 = (z1 - b1).contiguous()                 # pre-bias, still integer
+    cot = torch.randint(-3, 4, (2, 8, 24, 64), generator=torch.Generator()
+                        .manual_seed(2)).to("cuda", torch.bfloat16)
+    for parts in (1, 2):
+        out, codes = _halo_fwd(z1, k2, b2, b1, "codes", parts)
+        plain = stage1_tail_halo_plain(z1, *_band(z1, 1, 0, float("-inf"))[1:], k2,
+                                       b2, b1, "codes")
+        assert torch.equal(out, plain[0]) and torch.equal(codes, plain[1])
+        got = _halo_bwd(cot, out, codes, z1, k2, b1, parts)
+        want = _halo_bwd(cot, out, codes, z1, k2, b1, 1, fn=stage1_tail_halo_bwd_plain)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    leaves = [t.clone().requires_grad_() for t in (z1, k2, b2, b1)]
+    grads = torch.autograd.grad(Stage1TailHalo.apply(*leaves), leaves, cot)
+    assert all(torch.equal(a, b.to(a.dtype)) for a, b in zip(grads, got))

@@ -163,7 +163,6 @@ def test_init_mirrors_flax_distributions():
 
 @pytest.mark.parametrize("kw", [{"use_bn": True},
                                 {"packed_stage2_entry": True},
-                                {"pallas_spmd": True},
                                 {"deferred_pool_bias": False}])
 def test_unported_flags_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -366,7 +366,7 @@ def test_segnet_weight_bridge_round_trip_is_bit_equal(canonical):
         assert back[k].dtype == v.dtype and np.array_equal(back[k], v), k
 
 
-@pytest.mark.parametrize("kw", [{"use_bn": True}, {"pallas_spmd": True}])
+@pytest.mark.parametrize("kw", [{"use_bn": True}])
 def test_segnet_unported_flags_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model("segnet", 2, device="meta", **kw)

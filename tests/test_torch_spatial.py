@@ -1,0 +1,592 @@
+"""Height-partitioned training in the port (``--spatial``, a data x spatial
+grid of ranks) against the JAX package on the CPU, in float32.
+
+* the halo mode of the stage1 tail (kernel 1c's plain versions) against the
+  JAX package's ``spmd=True`` kernels in interpret mode, over the whole image
+  and as two halves with real halo rows;
+* the boundary rows against the JAX ``_halo_rows``;
+* the row-split ops (convs, transposed convs) on two gloo ranks against the
+  whole-image ops;
+* the grid train step (FCN-8s and SegNet; 2x2, 1x2 and 2x1 grids, gloo ranks
+  in subprocesses of ``tests/_torch_grid_worker.py``) against the JAX
+  package's single-device and 1-D mesh steps with ``pallas_spmd=True``, and
+  against the port's own single-process step (gradients, dropout on);
+* ``pallas_spmd`` on one process, the registry's SPMD-safe kwargs, the
+  loader's grid slices, and the train CLI's ``--spatial`` at one rank.
+
+Every spawned rank has a 60 s timeout on the process group and the test a
+timeout on each process, so a hang fails in seconds.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import subprocess
+import sys
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from semanticsegmentation_tensorflow_tpu.models import build_model as jax_build
+from semanticsegmentation_tensorflow_tpu.models.registry import (
+    merge_spmd_safe_kwargs as jax_merge_spmd, spmd_safe_kwargs as jax_spmd_kwargs,
+)
+from semanticsegmentation_tensorflow_tpu.ops.pallas.stage1 import (
+    _fused_fwd, _halo_rows, fused_segnet_stage1_tail, fused_stage1_tail,
+)
+from semanticsegmentation_tensorflow_tpu.parallel.mesh import (
+    make_mesh, replicate, shard_batch,
+)
+from semanticsegmentation_tensorflow_tpu.train.state import (
+    create_train_state as jax_state, make_optimizer as jax_optimizer,
+)
+from semanticsegmentation_tensorflow_tpu.train.step import (
+    make_train_step as jax_train_step,
+)
+from semanticsegmentation_tensorflow_tpu_torch import convert
+from semanticsegmentation_tensorflow_tpu_torch.data.augment import make_augment_fn
+from semanticsegmentation_tensorflow_tpu_torch.data.pipeline import BatchLoader
+from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+    generate_synthetic_kitti,
+)
+from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+from semanticsegmentation_tensorflow_tpu_torch.models.common import (
+    conv_nhwc, init_params,
+)
+from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+    build_model, merge_spmd_safe_kwargs, spmd_safe_kwargs,
+)
+from semanticsegmentation_tensorflow_tpu_torch.ops import packed_stem
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import stage1 as port_stage1
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+    BwdHalos, stage1_tail_halo_bwd_plain, stage1_tail_halo_plain,
+)
+from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import ConvTranspose
+from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import boundary_rows
+from semanticsegmentation_tensorflow_tpu_torch.parallel.launch import (
+    initialize_distributed,
+)
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import Grid, make_grid
+from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+    create_train_state, make_lr_schedule, make_optimizer,
+)
+from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "_torch_grid_worker.py")
+LR = 1e-3
+FCN_HW, SEG_HW = (192, 32), (64, 32)   # 192/32 = 6 rows at fc6: 3 per rank at S=2
+FCN_KW = dict(fc_features=16, width_mult=1.0, pallas_spmd=True, dropout_rate=0.0)
+SEG_KW = dict(width_mult=1.0, pallas_spmd=True)
+JAX_KW = dict(packed_stage1=True, pallas_pool=True)
+DROP_KW = dict(fc_features=16, width_mult=0.25, pallas_spmd=True, dropout_rate=0.5)
+
+
+# ---------------------------------------------------------------------------
+# the halo mode of the stage1 tail against the JAX spmd kernels
+# ---------------------------------------------------------------------------
+
+def _tail_args(kind: str):
+    """(z1 packed [2,8,16,128], k2 HWIO, b2, b1) with a nonzero b1: random
+    normals, or integers where every sum is exact (many pooling ties)."""
+    rng = np.random.default_rng(5)
+    if kind == "random":
+        return (rng.normal(size=(2, 8, 16, 128)).astype(np.float32),
+                (rng.normal(size=(3, 3, 64, 64)) * 0.1).astype(np.float32),
+                (rng.normal(size=(64,)) * 0.1).astype(np.float32),
+                (rng.normal(size=(64,)) * 0.5).astype(np.float32))
+    k2 = rng.integers(-1, 2, (3, 3, 64, 64)).astype(np.float32)
+    k2[1] = k2[0]
+    return (rng.integers(-2, 3, (2, 8, 16, 128)).astype(np.float32), k2,
+            rng.integers(-2, 3, (64,)).astype(np.float32),
+            rng.integers(1, 3, (64,)).astype(np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tail(kind: str, segnet: bool):
+    """The JAX spmd kernels (interpret mode) on _tail_args: out, codes, and
+    (dz1, dk2, db2, db1) for a fixed cotangent, unpacked to NHWC/OIHW."""
+    args = [jnp.asarray(a) for a in _tail_args(kind)]
+    if segnet:
+        def fn(*a):
+            return fused_segnet_stage1_tail(*a, True, True)[0]
+    else:
+        def fn(*a):
+            return fused_stage1_tail(*a, True, True)
+    out, vjp = jax.vjp(fn, *args)
+    cot = np.random.default_rng(6).integers(-3, 4, out.shape).astype(np.float32)
+    dz1, dk2, db2, db1 = (np.asarray(g) for g in vjp(jnp.asarray(cot)))
+    _, res = _fused_fwd(*args, True, True, biased_codes=segnet)
+    codes = np.transpose(np.asarray(res[-1]), (2, 0, 1, 3))
+    n, h, wp, c2 = dz1.shape
+    return (np.asarray(out), codes, cot, dz1.reshape(n, h, 2 * wp, c2 // 2),
+            dk2.transpose(3, 2, 0, 1), db2, db1)
+
+
+def _port_tail(kind: str, segnet: bool, parts: int):
+    """The port's halo-mode plain versions on the same inputs, the image's
+    rows split into ``parts`` bands whose halo rows are their neighbours'
+    boundary rows (-inf / 0 at the image's edges); results joined."""
+    z1p, k2, b2, b1 = _tail_args(kind)
+    n, h, wp, c2 = z1p.shape
+    z1 = torch.from_numpy(z1p.reshape(n, h, 2 * wp, c2 // 2))
+    k2t = torch.from_numpy(np.ascontiguousarray(k2.transpose(3, 2, 0, 1)))
+    b2t, b1t = torch.from_numpy(b2), torch.from_numpy(b1)
+    cot = torch.from_numpy(_jax_tail(kind, segnet)[2])
+    mode = "segnet" if segnet else "codes"
+    hz, hp = h // parts, h // (2 * parts)
+
+    def band(t, rows, i, fill):
+        lo, hi = i * rows, (i + 1) * rows
+        top = t[:, lo - 1:lo] if i else torch.full_like(t[:, :1], fill)
+        bot = t[:, hi:hi + 1] if i < parts - 1 else torch.full_like(t[:, :1], fill)
+        return t[:, lo:hi], top, bot
+
+    fwd = []
+    for i in range(parts):
+        z, top, bot = band(z1, hz, i, float("-inf"))
+        fwd.append(stage1_tail_halo_plain(z, top, bot, k2t, b2t, b1t, mode))
+    out = torch.cat([f[0] for f in fwd], 1)
+    codes = torch.cat([f[1] for f in fwd], 1)
+    grads = []
+    for i in range(parts):
+        z, zt, zb = band(z1, hz, i, float("-inf"))
+        g, gt, gb = band(cot, hp, i, 0.0)
+        o, ot, ob = band(out, hp, i, 0.0)
+        c, ct, cb = band(codes, hp, i, 0)
+        grads.append(stage1_tail_halo_bwd_plain(
+            g, o, c, z, k2t, b1t, BwdHalos(gt, gb, ot, ob, ct, cb, zt, zb)))
+    dz1 = torch.cat([g[0] for g in grads], 1)
+    dk2, db2, db1 = (sum(g[k] for g in grads) for k in (1, 2, 3))
+    return out, codes, dz1, dk2, db2, db1
+
+
+@pytest.mark.parametrize("kind", ["random", "integer"])
+@pytest.mark.parametrize("parts", [1, 2], ids=["whole", "halves"])
+@pytest.mark.parametrize("segnet", [False, True], ids=["fcn", "segnet"])
+def test_halo_plain_matches_jax_spmd_kernels(segnet, parts, kind):
+    """The forward, the codes and the four gradients (db1 included) of the
+    halo-mode plain versions against the JAX spmd kernels in interpret mode
+    (C = 64, nonzero b1, so the -inf edge fill matters). Integer inputs:
+    every sum exact, so bit for bit, codes and ties included. Random inputs
+    (f32, another summation order): test_torch_stage1's rtol 1e-5 for the
+    forward, test_torch_train's 1e-4 for the gradients; the codes exact."""
+    want = _jax_tail(kind, segnet)
+    got = _port_tail(kind, segnet, parts)
+    w_out, w_codes, _, w_dz1, w_dk2, w_db2, w_db1 = want
+    out, codes, dz1, dk2, db2, db1 = (t.numpy() for t in got)
+    np.testing.assert_array_equal(codes, w_codes)
+    pairs = ((out, w_out, 1e-5), (dz1, w_dz1, 1e-4), (dk2, w_dk2, 1e-4),
+             (db2, w_db2, 1e-4), (db1, w_db1, 1e-4))
+    for i, (a, b, tol) in enumerate(pairs):
+        if kind == "integer":
+            np.testing.assert_array_equal(a, b, err_msg=str(i))
+        else:
+            np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=str(i))
+
+
+@pytest.mark.parametrize("fill", [float("-inf"), 0.0])
+def test_boundary_rows_whole_image_match_jax_halo_rows(fill):
+    """With no grid the boundary rows are the image's edge: the JAX
+    ``_halo_rows`` with one block, bit for bit."""
+    x = np.random.default_rng(7).normal(size=(2, 6, 5, 4)).astype(np.float32)
+    [(top, bot)] = boundary_rows([torch.from_numpy(x)], [fill], None)
+    tops, bots = _halo_rows(jnp.asarray(x.transpose(1, 2, 0, 3)), 6, fill)
+    for got, want in ((top, tops), (bot, bots)):
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want).transpose(2, 0, 1, 3))
+
+
+def test_pallas_spmd_on_one_process_matches_default():
+    """``Stage1(pallas_spmd=True)`` (conv1_1 without bias, the halo-mode
+    Function over the whole image) equals ``Stage1(pallas_spmd=False)`` in
+    the output and every gradient, db1 included; the same for SegNet's
+    stage1 (output and index). f32, another summation order: 1e-5."""
+    torch.manual_seed(0)
+    for cls, kw in ((packed_stem.Stage1, {}), (packed_stem.SegNetStage1, {})):
+        a = cls(3, 16, dtype=torch.float32, device="cpu", **kw)
+        init_params(a, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            for p in a.parameters():
+                p.add_(torch.randn_like(p) * 0.1)    # nonzero biases
+        b = cls(3, 16, dtype=torch.float32, device="cpu", pallas_spmd=True, **kw)
+        b.load_state_dict(a.state_dict())
+        x = torch.randn(2, 8, 12, 3)
+        ya, yb = a(x), b(x)
+        if isinstance(ya, tuple):
+            assert torch.equal(ya[1], yb[1])
+            ya, yb = ya[0], yb[0]
+        torch.testing.assert_close(yb, ya, rtol=1e-5, atol=1e-5)
+        cot = torch.randn_like(ya)
+        ga = torch.autograd.grad(ya, list(a.parameters()), cot)
+        gb = torch.autograd.grad(yb, list(b.parameters()), cot)
+        for (name, _), u, v in zip(a.named_parameters(), ga, gb):
+            torch.testing.assert_close(v, u, rtol=1e-5, atol=1e-5, msg=name)
+        calls = []
+        orig = port_stage1.stage1_tail_halo_plain
+        try:
+            port_stage1.stage1_tail_halo_plain = lambda *q: calls.append(1) or orig(*q)
+            with torch.no_grad():
+                b(x)
+        finally:
+            port_stage1.stage1_tail_halo_plain = orig
+        assert calls, "the inference path did not take the halo mode"
+
+
+# ---------------------------------------------------------------------------
+# gloo ranks in subprocesses
+# ---------------------------------------------------------------------------
+
+def _batch(n, hw, seed):
+    rng = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(rng.normal(size=(n, *hw, 3)).astype(np.float32)),
+            "label": torch.from_numpy(rng.integers(0, 2, (n, *hw)).astype(np.int32)),
+            "valid": torch.from_numpy(rng.random((n, *hw)) > 0.25)}
+
+
+def _u8_batch(n, hw, seed):
+    b = _batch(n, hw, seed)
+    b["image"] = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (n, *hw, 3), np.uint8))
+    return b
+
+
+def _ops_job():
+    rng = np.random.default_rng(8)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    x = f(2, 16, 12, 8)
+    ops = {"conv3": dict(kind="conv", w=f(6, 8, 3, 3), padding=1, cot=f(2, 16, 12, 6)),
+           "conv7": dict(kind="conv", w=f(6, 8, 7, 7), padding=3, cot=f(2, 16, 12, 6))}
+    for s in (2, 8):
+        ops[f"convT{s}"] = dict(kind="convT", w=f(8, 5, 2 * s, 2 * s), b=f(5),
+                                stride=s, cot=f(2, 16 * s, 12 * s, 5))
+    return {"name": "ops", "kind": "ops", "x": x, "ops": ops, "fill": float("-inf")}
+
+
+def _launch(tmp, tag, world, scenarios):
+    """Start ``world`` gloo ranks of the worker on ``scenarios``."""
+    job = os.path.join(tmp, f"{tag}.job")
+    torch.save({"scenarios": scenarios}, job)
+    store = os.path.join(tmp, f"{tag}.store")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [(os.path.join(tmp, f"{tag}.{r}.pt"), subprocess.Popen(
+        [sys.executable, WORKER, job, str(r), str(world), store,
+         os.path.join(tmp, f"{tag}.{r}.pt")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for r in range(world)]
+    return procs
+
+
+def _collect(procs, timeout=240):
+    out = []
+    for path, p in procs:
+        try:
+            log, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for _, q in procs:
+                q.kill()
+            raise AssertionError("a gloo rank timed out")
+        assert p.returncode == 0, log[-3000:]
+        out.append(torch.load(path, weights_only=False))
+    return out
+
+
+def _jax_fcn_state(name, hw):
+    kw = (dict(FCN_KW, **JAX_KW) if name == "fcn8s"
+          else dict(SEG_KW, packed_dec1=False, **JAX_KW))
+    model = jax_build(name, num_classes=2, dtype=jnp.float32, **kw)
+    return jax_state(model, jax.random.key(0), (4, *hw, 3), jax_optimizer("sgd", LR))
+
+
+def _port_state(name, state_dict, **kw):
+    model = build_model(name, 2, device="cpu", dtype=torch.float32, **kw)
+    model.load_state_dict(state_dict)
+    return create_train_state(model, make_optimizer("sgd", model.parameters(), LR),
+                              make_lr_schedule(LR), seed=0)
+
+
+def _single_steps(state, batch, steps=2, augment=None):
+    step = make_train_step(2, augment_fn=augment)
+    losses, grads = [], None
+    for i in range(steps):
+        out = step(state, batch)
+        losses.append(out["loss"].item())
+        if i == 0:
+            grads = {k: p.grad.clone() for k, p in state.model.named_parameters()}
+    return {"losses": losses, "cm": out["cm"], "grads": grads,
+            "params": state.model.state_dict()}
+
+
+@pytest.fixture(scope="module")
+def grid_runs(tmp_path_factory):
+    """Starts the gloo ranks (one world of 2, one of 4), computes the JAX
+    steps and the port's single-process steps while they run, then collects
+    every rank's results."""
+    tmp = str(tmp_path_factory.mktemp("grid"))
+    js = {"fcn8s": _jax_fcn_state("fcn8s", FCN_HW),
+          "segnet": _jax_fcn_state("segnet", SEG_HW)}
+    sds, batches = {}, {"fcn8s": _batch(4, FCN_HW, 0), "segnet": _batch(4, SEG_HW, 1)}
+    for name, st in js.items():
+        meta = build_model(name, 2, device="meta", **(FCN_KW if name == "fcn8s"
+                                                      else SEG_KW))
+        sds[name] = convert.to_state_dict(convert.flatten_params(st.params), meta)
+    drop_model = build_model("fcn8s", 2, device="cpu", dtype=torch.float32, **DROP_KW)
+    init_params(drop_model, torch.Generator().manual_seed(3))
+    drop_sd = {k: v.clone() for k, v in drop_model.state_dict().items()}
+    drop_batch = _u8_batch(4, FCN_HW, 2)
+
+    def step_sc(name, model, data, spatial, sd, batch, kw, **extra):
+        return dict(name=name, kind="step", model=model, data=data, spatial=spatial,
+                    state_dict=sd, batch=batch, kw=kw, lr=LR, steps=2, **extra)
+
+    fk, sk = FCN_KW, SEG_KW
+    two = _launch(tmp, "w2", 2, [
+        _ops_job(),
+        step_sc("fcn8s_1x2", "fcn8s", 1, 2, sds["fcn8s"], batches["fcn8s"], fk),
+        step_sc("fcn8s_2x1", "fcn8s", 2, 1, sds["fcn8s"], batches["fcn8s"], fk),
+        step_sc("segnet_1x2", "segnet", 1, 2, sds["segnet"], batches["segnet"], sk),
+        step_sc("dropout_1x2", "fcn8s", 1, 2, drop_sd, drop_batch, DROP_KW,
+                augment=True)])
+    four = _launch(tmp, "w4", 4, [
+        step_sc("fcn8s_2x2", "fcn8s", 2, 2, sds["fcn8s"], batches["fcn8s"], fk),
+        step_sc("segnet_2x2", "segnet", 2, 2, sds["segnet"], batches["segnet"], sk)])
+    try:
+        jax_out = {}
+        for name, st in js.items():
+            step = jax_train_step(2)
+            b = {k: jnp.asarray(v.numpy()) for k, v in batches[name].items()}
+            for _ in range(2):
+                st, out = step(st, b)
+            jax_out[name] = (float(out["loss"]), np.asarray(out["cm"]),
+                             convert.flatten_params(st.params))
+        mesh = make_mesh(jax.devices()[:2])
+        st = replicate(_jax_fcn_state("fcn8s", FCN_HW), mesh)
+        step = jax_train_step(2, mesh=mesh)
+        b = shard_batch({k: v.numpy() for k, v in batches["fcn8s"].items()}, mesh)
+        for _ in range(2):
+            st, out = step(st, b)
+        jax_out["fcn8s_mesh"] = (float(out["loss"]), np.asarray(out["cm"]),
+                                 convert.flatten_params(jax.device_get(st.params)))
+        single = {name: _single_steps(_port_state(name, sds[name], **kw),
+                                      batches[name])
+                  for name, kw in (("fcn8s", fk), ("segnet", sk))}
+        aug = make_augment_fn((123.68, 116.779, 103.939), (58.393, 57.12, 57.375))
+        single["dropout"] = _single_steps(_port_state("fcn8s", drop_sd, **DROP_KW),
+                                          drop_batch, augment=aug)
+    finally:
+        ranks2, ranks4 = _collect(two), _collect(four)
+    return {"jax": jax_out, "single": single, "w2": ranks2, "w4": ranks4}
+
+
+def test_boundary_rows_on_two_ranks_match_jax_halo_rows(grid_runs):
+    """The exchange on two gloo ranks gives rank p the JAX ``_halo_rows``
+    block p (nrows = H/2), bit for bit, -inf edge fill included."""
+    ops = _ops_job()
+    x = ops["x"].numpy()
+    tops, bots = _halo_rows(jnp.asarray(x.transpose(1, 2, 0, 3)), x.shape[1] // 2,
+                            ops["fill"])
+    for p, rank in enumerate(grid_runs["w2"]):
+        top, bot = rank["ops"]["boundary"]
+        np.testing.assert_array_equal(top.numpy(),
+                                      np.asarray(tops[p:p + 1]).transpose(2, 0, 1, 3))
+        np.testing.assert_array_equal(bot.numpy(),
+                                      np.asarray(bots[p:p + 1]).transpose(2, 0, 1, 3))
+
+
+@pytest.mark.parametrize("op", ["conv3", "conv7", "convT2", "convT8"])
+def test_row_split_ops_match_whole_image(grid_runs, op):
+    """``conv_nhwc`` (k = 3 and 7) and ``ConvTranspose`` (s = 2 and 8) on two
+    gloo ranks, each holding half the rows: the joined outputs and input
+    gradients and the summed weight gradients equal the whole-image op's.
+    f32, another summation order: within 1e-5 of the value plus 1e-6 of the
+    tensor's largest element."""
+    job = _ops_job()
+    spec = job["ops"][op]
+    x = job["x"].clone().requires_grad_()
+    if spec["kind"] == "conv":
+        w = spec["w"].clone().requires_grad_()
+        y = conv_nhwc(x, w, dtype=torch.float32, padding=spec["padding"])
+    else:
+        mod = ConvTranspose(8, 5, spec["stride"], dtype=torch.float32)
+        with torch.no_grad():
+            mod.weight.copy_(spec["w"])
+            mod.bias.copy_(spec["b"])
+        w = mod.weight
+        y = mod(x)
+    y.backward(spec["cot"])
+    parts = [rank["ops"][op] for rank in grid_runs["w2"]]
+    got_y = torch.cat([p[0] for p in parts], 1)
+    got_dx = torch.cat([p[1] for p in parts], 1)
+    got_dw = sum(p[2] for p in parts)
+    for got, want in ((got_y, y.detach()), (got_dx, x.grad), (got_dw, w.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * want.abs().max().item())
+
+
+def _ranks(grid_runs, name):
+    world = "w4" if name.endswith("2x2") else "w2"
+    return [r[name] for r in grid_runs[world]]
+
+
+@pytest.mark.parametrize("name", ["fcn8s_2x2", "fcn8s_1x2", "fcn8s_2x1",
+                                  "segnet_2x2", "segnet_1x2"])
+def test_grid_step_matches_jax(grid_runs, name):
+    """Two SGD steps (step 2 with nonzero biases) of the grid step against
+    the JAX package's step with ``pallas_spmd=True`` on the same weights and
+    batch: the single-device step (the JAX tests hold its 2-D mesh step
+    equal to it), and for the 2x1 grid its 1-D ``make_mesh()`` step over two
+    devices. The JAX tests' tolerances: FCN loss rtol 2e-5, params rtol
+    3e-4 / atol 3e-6 (tests/test_train.py:395-399); SegNet loss 5e-5,
+    params 2e-4 / 2e-6 (:509-513). Every rank ends with the same params and
+    loss. The confusion matrix is exact for FCN; SegNet's logits sit near
+    zero at this init, so a one-ulp difference may flip a near-tied argmax:
+    at most one labeled pixel in 1000 may move."""
+    model = name.split("_")[0]
+    ranks = _ranks(grid_runs, name)
+    loss, cm, params = grid_runs["jax"]["fcn8s_mesh" if name == "fcn8s_2x1" else model]
+    lrt, prt, pat = (2e-5, 3e-4, 3e-6) if model == "fcn8s" else (5e-5, 2e-4, 2e-6)
+    for r in ranks:
+        assert r["losses"] == ranks[0]["losses"]
+        assert r["checksum"] == ranks[0]["checksum"]
+        moved = np.abs(r["cm"].numpy() - cm).sum() // 2
+        assert r["cm"].sum() == cm.sum()
+        assert moved <= (0 if model == "fcn8s" else cm.sum() // 1000), moved
+    np.testing.assert_allclose(ranks[0]["losses"][-1], loss, rtol=lrt)
+    meta = build_model(model, 2, device="meta", **(FCN_KW if model == "fcn8s"
+                                                   else SEG_KW))
+    got = convert.from_state_dict(ranks[0]["params"], meta)
+    for k, w in params.items():
+        np.testing.assert_allclose(got[k], np.asarray(w), rtol=prt, atol=pat,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["fcn8s_2x2", "fcn8s_1x2", "fcn8s_2x1",
+                                  "segnet_2x2", "segnet_1x2"])
+def test_grid_gradients_match_single_process(grid_runs, name):
+    """The first step's gradients (after the all-reduce and the divide) and
+    both losses of the grid step against the port's single-process step:
+    every leaf within 1e-4 of its L2 norm (f32 in another summation order is
+    ~1e-6; a wrong halo row moves a leaf by O(1))."""
+    model = name.split("_")[0]
+    want = grid_runs["single"][model]
+    got = _ranks(grid_runs, name)[0]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5)
+    for k, g in want["grads"].items():
+        err = (got["grads"][k] - g).norm() / g.norm().clamp(min=1e-30)
+        assert err <= 1e-4, (k, err.item())
+
+
+def test_grid_dropout_step_matches_single_process(grid_runs):
+    """Dropout 0.5 and random flips on a 1x2 grid: the masks and flips are
+    drawn at the global batch's shape, so two grid steps equal two
+    single-process steps (losses rtol 2e-5, every leaf's first gradient
+    within 1e-4 of its norm, the params after two steps atol 3e-6)."""
+    want = grid_runs["single"]["dropout"]
+    ranks = _ranks(grid_runs, "dropout_1x2")
+    got = ranks[0]
+    assert ranks[1]["checksum"] == got["checksum"]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5)
+    for k, g in want["grads"].items():
+        err = (got["grads"][k] - g).norm() / g.norm().clamp(min=1e-30)
+        assert err <= 1e-4, (k, err.item())
+    for k, p in want["params"].items():
+        torch.testing.assert_close(got["params"][k], p, rtol=0, atol=3e-6, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# registry, grid, loader, CLI
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["fcn8s", "fcn16s", "fcn32s", "segnet", "deeplab",
+                                  "unet", "nope"])
+def test_spmd_safe_kwargs_table_matches_jax(name):
+    assert spmd_safe_kwargs(name) == jax_spmd_kwargs(name)
+
+
+def test_merge_spmd_safe_kwargs_warns_on_conflict_and_keeps_user_choice():
+    for merge in (merge_spmd_safe_kwargs, jax_merge_spmd):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert merge("fcn8s", {"fc_features": 8}) == {
+                "fc_features": 8, "winograd": None, "pallas_spmd": True}
+        with pytest.warns(UserWarning, match="winograd='f2'"):
+            got = merge("segnet", {"winograd": "f2"})
+        assert got == {"winograd": "f2", "pallas_spmd": True}
+
+
+def test_make_grid_and_launch_guards(monkeypatch):
+    """Without a process group the world is one rank: a 1x1 grid, anything
+    else raises as the JAX ``make_mesh_2d`` does; the launch names what is
+    missing."""
+    g = make_grid(1, 1)
+    assert (g.world, g.data_index, g.spatial_index, g.spatial_group) == (1, 0, 0, None)
+    for shape in ((2, 1), (1, 2), (0, 1)):
+        with pytest.raises(ValueError, match="devices"):
+            make_grid(*shape)
+    for k in ("SEG_COORDINATOR", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
+        initialize_distributed(None, 2, 0, device="cpu")
+    with pytest.raises(ValueError, match="rank"):
+        initialize_distributed("localhost:1", None, None, device="cpu")
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_loader_gives_each_rank_its_images_and_rows(tmp_path, rank):
+    """``BatchLoader(mesh=grid)`` on a 2x2 grid yields rank r's images and
+    rows of the batch the grid-less loader yields (same shuffle), padding
+    and the wrap's invalid marks included; a height that does not split
+    over the spatial ranks at the stride raises."""
+    data = generate_synthetic_kitti(str(tmp_path / "d"), n_train=6, n_test=1,
+                                    h=50, w=40, seed=0)
+    ds = build_dataset("kitti_road", data, (50, 40))
+    grid = Grid(data=2, spatial=2, rank=rank)
+    kw = dict(pad_multiple=32, seed=1, device="cpu", drop_remainder=False)
+    whole = list(BatchLoader(ds, 4, **kw).epoch())
+    mine = list(BatchLoader(ds, 4, mesh=grid, **kw).epoch())
+    assert len(whole) == len(mine) == 2
+    for a, b in zip(whole, mine):
+        for k in a:
+            assert torch.equal(b[k], a[k][grid.images(4)][:, grid.rows(64)]), k
+    with pytest.raises(ValueError, match="divide"):
+        next(BatchLoader(ds, 4, mesh=Grid(1, 3, 0), **kw).epoch())
+
+
+def test_train_cli_spatial_at_one_rank_merges_kwargs_and_trains(tmp_path, capsys):
+    """``--spatial 2`` at one rank: the SPMD-safe kwargs merge in, the step
+    runs unsharded through the halo mode of the stage1 tail, and trains."""
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import train
+
+    calls = []
+    orig = port_stage1.stage1_tail_halo_bwd_plain
+    port_stage1.stage1_tail_halo_bwd_plain = lambda *a: calls.append(1) or orig(*a)
+    try:
+        rc = train.main(["--synthetic", "--epochs", "1", "--device", "cpu",
+                         "--spatial", "2", "--image-size", "64", "96",
+                         "--batch-size", "8", "--model-kw",
+                         "fc_features=32,width_mult=0.25",
+                         "--checkpoint-dir", str(tmp_path / "ck")])
+    finally:
+        port_stage1.stage1_tail_halo_bwd_plain = orig
+    out = capsys.readouterr().out
+    assert rc == 0 and "final:" in out and "mesh=none" in out
+    assert calls, "the step did not run the halo-mode backward"
+
+
+@pytest.mark.parametrize("argv", [["--spatial", "0"],
+                                  ["--spatial", "2", "--image-size", "32", "96"],
+                                  ["--spatial", "4", "--image-size", "64", "96"]])
+def test_train_cli_bad_grid_raises_before_work(argv, monkeypatch):
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import train
+
+    from semanticsegmentation_tensorflow_tpu_torch.data import synthetic
+
+    monkeypatch.setattr(synthetic, "generate_synthetic_kitti",
+                        lambda *a, **k: pytest.fail("work began"))
+    with pytest.raises(ValueError):
+        train.main(["--synthetic", "--device", "cpu", *argv])

@@ -395,11 +395,9 @@ def test_train_cli_then_infer_image_from_its_checkpoint(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,err", [
     (["--shard-opt"], NotImplementedError),
-    (["--spatial", "2"], NotImplementedError),
     (["--scale-jitter", "0.75,1.0"], NotImplementedError),
     (["--val-frac", "0.2"], NotImplementedError),
     (["--loader-workers", "2"], NotImplementedError),
-    (["--distributed"], NotImplementedError),
     (["--synthetic", "--device", "cuda"], RuntimeError),
     (["--data-dir", "/nonexistent", "--device", "cpu"], FileNotFoundError),
 ])
