@@ -1173,6 +1173,22 @@ def time3(plain, kernel, library, timer=None) -> tuple[float, float, float]:
     return (t[1] + t[3]) / 2, (t[0] + t[4]) / 2, (t[2] + t[5]) / 2
 
 
+def winograd_work(variant: str, shape, co: int, op: str) -> tuple[float, float]:
+    """(bytes, FLOP) of one kernel-6 op: each input read once and each
+    output written once (x, out, U; the dgrad also reads o; the wgrad
+    reads x, g, o and writes dU, db in f32), and the products,
+    2*a^2*tiles*C*Co."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import VARIANTS
+
+    m, a2 = VARIANTS[variant].m, VARIANTS[variant].a ** 2
+    n, h, w, c = shape
+    px, tiles = n * h * w, n * (h // m) * (w // m)
+    nbytes = {"fwd": 2 * px * (c + co) + 2 * a2 * c * co,
+              "dgrad": 2 * px * (2 * co + c) + 2 * a2 * c * co,
+              "wgrad": 2 * px * (c + 2 * co) + 4 * a2 * c * co + 4 * co}[op]
+    return nbytes, 2.0 * a2 * tiles * c * co
+
+
 def check_winograd(torch, gen) -> dict:
     """Kernel 6 against its plain version at every eligible conv shape of
     the FCN-8s and SegNet train steps (WINOGRAD_TRAIN) for f2 and f4: the
@@ -1261,16 +1277,14 @@ def check_winograd(torch, gen) -> dict:
         torch.cuda.empty_cache()
 
     log("winograd timings per call at the train shapes (ms by CUDA events; kernel, plain, "
-        "library; bound; ops fwd = bias_relu forward, dgrad = masked forward, "
-        "wgrad = dU + db):")
+        "library; bound; the kernel's TFLOP/s and share of the bound; ops fwd = "
+        "bias_relu forward, dgrad = masked forward, wgrad = dU + db):")
     step = {(model, variant): {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                                "bytes": 0.0, "flops": 0.0}
             for model in ("fcn8s", "segnet") for variant in ("f2", "f4")}
     for variant in ("f2", "f4"):
-        m, a2 = VARIANTS[variant].m, VARIANTS[variant].a ** 2
         for shape, co, n_fcn, n_seg in WINOGRAD_TRAIN:
             n, h, w, c = shape
-            tiles = n * (h // m) * (w // m)
             x = rand(shape).bfloat16()
             wt = rand((co, c, 3, 3), (1.0 / (9 * c)) ** 0.5)
             b = rand((co,), 0.1).bfloat16()
@@ -1279,32 +1293,29 @@ def check_winograd(torch, gen) -> dict:
             u2 = cw.u_for(rot180_swap(wt), variant, torch.bfloat16)
             xc, gc = x.permute(0, 3, 1, 2), (g * (o > 0)).permute(0, 3, 1, 2)
             wc = wt.bfloat16().contiguous(memory_format=torch.channels_last)
-            flops = 2.0 * a2 * tiles * c * co
-            px = n * h * w
             ops = {
                 "fwd": (lambda: cw.winograd_fwd_plain(x, u, b, None, variant, "bias_relu"),
                         lambda: cw.winograd_fwd(x, u, b, None, variant, "bias_relu"),
-                        lambda: F.conv2d(xc, wc, b, padding=1),
-                        2 * px * (c + co) + 2 * a2 * c * co),
+                        lambda: F.conv2d(xc, wc, b, padding=1)),
                 "dgrad": (lambda: cw.winograd_fwd_plain(g, u2, None, o, variant, "none"),
                           lambda: cw.winograd_fwd(g, u2, None, o, variant, "none"),
                           lambda: torch.ops.aten.convolution_backward(
                               gc, xc, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
-                              1, [True, False, False]),
-                          2 * px * (2 * co + c) + 2 * a2 * c * co),
+                              1, [True, False, False])),
                 "wgrad": (lambda: cw.winograd_wgrad_plain(x, g, o, variant),
                           lambda: cw.winograd_wgrad(x, g, o, variant),
                           lambda: torch.ops.aten.convolution_backward(
                               gc, xc, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
-                              1, [False, True, True]),
-                          2 * px * (c + 2 * co) + 4 * a2 * c * co + 4 * co),
+                              1, [False, True, True])),
             }
             line = []
-            for op, (plain, kernel, library, nbytes) in ops.items():
+            for op, (plain, kernel, library) in ops.items():
+                nbytes, flops = winograd_work(variant, shape, co, op)
                 k, p, lib = time3(plain, kernel, library, timer=events)
                 bd = bound(nbytes, flops)
                 line.append(f"{op} {k:.4f} / {p:.4f} / {lib:.4f} (bound {bd['bound_ms']:.4f}"
-                            f" {bd['bound_by']})")
+                            f" {bd['bound_by']}; {flops / k / 1e9:.1f} TFLOP/s, "
+                            f"{100 * bd['bound_ms'] / k:.1f} % of the bound)")
                 for model, count in (("fcn8s", n_fcn), ("segnet", n_seg)):
                     acc = step[(model, variant)]
                     acc["ms"] += count * k

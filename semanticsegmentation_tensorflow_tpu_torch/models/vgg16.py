@@ -10,10 +10,13 @@ import torch
 import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
-from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, dropout
+from semanticsegmentation_tensorflow_tpu_torch.models.common import (
+    Conv, ConvBlock, dropout,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import (
     PooledConvBlock, Stage1,
 )
+from semanticsegmentation_tensorflow_tpu_torch.ops.pool import max_pool
 from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
     winograd_conv_large,
 )
@@ -36,6 +39,17 @@ def reject_unported(**flags) -> None:
             "the default of each)")
 
 
+class ConvPoolBlock(ConvBlock):
+    """ConvBlock (conv + bias + relu for every conv) then a 2x2/2 max pool:
+    the JAX package's VGG16 stage with ``deferred_pool_bias=False``
+    (``models/vgg16.py:105-116``). Same parameters as
+    :class:`PooledConvBlock`, which computes the same function bit for bit
+    with the last bias and relu after the pool."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool(super().forward(x), 2)
+
+
 class VGG16(nn.Module):
     """Returns a dict of endpoints: pool1..pool5, conv7.
 
@@ -45,8 +59,12 @@ class VGG16(nn.Module):
     is False (the JAX flag that selects the fused kernel; None and True
     select it here). Otherwise it runs as a :class:`PooledConvBlock`, like
     stages 2-5 (the last bias added after the pool, bit-exact). Same params
-    either way. ``deferred_pool_bias`` is accepted only at its JAX default
-    (True): the port has no other form.
+    either way. ``deferred_pool_bias=False`` runs every stage that is not
+    :class:`Stage1` as a :class:`ConvPoolBlock` (each conv's bias and relu
+    before the pool, as the JAX flag does), bit-equal to the default.
+    ``packed_stage2_entry`` is a TPU layout of conv2_1 (width pairs packed
+    into the 128 lanes) computing the same function: accepted, and a no-op
+    here, as SegNet's ``packed_dec1``/``packed_dec2`` are.
     ``dropout_rate`` applies to fc6 and fc7 in ``train()`` mode, with masks
     from the ``generator`` given to :meth:`forward`. ``pallas_spmd`` goes to
     :class:`Stage1` (its halo mode, kernel 1c).
@@ -60,9 +78,7 @@ class VGG16(nn.Module):
                  packed_stage2_entry: bool = False, pallas_spmd: bool = False,
                  pallas_pool: bool | None = None, device=None):
         super().__init__()
-        reject_unported(use_bn=use_bn, dilated_last_stages=dilated_last_stages,
-                        packed_stage2_entry=packed_stage2_entry,
-                        deferred_pool_bias=not deferred_pool_bias)
+        reject_unported(use_bn=use_bn, dilated_last_stages=dilated_last_stages)
         cin = 3
         for i, (n_convs, feats) in enumerate(VGG16_STAGES, start=1):
             feats = max(8, int(feats * width_mult))
@@ -71,8 +87,9 @@ class VGG16(nn.Module):
                                pallas_spmd=pallas_spmd, dtype=dtype,
                                device=device)
             else:
-                block = PooledConvBlock(cin, feats, n_convs, winograd=winograd,
-                                        dtype=dtype, device=device)
+                kind = PooledConvBlock if deferred_pool_bias else ConvPoolBlock
+                block = kind(cin, feats, n_convs, winograd=winograd,
+                             dtype=dtype, device=device)
             self.add_module(f"stage{i}", block)
             cin = feats
         self.conv6 = Conv(cin, fc_features, 7, dtype=dtype, device=device)

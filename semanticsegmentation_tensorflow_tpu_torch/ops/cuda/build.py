@@ -51,11 +51,10 @@ _SIGNATURES = {
     "seg_error_string": ((_I,), ctypes.c_char_p),
     "seg_overlay": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
                      _P), _I),
-    "seg_winograd_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-                         _I),
-    "seg_winograd_wgrad_parts": ((_I, _I, _I, _I, _I, _I), _I),
-    "seg_winograd_wgrad": ((_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P), _I),
+    "seg_winograd_fwd": ((_P,) * 6 + (_I,) * 7 + (_P,), _I),
+    "seg_winograd_wgrad_scratch": ((_I,) * 6 + (ctypes.POINTER(ctypes.c_longlong),),
+                                   _I),
+    "seg_winograd_wgrad": ((_P,) * 7 + (_I, _P, _P) + (_I,) * 6 + (_P,), _I),
 }
 
 

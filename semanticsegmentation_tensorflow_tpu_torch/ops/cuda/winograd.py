@@ -2,10 +2,12 @@
 
 The port of ``ops/pallas/winograd.py`` (``_fwd_kernel`` :146 and
 ``_wgrad_kernel`` :231 behind ``winograd_conv_bias_relu`` :467 and
-``winograd_conv3x3`` :512). ``csrc/winograd.cu`` builds the transformed
-input V = B^T d B of a run of tiles in shared memory, runs the (m+2)^2
-per-coordinate products on the tensor cores and transforms back in the same
-block, so V and M never reach device memory. Two wrappers on NHWC tensors,
+``winograd_conv3x3`` :512). ``csrc/winograd.cu`` runs two passes: the
+transformed input V = B^T d B (and, for the weight gradient, the transformed
+cotangent dM) of every tile, computed once from input rows staged in shared
+memory and written to a bf16 scratch, then the (m+2)^2 per-coordinate
+products on wgmma, fed by TMA, with the output transform folded into the
+registers so M never reaches device memory. Two wrappers on NHWC tensors,
 each with a plain PyTorch version that it takes only for tensors on the CPU;
 for CUDA tensors each launches its kernel or raises:
 
@@ -30,6 +32,8 @@ as ``_dw_from_du`` runs in XLA. Each wrapper counts its kernel launches in
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -38,7 +42,7 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
 )
 
 EPILOGUES = ("bias_relu", "none")
-_CHUNK = 32  # the kernel's channel chunk and output-channel tile
+_CHUNK = 32  # Cin and Cout must be multiples of this
 
 
 def eligible(x_shape, w_shape, variant: str = "f2", min_ch: int = 128) -> bool:
@@ -217,14 +221,18 @@ def winograd_fwd(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor | None,
     for t in (ut, bk, o):
         if t is not None and t.device != x.device:
             raise ValueError("x, u, b and o must be on one device")
+    m = VARIANTS[variant].m
     out = torch.empty((n, h, w, co), dtype=torch.bfloat16, device=x.device)
+    # V of every tile, [a*a][tiles][Cin]: the kernel's first pass writes it
+    v = torch.empty((a2, n * (h // m) * (w // m), c), dtype=torch.bfloat16,
+                    device=x.device)
     lib = build.lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.seg_winograd_fwd(
             x.data_ptr(), ut.data_ptr(), None if bk is None else bk.data_ptr(),
-            None if o is None else o.data_ptr(), out.data_ptr(), n, h, w, c, co,
-            VARIANTS[variant].m, int(epilogue == "bias_relu"), stream)
+            None if o is None else o.data_ptr(), v.data_ptr(), out.data_ptr(), n, h,
+            w, c, co, m, int(epilogue == "bias_relu"), stream)
     build.check(err, "seg_winograd_fwd")
     winograd_fwd.launches += 1
     return out
@@ -256,18 +264,24 @@ def winograd_wgrad(x: torch.Tensor, g: torch.Tensor, o: torch.Tensor | None,
     lib = build.lib()
     dev = x.device
     with torch.cuda.device(dev):
-        parts = lib.seg_winograd_wgrad_parts(n, h, w, c, co, m)
-        if parts <= 0:
-            build.check(-parts, "seg_winograd_wgrad_parts")
+        sizes = (ctypes.c_longlong * 3)()
+        build.check(lib.seg_winograd_wgrad_scratch(n, h, w, c, co, m, sizes),
+                    "seg_winograd_wgrad_scratch")
+        parts, db_blocks, t8 = sizes
         du = torch.empty((a2, c, co), dtype=torch.float32, device=dev)
         db = torch.empty((co,), dtype=torch.float32, device=dev)
+        # V^T and dM^T of every tile ([a*a][channels][tiles], each tile row
+        # padded to a multiple of 8 tiles) and the partial sums, summed in a
+        # fixed order
+        vt = torch.empty((a2, c, t8), dtype=torch.bfloat16, device=dev)
+        dmt = torch.empty((a2, co, t8), dtype=torch.bfloat16, device=dev)
         du_part = torch.empty((parts, a2, c, co), dtype=torch.float32, device=dev)
-        db_part = torch.empty((parts, co), dtype=torch.float32, device=dev)
+        db_part = torch.empty((db_blocks, co), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.seg_winograd_wgrad(
             x.data_ptr(), g.data_ptr(), None if o is None else o.data_ptr(),
-            du_part.data_ptr(), db_part.data_ptr(), parts, du.data_ptr(),
-            db.data_ptr(), n, h, w, c, co, m, stream)
+            vt.data_ptr(), dmt.data_ptr(), du_part.data_ptr(), db_part.data_ptr(),
+            parts, du.data_ptr(), db.data_ptr(), n, h, w, c, co, m, stream)
     build.check(err, "seg_winograd_wgrad")
     winograd_wgrad.launches += 1
     return du, db

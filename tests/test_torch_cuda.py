@@ -324,11 +324,17 @@ def _within(got, want, rel, near0):
 
 
 @pytest.mark.parametrize("variant", ["f2", "f4"])
-@pytest.mark.parametrize("shape", [(2, 16, 24, 128, 128), (3, 12, 20, 64, 96)])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 24, 128, 128), (3, 12, 20, 64, 96),
+    (2, 16, 24, 256, 416),   # Cout over several output-channel blocks + a ragged one
+    (2, 64, 96, 512, 128),   # more K chunks than pipeline stages, forward and wgrad
+    (2, 20, 36, 96, 64),     # tile rows and columns not multiples of the block's
+])
 def test_winograd_kernels_match_plain_on_card(gen, variant, shape):
     """Forward (bias_relu and raw), the masked forward (the input gradient)
     and the wgrad against their plain versions on the same bf16 inputs, at
-    an eligible shape and a ragged one (partial tile blocks and chunks).
+    eligible shapes and ragged ones (partial tile blocks, output-channel
+    blocks and K chunks; more K chunks than the kernel's pipeline stages).
     The outputs are one bf16 rounding of float32 sums taken in another
     order: one bf16 ulp (2^-7 of the value) plus 2^-12 of the scale near
     zero. dU and db are float32 sums over the tiles: 1e-4 of the scale. A

@@ -161,12 +161,52 @@ def test_init_mirrors_flax_distributions():
                                                  again.state_dict().values()))
 
 
-@pytest.mark.parametrize("kw", [{"use_bn": True},
-                                {"packed_stage2_entry": True},
-                                {"deferred_pool_bias": False}])
+@pytest.mark.parametrize("kw", [{"use_bn": True}])
 def test_unported_flags_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model("fcn8s", 2, device="meta", **kw)
+
+
+def test_packed_stage2_entry_matches_jax():
+    """``packed_stage2_entry=True`` (a TPU layout of conv2_1) builds and
+    gives the JAX FCN-8s's logits with the same flag, same weights, within
+    2e-4 of their scale (the JAX packed form sums in another order; its own
+    test holds it to the unpacked one within 2e-4)."""
+    kw = dict(packed_stage2_entry=True, packed_stage1=False)
+    model = jax_fcn("fcn8s", **kw)
+    variables = jax_init(model, hw=(32, 64))
+    x = nhwc_input((1, 32, 64, 3), seed=7)
+    want = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x)))
+    port = port_fcn("fcn8s", variables, **kw)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deferred_pool_bias_off_matches(dtype):
+    """``deferred_pool_bias=False`` (each conv's bias and relu before the
+    pool) gives the port's default build's logits bit for bit, in f32 and
+    bf16, with random biases (zeros would make it trivial); in f32 also the
+    JAX model's with the same flag, within the logits bound."""
+    kw = dict(deferred_pool_bias=False, packed_stage1=False)
+    model = jax_fcn("fcn8s", **kw)
+    variables = jax_init(model, hw=(32, 64))
+    rng = np.random.default_rng(8)
+    variables = jax.tree_util.tree_map_with_path(
+        lambda path, v: (jnp.asarray(0.1 * rng.normal(size=v.shape), v.dtype)
+                         if path[-1].key == "bias" else v), variables)
+    x = nhwc_input((1, 32, 64, 3), seed=8)
+    off = port_fcn("fcn8s", variables, dtype=dtype, **kw)
+    ref = port_fcn("fcn8s", variables, dtype=dtype, packed_stage1=False)
+    assert type(off.vgg16.stage2).__name__ == "ConvPoolBlock"
+    with torch.no_grad():
+        got = off(torch.from_numpy(x))
+        torch.testing.assert_close(got, ref(torch.from_numpy(x)), rtol=0, atol=0)
+    if dtype == torch.float32:
+        want = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x)))
+        _assert_logits_close(got.numpy(), want)
 
 
 @pytest.mark.parametrize("pallas_pool", [True, False])
