@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
-    VARIANTS, combine, rot180_swap, transform_kernel,
+    VARIANTS, combine, device_table, rot180_swap, transform_kernel,
 )
 
 EPILOGUES = ("bias_relu", "none")
@@ -68,7 +68,7 @@ def u_for(w: torch.Tensor, variant: str, dtype: torch.dtype) -> torch.Tensor:
 def dw_from_du(du: torch.Tensor, w: torch.Tensor, variant: str) -> torch.Tensor:
     """dU ``[a*a, Cin, Cout]`` float32 -> dw = G^T dU G, OIHW in w's dtype."""
     var = VARIANTS[variant]
-    g = torch.as_tensor(var.G, dtype=torch.float32, device=du.device)
+    g = device_table(var.G, du)
     du = du.reshape(var.a, var.a, du.shape[1], du.shape[2])
     return torch.einsum("ir,js,ijcf->fcrs", g, g, du).to(w.dtype)
 

@@ -106,8 +106,19 @@ VARIANTS: dict[str, WinogradVariant] = {
 }
 
 
-def _t(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(table, dtype=torch.float32, device=like.device)
+_DEVICE_TABLES: dict = {}
+
+
+def device_table(table: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """``table`` as a float32 tensor on ``like``'s device, copied there
+    once per device: a copy from host memory on every call would make the
+    host wait for the device each time. Do not modify the result."""
+    key = (table.shape, table.tobytes(), like.device)
+    t = _DEVICE_TABLES.get(key)
+    if t is None:
+        t = _DEVICE_TABLES[key] = torch.as_tensor(table, dtype=torch.float32,
+                                                  device=like.device)
+    return t
 
 
 def combine(coeffs, tensors):
@@ -128,7 +139,7 @@ def combine(coeffs, tensors):
 def transform_kernel(w: torch.Tensor, variant: str = "f2") -> torch.Tensor:
     """OIHW ``[Cout, Cin, r, r]`` -> U ``[a, a, Cin, Cout]`` = G w G^T,
     float32."""
-    g = _t(VARIANTS[variant].G, w)
+    g = device_table(VARIANTS[variant].G, w)
     return torch.einsum("ir,js,cdrs->ijdc", g, g, w.float())
 
 
@@ -164,13 +175,13 @@ def winograd_conv2d_ref(x: torch.Tensor, w: torch.Tensor, variant: str = "f2",
     p0 = r // 2
     xp = _pad_nhwc(x.float(), p0, p0 + m * ht - h, p0, p0 + m * wt - wd)
     d = _tile_input(xp, ht, wt, m, a)
-    bt = _t(var.BT, x)
+    bt = device_table(var.BT, x)
     v = torch.einsum("ir,js,rsnhwc->ijnhwc", bt, bt, d)
     u = transform_kernel(w, variant)
     if mxu_dtype is not None:
         v, u = v.to(mxu_dtype).float(), u.to(mxu_dtype).float()
     mm = torch.einsum("ijnhwc,ijco->ijnhwo", v, u)
-    at = _t(var.AT, x)
+    at = device_table(var.AT, x)
     y = torch.einsum("pi,lj,ijnhwo->nhpwlo", at, at, mm)
     return y.reshape(n, m * ht, m * wt, co)[:, :h, :wd]
 
@@ -202,7 +213,7 @@ def _transform_input(xp: torch.Tensor, var: WinogradVariant) -> torch.Tensor:
     n, hp, wp, c = xp.shape
     ht, wt = (hp - (a - m)) // m, (wp - (a - m)) // m
     d = _tile_input(xp.float(), ht, wt, m, a)
-    bt = _t(var.BT, xp)
+    bt = device_table(var.BT, xp)
     v = torch.einsum("ir,js,rsnhwc->ijnhwc", bt, bt, d)
     return v.to(torch.bfloat16).reshape(a * a, n * ht * wt, c)
 
@@ -214,7 +225,7 @@ def _transform_cotangent(g: torch.Tensor, var: WinogradVariant) -> torch.Tensor:
     n, h, wd, f = g.shape
     ht, wt = h // m, wd // m
     gt = g.reshape(n, ht, m, wt, m, f).float()
-    at = _t(var.AT, g)
+    at = device_table(var.AT, g)
     dm = torch.einsum("pi,lj,nhpwlf->ijnhwf", at, at, gt)
     return dm.to(torch.bfloat16).reshape(a * a, n * ht * wt, f)
 
@@ -225,7 +236,7 @@ def _untransform_output(mm: torch.Tensor, var: WinogradVariant, n: int, h: int,
     m, a = var.m, var.a
     ht, wt = -(-h // m), -(-wd // m)
     f = mm.shape[-1]
-    at = _t(var.AT, mm)
+    at = device_table(var.AT, mm)
     y = torch.einsum("pi,lj,ijnhwf->nhpwlf", at, at,
                      mm.reshape(a, a, n, ht, wt, f).float())
     return y.reshape(n, m * ht, m * wt, f)[:, :h, :wd]
@@ -249,7 +260,7 @@ def _winograd_raw(x: torch.Tensor, u: torch.Tensor, var: WinogradVariant):
 def _dw_of(du: torch.Tensor, var: WinogradVariant) -> torch.Tensor:
     """dU ``[a*a, C, F]`` float32 -> dw = G^T dU G as OIHW float32."""
     a = var.a
-    g = _t(var.G, du)
+    g = device_table(var.G, du)
     du = du.reshape(a, a, du.shape[1], du.shape[2])
     return torch.einsum("ir,js,ijcf->fcrs", g, g, du)
 
@@ -330,7 +341,7 @@ def _dwm_kernel(w: torch.Tensor, var: WinogradVariant) -> torch.Tensor:
     nb = -(-r // 3)
     wpad = F.pad(w.float(), (0, 3 * nb - r, 0, 3 * nb - r))
     blocks = wpad.reshape(f, c, nb, 3, nb, 3).permute(2, 4, 3, 5, 1, 0)
-    g = _t(var.G, w)
+    g = device_table(var.G, w)
     u = torch.einsum("ir,js,derscf->ijdecf", g, g, blocks)
     return u.reshape(var.a * var.a, nb, nb, c, f)
 
@@ -350,7 +361,7 @@ def _dwm_v(x: torch.Tensor, r: int, var: WinogradVariant) -> torch.Tensor:
     p0 = r // 2
     xp = _pad_nhwc(x.float(), p0, hp - p0 - h, p0, wp - p0 - wd)
     d = _tile_input(xp, th, tw, m, a)
-    bt = _t(var.BT, x)
+    bt = device_table(var.BT, x)
     v = torch.einsum("ir,js,rsnhwc->ijnhwc", bt, bt, d)
     return v.to(torch.bfloat16).reshape(a * a, n, th, tw, c)
 
@@ -366,7 +377,7 @@ def _dwm_conv_raw(x: torch.Tensor, w: torch.Tensor, var: WinogradVariant
     _, tho, two, _, _, _, _ = _dwm_geometry(h, wd, r, m)
     v = _dwm_v(x, r, var)
     mm = _conv_tiles(v, _dwm_kernel(w, var).to(torch.bfloat16))
-    at = _t(var.AT, x)
+    at = device_table(var.AT, x)
     y = torch.einsum("pi,lj,ijnhwf->nhpwlf", at, at,
                      mm.reshape(a, a, n, tho, two, f).float())
     return y.reshape(n, m * tho, m * two, f)[:, :h, :wd]
@@ -410,7 +421,7 @@ class _WinogradConvLarge(torch.autograd.Function):
             _bmm_bf16(v[:, :, dh:dh + tho, dw:dw + two].reshape(
                 a * a, n * tho * two, c).transpose(1, 2), dm, torch.float32)
             for dh in range(nb) for dw in range(nb)]).reshape(nb, nb, a, a, c, f)
-        gm = _t(var.G, du)
+        gm = device_table(var.G, du)
         dwp = torch.einsum("ir,js,deijcf->drescf", gm, gm, du)
         dwp = dwp.reshape(3 * nb, 3 * nb, c, f)[:r, :r].permute(3, 2, 0, 1)
         return dx, dwp.to(w.dtype), db.to(ctx.b_dtype), None, None
