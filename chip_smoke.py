@@ -349,6 +349,9 @@ def check_stage1_train(torch, gen) -> dict:
                           **bound(5 * n * h * w * c / 4 + 4 * n * h * w * c
                                   + 4 * 9 * c * c + 4 * c,
                                   2 * conv3x3_flops(n, h, w, c)))
+            result.update(backward_by_launch(
+                torch, lambda: stage1_tail_bwd(g, out_p, codes_p, z1, k2),
+                g, out_p, codes_p, z1, k2))
             tf = ab_ms(lambda: stage1_tail_codes_plain(z1, k2, b2),
                        lambda: stage1_tail_train(z1, k2, b2))
             show_ab(f"stage1 training forward (with codes) at {list(TRAIN_SHAPE)}",
@@ -359,7 +362,7 @@ def check_stage1_train(torch, gen) -> dict:
 
     lib = build.lib()
     for n, h, w, c in ((2, 16, 48, 64), (8, 64, 256, 64)):
-        tiles = n * -(-h // 4) * -(-w // 32)       # wgrad tiles of 4x32 pixels
+        tiles = n * -(-h // 4) * -(-w // 64)       # wgrad tiles of 4x64 pixels
         parts = lib.seg_stage1_bwd_parts(n, h, w, c)
         for case in (tie_windows, int_case):
             z1, k2, b2 = (t.to("cuda", torch.bfloat16)
@@ -388,12 +391,41 @@ def check_stage1_train(torch, gen) -> dict:
                                          "through the Function not exact")
                 what += ", and through the autograd Function"
             log(f"stage1 {case.__name__} [{n},{h},{w},{c}] (integer, ties incl. "
-                f"c = b > a; {tiles} wgrad tiles over {parts} blocks per tap "
-                f"row): codes, out, dz1, dk2, db2 exact, {what}")
-        if n == 8 and tiles < 2 * parts:
+                f"c = b > a; {tiles} wgrad tiles over {parts} blocks): codes, out, "
+                f"dz1, dk2, db2 exact, {what}")
+        # each wgrad block walks more tiles than its two pipeline stages
+        if n == 8 and tiles <= 2 * parts:
             raise AssertionError(f"the multi-tile case gives {tiles} wgrad tiles "
                                  f"to {parts} blocks")
     return result
+
+
+def backward_by_launch(torch, fn, g, out, codes, z1, k2) -> dict:
+    """The device time of each launch of kernel 1b's backward ``fn`` (dgrad,
+    wgrad, sum; torch.profiler, by kernel name) and, beside the wgrad, cuDNN's
+    weight gradient of the same conv on the same dz2 and relu(z1) in bf16
+    (``aten.convolution_backward``, output mask (False, True, False)), by
+    the same device clock, with the wgrad's TFLOP/s and share of its bound."""
+    from profile_train import profile_device
+    from stage1_bwd_ab import cudnn_wgrad, launch_times
+
+    by = launch_times(profile_device(torch, fn, 10)["by_op"])
+    lib_ms = device_ms(cudnn_wgrad(torch, g, out, codes, z1, k2))[0]
+    n, h, wd, c = z1.shape
+    flops = conv3x3_flops(n, h, wd, c)
+    # z1 and the pooled g, out, codes in; dk2, db2 out
+    wb = bound(2 * n * h * wd * c + 5 * n * h * wd * c / 4 + 4 * 9 * c * c + 4 * c, flops)
+    wg = by.get("wgrad")
+    if wg is None:
+        log("stage1 backward by launch: not measured (the profiler saw no kernel); "
+            f"cuDNN weight gradient {lib_ms:.4f} ms")
+        return {"wgrad_ms": None, "library_wgrad_ms": lib_ms}
+    log(f"stage1 backward at {list(z1.shape)} by launch (device ms): dgrad "
+        f"{by.get('dgrad', float('nan')):.4f}, wgrad {wg:.4f}, sum "
+        f"{by.get('sum', float('nan')):.4f}; cuDNN weight gradient {lib_ms:.4f};"
+        f" wgrad {flops / wg / 1e9:.1f} TFLOP/s, {100 * wb['bound_ms'] / wg:.1f} % of "
+        f"its bound {wb['bound_ms']:.4f} ms ({wb['bound_by']})")
+    return {"wgrad_ms": wg, "library_wgrad_ms": lib_ms}
 
 
 def check_preprocess(torch, gen) -> dict:
@@ -2094,7 +2126,7 @@ def main() -> int:
              source=f"{PKG}/csrc/stage1_bwd.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:271",
              launches=total("stage1_tail_bwd"),
-             **{k: stage1_bwd[k] for k in keys}),
+             **{k: stage1_bwd[k] for k in keys + ("wgrad_ms", "library_wgrad_ms")}),
         dict(name="preprocess_normalize", route="cuda",
              source=f"{PKG}/csrc/preprocess.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/preprocess.py:40",

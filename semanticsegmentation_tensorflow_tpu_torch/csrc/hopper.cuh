@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
 // tensor loads, wgmma with both operands in shared memory (K-major, 128-byte
-// swizzle), and the host-side tensor-map encoder.
+// swizzle) or with A in registers and B MN-major in shared memory, and the
+// host-side tensor-map encoder.
 //
 // Operand tiles. A TMA box of {64 bf16 (K), rows} with CU_TENSOR_MAP_SWIZZLE_128B
 // lands as rows of 128 bytes, 8-row atoms of 1024 bytes, the 16-byte chunks of
@@ -8,6 +9,12 @@
 // wgmma descriptor of such a tile: start address >> 4, leading byte offset 1
 // (unused for a swizzled K-major operand), stride byte offset 1024 (between
 // 8-row atoms), layout 128B. Step K by 16 elements: start address + 32 bytes.
+//
+// An MN-major (transposed) B tile of N = 64 bf16: rows of K, each 128 bytes
+// of N, swizzled as above (sw128_offset), starting on a 1024-byte boundary.
+// The same descriptor reads it with the transpose flag: stride byte offset
+// 1024 between 8-row groups of K, leading byte offset unused (one 64-wide
+// atom of N). Step K by 16 rows: start address + 2048 bytes.
 
 #pragma once
 
@@ -69,7 +76,34 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// --- cp.async (16 bytes, zero-filled when !valid) -----------------------------
+// box {c0 (innermost), c1, c2, c3} of the 4-D map, likewise
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the async proxy (wgmma, TMA) sees this thread's earlier shared-memory
+// stores once a barrier orders them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// byte offset of 16-byte chunk `chunk` of 128-byte row `row` in a tile laid
+// out with the 128-byte swizzle (the tile 1024-byte aligned)
+__device__ __forceinline__ uint32_t sw128_offset(int row, int chunk) {
+  return (uint32_t)(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+// --- cp.async (zero-filled when !valid) -----------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -77,8 +111,25 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                : "memory");
 }
 
+// 8 bytes through L1 (cp.async.cg takes 16 only), zero-filled when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- wgmma ---------------------------------------------------------------------
@@ -173,6 +224,28 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A bf16 in registers: warp w of
+// the warpgroup holds rows 16w..16w+15 as the mma.sync m16n8k16 A fragment
+// (a[0]: row lane/4, columns 2*(lane%4) + {0,1}; a[1]: row + 8; a[2]:
+// columns + 8; a[3]: both), as ldmatrix.x4.trans loads it from a [K][M]
+// tile; B bf16 MN-major in shared memory (the transpose flag set); f32
+// accumulators in wgmma_n16's fragment layout. scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_n64_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 template <int N>
 struct Wgmma;
 template <>
@@ -232,6 +305,26 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, uint64_t inner,
                         dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 4-D bf16 tensor [d3][d2][d1][d0] (d0 contiguous, the others at
+// strides st[0..2] elements) read in boxes of {64, box1, 1, 1} with the
+// 128-byte swizzle; reads outside the tensor (channels past d0 included)
+// give NaN, which a relu by max.bf16x2 (__hmax2) turns into 0.
+inline cudaError_t make_map_4d_nan(CUtensorMap* map, const void* base,
+                                   const uint64_t (&dims)[4], const uint64_t (&st)[3],
+                                   uint32_t box1) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t gdims[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t strides[3] = {st[0] * 2, st[1] * 2, st[2] * 2};
+  const cuuint32_t box[4] = {64, box1, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                        gdims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NAN_REQUEST_ZERO_FMA);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -21,7 +21,9 @@
 // What bounds it on the H100: the math. dgrad and wgrad each do the
 // forward conv's multiply-adds (2 x 17.7 G per 384x1248 image, 2 x 136 G
 // for a 8x320x1152 batch); the bytes are g, out, codes, z1 read and dz1
-// written (~5 bytes per conv pixel per channel).
+// written (~5 bytes per conv pixel per channel). The wgrad alone at
+// [8,320,1152,64]: 217 GFLOP, 0.22 ms at 989 TFLOP/s, against 0.18 ms for
+// its 613 MB (z1 377 MB; g, out, codes 236 MB): bound by operations.
 //
 // Design, three launches:
 //  1. dgrad: the forward kernel's implicit GEMM (stage1_mma.cuh) with the
@@ -29,18 +31,34 @@
 //     (M = conv pixels, N = Cin, K = 9*Cout). The staged input tile is dz2,
 //     built in shared memory from g, out and codes, halo zero; the epilogue
 //     applies relu'(z1) and stores bf16.
-//  2. wgrad: per tap row dy (gridDim.y = 3), a GEMM with M = Cout, N = 3*Cin
-//     (the three dx taps), K = conv pixels. Each block stages a 4 x 32 tile
-//     of dz2 and the (4+2) x (32+2) tile of relu(z1), feeds both to mma.sync
-//     through transposing ldmatrix loads (the shifted input is a shifted row
-//     address), and keeps its partial sums in registers over all the tiles
-//     it walks. It writes its f32 partial once; blocks with dy == 0 also sum
-//     dz2 into partial db2 (the same pixels, so the same total as gr).
+//  2. wgrad on wgmma, in the TPU kernel's form dM[dy][dx] += y_shifted^T @
+//     dz (stage1.py:389-392): M = Cin, N = Cout, K = conv pixels. A
+//     persistent block of 512 threads walks tiles of 4 x 64 conv pixels and
+//     stages each ONCE for all nine taps, in a ring of two stages. A
+//     producer warpgroup loads the (4+2) x (64+2) relu(z1) input by TMA, one
+//     box per row (NaN outside the image and past C, which relu by
+//     max.bf16x2 makes 0, with or without b1; rows -1 and H from the halo
+//     rows' maps in halo mode), and builds dz2 from g, out and codes, which
+//     it copies by cp.async a tile ahead (each pooled element read once and
+//     written to its window's four pixels; db2 summed as it goes); it gives
+//     its registers to the consumers (setmaxnreg). A stage's z1 half is
+//     released after the consumers' last ldmatrix of it and its dz2 half
+//     after their last products from it, so the next tile's TMA starts a
+//     tile early. Consumer warpgroup dy keeps the three dx accumulators
+//     (64 x 64 f32 each) over all its tiles and per k16 step issues three
+//     m64n64k16 products. The dx shift moves the pixels by one, which no
+//     shared-memory descriptor can start at (8-row core matrices), so A =
+//     relu(z1)^T comes from registers, loaded by ldmatrix.trans at any
+//     pixel (bias and relu applied there); B = dz2 is read by descriptor,
+//     MN-major ([pixel][co], the transpose flag), at aligned K. Both tiles
+//     use 128-byte rows with the 128-byte swizzle (conflict-free ldmatrix),
+//     so C < 64 (test widths only) pads M with zero A registers and N with
+//     zero channels: one tile layout and one product form (m64n64k16 with
+//     A in registers, hopper.cuh) for every width. Each block writes its
+//     f32 partial dk2^T [tap][ci][co] and db2 once.
 //  3. a sum over the partials in a fixed order, one thread per output
 //     element. No float atomics: two runs are bit-identical, as the TPU's
 //     per-row-block partials are (stage1.py:559-562).
-// Simple first; the dz2 tile is rebuilt from global memory per tile (each
-// pooled element is read by four conv pixels, from L1/L2).
 //
 // Halo mode (kernel 1c; the same _bwd_kernel with spmd=True, via _bwd_cp
 // :652): this rank holds conv rows [0, H) of an image split by rows. z1
@@ -64,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "stage1_mma.cuh"
 
 namespace {
@@ -120,21 +139,6 @@ __device__ __forceinline__ float2 biased2(const __nv_bfloat16* __restrict__ z,
   __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(z);
   if constexpr (kHalo) v = __hadd2(v, *reinterpret_cast<const __nv_bfloat162*>(b1));
   return __bfloat1622float2(v);
-}
-
-// relu(z1 (+ b1 in halo mode)) of 8 channels
-template <bool kHalo>
-__device__ __forceinline__ uint4 relu8(uint4 v, const __nv_bfloat16* __restrict__ b1) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-  uint4 bv;
-  if constexpr (kHalo) bv = *reinterpret_cast<const uint4*>(b1);
-  const __nv_bfloat162* bh = reinterpret_cast<const __nv_bfloat162*>(&bv);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    if constexpr (kHalo) h[k] = __hadd2(h[k], bh[k]);
-    h[k] = __hmax2(h[k], __float2bfloat162_rn(0.f));
-  }
-  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -244,150 +248,261 @@ stage1_dgrad_kernel(const Pooled P,                          // [N][H/2][W/2][C]
 // 2. wgrad (+ db2)
 // ---------------------------------------------------------------------------
 
-constexpr int kWRows = 4;                 // conv rows per wgrad tile
-constexpr int kWCols = 32;                // conv columns per wgrad tile
-constexpr int kWPix = kWRows * kWCols;    // K per tile (multiple of 16)
+constexpr int kWRows = 4;                         // conv rows per wgrad tile
+constexpr int kWCols = 64;                        // conv columns per wgrad tile
+constexpr int kWPix = kWRows * kWCols;            // K per tile: 16 k16 steps
+constexpr int kWYRows = kWRows + 2;               // relu(z1) rows, halo incl.
+constexpr int kWYCols = kWCols + 2;               // relu(z1) columns, halo incl.
+constexpr int kWStages = 2;
+constexpr int kWConsumers = 384;                  // warpgroups 0-2: tap row dy
+constexpr int kWProducers = 128;                  // warpgroup 3
+constexpr int kWThreads = kWConsumers + kWProducers;
+constexpr int kWDzBytes = kWPix * 128;            // dz2 [pixel][64 co], 128-byte rows
+// relu(z1) input [row][pixel][64 ci]: each row one TMA box of kWYCols
+// pixels, padded to a 1024-byte boundary (the swizzle's period)
+constexpr int kWYRowBytes = (kWYCols * 128 + 1023) / 1024 * 1024;
+constexpr int kWYBytes = kWYRows * kWYRowBytes;
+// the producer's staging of g, out (16 bytes) and codes (8) of the pooled
+// chunks it routes: up to 4 per thread, slot [buffer][j][thread], two
+// buffers (the next tile's are in flight while this one's dz2 is built)
+constexpr int kWSlots = 4;
+constexpr int kWSlotRow = kWSlots * kWProducers;
+constexpr int kWPoolBytes = 2 * kWSlotRow * (16 + 16 + 8);
+constexpr size_t kWSmem = 1024 + (size_t)kWStages * (kWDzBytes + kWYBytes) + kWPoolBytes +
+                          kWProducers * 8 * sizeof(float) + 3 * kWStages * 8;
+// registers a thread: 128 at launch (512 threads), then the producer gives
+// 72 of them to the consumers' three 64 x 64 f32 accumulators
+constexpr int kWProducerRegs = 56, kWConsumerRegs = 152;
+static_assert(kWProducers * kWProducerRegs + kWConsumers * kWConsumerRegs <= 65536,
+              "the register file");
 
-template <int C>
-struct Wgrad {
-  static constexpr int MT = C / 16;            // m16 tiles of Cout
-  static constexpr int kWarps = 2 * MT;        // per m16 tile, two halves of N
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int NT = 3 * C / 8;         // n8 tiles per tap row (dx, ci)
-  static constexpr int NTW = NT / 2;           // n8 tiles per warp
-  static constexpr int RS = row_stride(C);
-  static constexpr size_t kSmem =
-      ((size_t)kWPix * RS + (size_t)(kWRows + 2) * (kWCols + 2) * RS) *
-          sizeof(__nv_bfloat16) +
-      (size_t)kThreads * 8 * sizeof(float);
-};
-
+// tz1 maps z1 [N][H][W][C], ttop / tbot the halo rows [N][1][W][C] (halo
+// mode), each in boxes of one row of kWYCols pixels x 64 channels
 template <int C, bool kHalo>
-__global__ void __launch_bounds__(Wgrad<C>::kThreads)
+__global__ void __launch_bounds__(kWThreads, 1)
 stage1_wgrad_kernel(const Pooled P,
-                    const __nv_bfloat16* __restrict__ z1,
-                    const __nv_bfloat16* __restrict__ ztop,  // [N][1][W][C] halo mode
-                    const __nv_bfloat16* __restrict__ zbot,  // [N][1][W][C] halo mode
+                    const __grid_constant__ CUtensorMap tz1,
+                    const __grid_constant__ CUtensorMap ttop,
+                    const __grid_constant__ CUtensorMap tbot,
                     const __nv_bfloat16* __restrict__ b1,    // [C] halo mode
-                    float* __restrict__ dk_part,   // [parts][3 dy][C co][3 dx][C ci]
-                    float* __restrict__ db_part,   // [parts][C]
+                    float* __restrict__ dk_part,   // [gridDim.x][9 taps][C ci][C co]
+                    float* __restrict__ db_part,   // [gridDim.x][C]
                     int n_img, int H, int W) {
-  using Cfg = Wgrad<C>;
-  constexpr int RS = Cfg::RS;
   constexpr int CH = C / 8;
-  constexpr int NTW = Cfg::NTW;
-  constexpr int YC = kWCols + 2;
-  static_assert(Cfg::kThreads % CH == 0, "a thread stages one channel chunk");
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* dzt = reinterpret_cast<__nv_bfloat16*>(smem);  // [kWPix][RS]
-  __nv_bfloat16* yt = dzt + kWPix * RS;                         // [6][34][RS]
-  float* red = reinterpret_cast<float*>(yt + (kWRows + 2) * YC * RS);  // [threads][8]
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* dzs = smem;                                  // [stages][kWDzBytes]
+  unsigned char* ys = smem + kWStages * kWDzBytes;            // [stages][kWYBytes]
+  uint4* stg_g = reinterpret_cast<uint4*>(ys + kWStages * kWYBytes);  // [2][slots][producers]
+  uint4* stg_out = stg_g + 2 * kWSlotRow;
+  uint2* stg_codes = reinterpret_cast<uint2*>(stg_out + 2 * kWSlotRow);
+  float* red = reinterpret_cast<float*>(stg_codes + 2 * kWSlotRow);  // [producers][8]
+  // per stage: full (z1 landed and dz2 built), and the consumers' release of
+  // its z1 tile (after their last ldmatrix of it) and of its dz2 tile (after
+  // their last products from it), so the next z1 copies start a tile early
+  const uint32_t full = hopper::smem_u32(red + kWProducers * 8);
+  const uint32_t empty_y = full + 8 * kWStages, empty_dz = empty_y + 8 * kWStages;
 
-  const int dyt = blockIdx.y;                  // tap row of this block
   const int Ho = H / 2, Wo = W / 2;
   const int tiles_x = (W + kWCols - 1) / kWCols;
   const int tiles_y = (H + kWRows - 1) / kWRows;
   const int n_tiles = n_img * tiles_y * tiles_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int mt = warp % Cfg::MT;               // Cout rows mt*16..+16
-  const int nh = warp / Cfg::MT;               // n8 tiles nh*NTW..+NTW
-  const int mat = lane >> 3, r8 = lane & 7;
+  // the dz2 stages zero once: the channels from C to 64 stay zero (the
+  // relu(z1) stages are written whole by every tile's TMA)
+  for (int i = threadIdx.x; i < kWStages * kWDzBytes / 16; i += kWThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  hopper::fence_proxy_async();  // wgmma reads those zeros
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1 + kWProducers);  // z1 landed, dz2 built
+      hopper::mbar_init(empty_y + 8 * s, kWConsumers);
+      hopper::mbar_init(empty_dz + 8 * s, kWConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  // per lane, the (dx, ci) of the B rows it addresses for tile pair i
-  float acc[NTW][4];
-#pragma unroll
-  for (int i = 0; i < NTW; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  float dbacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y;
-    const int n = t / (tiles_x * tiles_y);
-    const int r0 = ty * kWRows, c0 = tx * kWCols;
-
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kWPix * CH; i += Cfg::kThreads) {
-      const int ch = i % CH, p = i / CH;
-      const int y = r0 + p / kWCols, x = c0 + p % kWCols;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (y < H && x < W) {
-        v = routed_grad(P, n, y, x, Ho, Wo, C, ch * 8);
-        if (dyt == 0) {
-          const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-          for (int k = 0; k < 8; ++k) dbacc[k] += __bfloat162float(h[k]);
+  if (warp >= kWConsumers / 32) {
+    // producer: one thread loads each tile's relu(z1) input by TMA (NaN
+    // outside the image, which relu makes 0 with or without b1; it lands on
+    // the tile's barrier by itself), all build its dz2 from g, out and codes
+    // staged one tile ahead
+    hopper::setmaxnreg_dec<kWProducerRegs>();
+    const int pt = threadIdx.x - kWConsumers;
+    constexpr int kGroups = kWProducers / CH;  // threads per 16-byte channel chunk
+    static_assert((kWPix / 4 + kGroups - 1) / kGroups <= kWSlots, "staging slots");
+    const int ch = pt % CH, pg = pt / CH;      // this thread's chunk of dz2
+    // g, out, codes of this thread's pooled chunks of tile t (zero past the
+    // image) into staging buffer `buf`
+    auto stage_pooled = [&](int t, int buf) {
+      const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y;
+      const int n = t / (tiles_x * tiles_y);
+      for (int j = 0, pp = pg; j < kWSlots && pg < kGroups && pp < kWPix / 4;
+           ++j, pp += kGroups) {
+        const int py = ty * (kWRows / 2) + pp / (kWCols / 2);
+        const int px = tx * (kWCols / 2) + pp % (kWCols / 2);
+        const bool in = py < Ho && px < Wo;
+        const size_t o = in ? (((size_t)n * Ho + py) * Wo + px) * C + ch * 8 : 0;
+        const int slot = buf * kWSlotRow + j * kWProducers + pt;
+        hopper::cp_async16(stg_g + slot, P.g + o, in);
+        hopper::cp_async16(stg_out + slot, P.out + o, in);
+        hopper::cp_async8(stg_codes + slot, P.codes + o, in);
+      }
+    };
+    float dbacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (blockIdx.x < n_tiles) stage_pooled(blockIdx.x, 0);
+    hopper::cp_async_commit();
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+      const int s = it % kWStages;
+      hopper::mbar_wait(empty_y + 8 * s, ((it / kWStages) & 1) ^ 1);
+      const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y;
+      const int n = t / (tiles_x * tiles_y);
+      const int r0 = ty * kWRows, c0 = tx * kWCols;
+      if (pt == 0) {  // rows r0-1 .. r0+kWRows, columns c0-1 .. c0+kWCols
+        hopper::mbar_expect_tx(full + 8 * s, kWYRows * kWYCols * 128);
+        const uint32_t y = hopper::smem_u32(ys + s * kWYBytes);
+        for (int tr = 0; tr < kWYRows; ++tr) {
+          const int yy = r0 - 1 + tr;
+          const uint32_t dst = y + tr * kWYRowBytes;
+          if (kHalo && yy == -1) hopper::tma_load_4d(dst, &ttop, full + 8 * s, 0, c0 - 1, 0, n);
+          else if (kHalo && yy == H) hopper::tma_load_4d(dst, &tbot, full + 8 * s, 0, c0 - 1, 0, n);
+          else hopper::tma_load_4d(dst, &tz1, full + 8 * s, 0, c0 - 1, yy, n);
         }
       }
-      *reinterpret_cast<uint4*>(dzt + p * RS + ch * 8) = v;
-    }
-    for (int i = threadIdx.x; i < (kWRows + 2) * YC * CH; i += Cfg::kThreads) {
-      const int ch = i % CH, p = i / CH;
-      const int y = r0 - 1 + p / YC, x = c0 - 1 + p % YC;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      const __nv_bfloat16* src = nullptr;
-      if (x >= 0 && x < W) {
-        if (y >= 0 && y < H) src = z1 + (((size_t)n * H + y) * W + x) * C;
-        else if (kHalo && y == -1) src = ztop + ((size_t)n * W + x) * C;
-        else if (kHalo && y == H) src = zbot + ((size_t)n * W + x) * C;
-      }
-      if (src) v = relu8<kHalo>(*reinterpret_cast<const uint4*>(src + ch * 8), b1 + ch * 8);
-      *reinterpret_cast<uint4*>(yt + p * RS + ch * 8) = v;
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int kb = 0; kb < kWPix / 16; ++kb) {
-      const int r = kb / (kWCols / 16), cb = (kb % (kWCols / 16)) * 16;
-      // A = dz2^T: rows m = Cout, k = pixels. Matrix mat covers
-      // m + 8*(mat&1), k + 8*(mat>>1); stored [pixel][co], so transposed.
-      uint32_t a[4];
-      ldsm_x4_t(a, dzt + (r * kWCols + cb + 8 * (mat >> 1) + r8) * RS +
-                       mt * 16 + 8 * (mat & 1));
-      // B = relu(z1) shifted by the tap: rows k = pixels, n = Cin; matrix
-      // mat covers k + 8*(mat&1) of n8 tile (mat>>1) of the pair
+      if (t + (int)gridDim.x < n_tiles) stage_pooled(t + gridDim.x, (it + 1) & 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait_group<1>();  // this tile's g, out, codes have landed
+      hopper::mbar_wait(empty_dz + 8 * s, ((it / kWStages) & 1) ^ 1);
+      // dz2 from the tile's 2 x 32 pooled pixels: gr = out > 0 ? g : 0 to
+      // the one conv pixel of its window that its code names, 0 to the
+      // other three; db2 sums gr
+      unsigned char* dz = dzs + s * kWDzBytes;
+      for (int j = 0, pp = pg; j < kWSlots && pg < kGroups && pp < kWPix / 4;
+           ++j, pp += kGroups) {
+        const int pr = pp / (kWCols / 2), pc = pp % (kWCols / 2);
+        const int slot = (it & 1) * kWSlotRow + j * kWProducers + pt;
+        uint4 gv = stg_g[slot];
+        const uint4 ov = stg_out[slot];
+        const uint2 cv = stg_codes[slot];
+        uint16_t* gh = reinterpret_cast<uint16_t*>(&gv);
+        const __nv_bfloat16* oh = reinterpret_cast<const __nv_bfloat16*>(&ov);
+        const uint8_t* cb = reinterpret_cast<const uint8_t*>(&cv);
 #pragma unroll
-      for (int i = 0; i + 1 < NTW; i += 2) {
-        const int nt = nh * NTW + i + (mat >> 1);
-        const int dx = nt / (C / 8), ci0 = (nt % (C / 8)) * 8;
-        uint32_t b[4];
-        ldsm_x4_t(b, yt + ((r + dyt) * YC + cb + 8 * (mat & 1) + r8 + dx) * RS + ci0);
-        mma_bf16(acc[i], a, b[0], b[1]);
-        mma_bf16(acc[i + 1], a, b[2], b[3]);
+        for (int k = 0; k < 8; ++k) {
+          if (!(__bfloat162float(oh[k]) > 0.f)) gh[k] = 0;
+          dbacc[k] += __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(gh)[k]);
+        }
+#pragma unroll
+        for (int pos = 0; pos < 4; ++pos) {
+          uint4 v;
+          uint16_t* vh = reinterpret_cast<uint16_t*>(&v);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) vh[k] = cb[k] == pos ? gh[k] : (uint16_t)0;
+          const int p = (2 * pr + (pos >> 1)) * kWCols + 2 * pc + (pos & 1);
+          *reinterpret_cast<uint4*>(dz + hopper::sw128_offset(p, ch)) = v;
+        }
       }
-      if constexpr (NTW % 2) {
-        const int nt = nh * NTW + NTW - 1;
-        const int dx = nt / (C / 8), ci0 = (nt % (C / 8)) * 8;
-        uint32_t b0, b1;
-        ldsm_x2_t(b0, b1, yt + ((r + dyt) * YC + cb + 8 * (mat & 1) + r8 + dx) * RS + ci0);
-        mma_bf16(acc[NTW - 1], a, b0, b1);
-      }
+      hopper::fence_proxy_async();  // the dz2 stores, for wgmma's reads
+      hopper::mbar_arrive(full + 8 * s);
     }
+    // the block's db2 partial: the kGroups threads of each chunk, in order
+#pragma unroll
+    for (int k = 0; k < 8; ++k) red[pt * 8 + k] = dbacc[k];
+    hopper::bar_sync(1, kWProducers);
+    for (int c = pt; c < C; c += kWProducers) {
+      float sum = 0.f;
+      for (int g = 0; g < kGroups; ++g) sum += red[(g * CH + c / 8) * 8 + c % 8];
+      db_part[(size_t)blockIdx.x * C + c] = sum;
+    }
+    return;
   }
 
-  // the block's partial: fragment rows co = mt*16 + lane/4 (+8), columns
-  // ci = ci0 + 2*(lane%4) + {0,1}
-  float* part = dk_part + ((size_t)blockIdx.x * 3 + dyt) * C * 3 * C;
-#pragma unroll
-  for (int i = 0; i < NTW; ++i) {
-    const int nt = nh * NTW + i;
-    const int dx = nt / (C / 8), ci = (nt % (C / 8)) * 8 + 2 * (lane & 3);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int co = mt * 16 + (lane >> 2) + 8 * h;
-      float2* dst = reinterpret_cast<float2*>(part + ((size_t)co * 3 + dx) * C + ci);
-      *dst = make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
-    }
+  // consumer warpgroup dy: dk2[dy][dx]^T [ci][co] += relu(z1)^T shifted by
+  // (dy, dx) [ci][pixel] @ dz2 [pixel][co], one accumulator per dx. A comes
+  // from registers, loaded by ldmatrix.trans at any pixel (the dx shift);
+  // M = Cin is padded to 64 with zero rows, N = Cout to 64 with zero columns
+  hopper::setmaxnreg_inc<kWConsumerRegs>();
+  const int dy = warp >> 2, wl = warp & 3;
+  const bool live = 16 * wl < C;  // this warp's rows ci = 16 wl..+16
+  const int mat = lane >> 3;
+  // this lane's ldmatrix row: input row r + dy, pixel poff + column,
+  // channel chunk `chunk` (matrix mat: ci + 8 (mat & 1), pixel + 8 (mat >> 1))
+  const int poff = 8 * (mat >> 1) + (lane & 7);
+  const int chunk = 2 * wl + (mat & 1);
+  __nv_bfloat162 bias[2] = {__float2bfloat162_rn(0.f), __float2bfloat162_rn(0.f)};
+  if (kHalo && live) {  // b1 of the fragment rows ci = 16 wl + lane/4 (+8)
+    bias[0] = __bfloat162bfloat162(b1[16 * wl + (lane >> 2)]);
+    bias[1] = __bfloat162bfloat162(b1[16 * wl + (lane >> 2) + 8]);
   }
-  if (dyt == 0) {  // db2: thread t summed channels 8*(t % CH)..+8
+  const __nv_bfloat162 zero = __float2bfloat162_rn(0.f);
+  float acc[3][32];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) red[threadIdx.x * 8 + k] = dbacc[k];
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += Cfg::kThreads) {
-      float s = 0.f;
-      for (int th = c / 8; th < Cfg::kThreads; th += CH) s += red[th * 8 + c % 8];
-      db_part[(size_t)blockIdx.x * C + c] = s;
+  for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[dx][r] = 0.f;
+
+  int it = 0, prev = -1;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    const int s = it % kWStages;
+    hopper::mbar_wait(full + 8 * s, (it / kWStages) & 1);
+    const unsigned char* y = ys + s * kWYBytes + dy * kWYRowBytes;
+    const uint32_t dz = hopper::smem_u32(dzs + s * kWDzBytes);
+#pragma unroll
+    for (int kk = 0; kk < kWPix / 16; ++kk) {
+      const int row = kk / (kWCols / 16), col = kk % (kWCols / 16) * 16;
+      uint32_t a[3][4];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        if (live) {
+          ldsm_x4_t(a[dx], y + row * kWYRowBytes +
+                               hopper::sw128_offset(poff + col + dx, chunk));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&a[dx][i]);
+            if constexpr (kHalo) v = __hadd2(v, bias[i & 1]);
+            v = __hmax2(v, zero);
+            a[dx][i] = *reinterpret_cast<uint32_t*>(&v);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[dx][i] = 0u;
+        }
+      }
+      if (kk == kWPix / 16 - 1) hopper::mbar_arrive(empty_y + 8 * s);  // z1 read
+      hopper::wgmma_fence();
+      const uint64_t db = hopper::desc_sw128(dz + kk * 2048);
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) hopper::wgmma_n64_rs_tb(acc[dx], a[dx], db, 1);
+      hopper::wgmma_commit();
+      // the last step's products are done: its A registers are free, and
+      // at a tile's first step the previous tile's dz2 is no longer read
+      hopper::wgmma_wait<1>();
+      if (kk == 0 && prev >= 0) hopper::mbar_arrive(empty_dz + 8 * prev);
+    }
+    prev = s;
+  }
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) hopper::fence_regs(acc[dx]);
+
+  // the block's partial from the fragments: register r holds ci = 16 wl +
+  // lane/4 + 8 ((r/2) % 2), co = 8 (r/4) + 2 (lane % 4) + r % 2
+  if (!live) return;
+  float* part = dk_part + (size_t)blockIdx.x * 9 * C * C;
+#pragma unroll
+  for (int dx = 0; dx < 3; ++dx) {
+    const int tap = 3 * dy + dx;
+#pragma unroll
+    for (int r = 0; r < 32; r += 2) {
+      const int ci = 16 * wl + (lane >> 2) + 8 * ((r >> 1) & 1);
+      const int co = 8 * (r >> 2) + 2 * (lane & 3);
+      if (co < C)
+        *reinterpret_cast<float2*>(part + ((size_t)tap * C + ci) * C + co) =
+            make_float2(acc[dx][r], acc[dx][r + 1]);
     }
   }
 }
@@ -396,6 +511,7 @@ stage1_wgrad_kernel(const Pooled P,
 // 3. the fixed-order sum of the partials
 // ---------------------------------------------------------------------------
 
+// one thread per element, in the partials' order (coalesced reads)
 __global__ void stage1_wgrad_sum_kernel(const float* __restrict__ dk_part,
                                         const float* __restrict__ db_part,
                                         const float* __restrict__ db1_part,
@@ -405,12 +521,11 @@ __global__ void stage1_wgrad_sum_kernel(const float* __restrict__ dk_part,
                                         int parts, int dparts, int C) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int nk = 9 * C * C;
-  if (e < nk) {
-    const int ci = e % C, dx = (e / C) % 3, dy = (e / (3 * C)) % 3, co = e / (9 * C);
-    const size_t src = (((size_t)dy * C + co) * 3 + dx) * C + ci;
+  if (e < nk) {  // e = (tap * C + ci) * C + co
+    const int co = e % C, ci = (e / C) % C, tap = e / (C * C);
     float s = 0.f;
-    for (int p = 0; p < parts; ++p) s += dk_part[(size_t)p * nk + src];
-    dk2[e] = s;
+    for (int p = 0; p < parts; ++p) s += dk_part[(size_t)p * nk + e];
+    dk2[((size_t)co * 9 + tap) * C + ci] = s;
   } else if (e < nk + C) {
     const int c = e - nk;
     float s = 0.f;
@@ -425,26 +540,19 @@ __global__ void stage1_wgrad_sum_kernel(const float* __restrict__ dk_part,
 }
 
 template <int C>
-long long wgrad_tiles(int n, int h, int w) {
-  return (long long)n * ((h + kWRows - 1) / kWRows) * ((w + kWCols - 1) / kWCols);
-}
-
-template <int C>
 cudaError_t wgrad_parts(int n, int h, int w, int* parts) {
-  const size_t smem = Wgrad<C>::kSmem;
   // the halo instance has the same resources; the plain one sets the count
   cudaError_t err = cudaFuncSetAttribute(stage1_wgrad_kernel<C, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)kWSmem);
   if (err != cudaSuccess) return err;
-  const long long tiles = wgrad_tiles<C>(n, h, w);
+  const long long tiles =
+      (long long)n * ((h + kWRows - 1) / kWRows) * ((w + kWCols - 1) / kWCols);
   int grid = 0;
-  // the three tap rows share the card: a third of the resident blocks each
-  if ((err = persistent_grid(stage1_wgrad_kernel<C, false>, Wgrad<C>::kThreads, smem,
-                             tiles * 3, &grid)) != cudaSuccess)
+  if ((err = persistent_grid(stage1_wgrad_kernel<C, false>, kWThreads, kWSmem, tiles,
+                             &grid)) != cudaSuccess)
     return err;
-  grid /= 3;
-  *parts = (int)(grid < 1 ? 1 : (tiles < grid ? tiles : grid));
+  *parts = grid < 1 ? 1 : grid;
   return cudaSuccess;
 }
 
@@ -496,14 +604,27 @@ cudaError_t launch_bwd(const BwdArgs& a, int parts, int dparts, int n, int h, in
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 2. wgrad + db2 partials
-  const size_t wsmem = Wgrad<C>::kSmem;
   auto wgrad = stage1_wgrad_kernel<C, kHalo>;
   if ((err = cudaFuncSetAttribute(wgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)wsmem)) != cudaSuccess)
+                                  (int)kWSmem)) != cudaSuccess)
     return err;
-  wgrad<<<dim3(parts, 3), Wgrad<C>::kThreads, wsmem, stream>>>(
-      a.P, zb, static_cast<const B*>(a.ztop), static_cast<const B*>(a.zbot), b1,
-      static_cast<float*>(a.dk_part), static_cast<float*>(a.db_part), n, h, w);
+  CUtensorMap tz1, ttop, tbot;
+  const uint64_t st[3] = {(uint64_t)C, (uint64_t)w * C, (uint64_t)h * w * C};
+  const uint64_t st_row[3] = {(uint64_t)C, (uint64_t)w * C, (uint64_t)w * C};
+  if ((err = hopper::make_map_4d_nan(&tz1, a.z1, {(uint64_t)C, (uint64_t)w, (uint64_t)h,
+                                                  (uint64_t)n},
+                                     st, kWYCols)) != cudaSuccess)
+    return err;
+  ttop = tbot = tz1;  // read in halo mode only
+  if (kHalo &&
+      ((err = hopper::make_map_4d_nan(&ttop, a.ztop, {(uint64_t)C, (uint64_t)w, 1, (uint64_t)n},
+                                      st_row, kWYCols)) != cudaSuccess ||
+       (err = hopper::make_map_4d_nan(&tbot, a.zbot, {(uint64_t)C, (uint64_t)w, 1, (uint64_t)n},
+                                      st_row, kWYCols)) != cudaSuccess))
+    return err;
+  wgrad<<<parts, kWThreads, kWSmem, stream>>>(
+      a.P, tz1, ttop, tbot, b1, static_cast<float*>(a.dk_part),
+      static_cast<float*>(a.db_part), n, h, w);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 3. fixed-order sum
@@ -531,7 +652,7 @@ int dispatch_bwd(const BwdArgs& a, int parts, int dparts, int n, int h, int w, i
 
 }  // namespace
 
-// The number of wgrad partials (blocks per tap row) for this shape: the
+// The number of wgrad partials (the wgrad launch's blocks) for this shape: the
 // caller allocates dk_part [parts][9*C*C] and db_part [parts][C] f32 and
 // passes the same number to seg_stage1_tail_bwd. Returns parts > 0, or the
 // negated cudaError_t.

@@ -1,0 +1,214 @@
+#!/usr/bin/env python3
+"""Kernel 1b's and 1c's backward of two checkouts of the port, timed in turns
+on one CUDA card.
+
+    python tools/stage1_bwd_ab.py --base DIR [--out chiprun_out/stage1_bwd_ab.json]
+
+``DIR`` is another checkout of the repository (for example the parent
+commit, unpacked with ``git archive``), this one is the change. At the
+training shape [8,320,1152,64] (``chip_smoke.TRAIN_SHAPE``), on seeded
+inputs, each checkout's kernels time by CUDA events (10 calls after two
+warm-ups) the 1b backward (``stage1_tail_bwd``) and the 1c backward
+(``stage1_tail_halo_bwd`` over the whole image, -inf halo rows), and by
+torch.profiler the device time of each launch of the 1b backward (dgrad,
+wgrad, sum). Each checkout runs in a process of its own (its own kernel
+build under its ``build/``), in turns base, change, change, base; a
+checkout's time is the mean of its turns. Beside them, in this
+process: the plain version of 1b (autograd through the bf16 plain forward,
+cuDNN's convs, the backward ``packed_stage1=False`` trains with), cuDNN's
+weight gradient of the same conv on the same dz2 and relu(z1) in bf16
+(``aten.convolution_backward``, output mask (False, True, False)), and the
+wgrad's bound (``chip_smoke.bound``: its 217 GFLOP over 989 TFLOP/s against
+its bytes over 3.35 TB/s). Prints a table and writes JSON. Imports nothing
+of JAX. ``launch_times`` and ``cudnn_wgrad`` are also what ``chip_smoke.py``
+reads the backward's launches and its yardstick with.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SHAPE = (8, 320, 1152, 64)
+
+
+def events_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of one ``fn()`` in ms by CUDA events around
+    ``iters`` calls back to back."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def inputs(torch):
+    """Seeded inputs at SHAPE on the card: z1 (with b1 for 1b, without for
+    1c), k2, b1, the pooled gradient g and the training forward's out and
+    codes (from the plain forward, so both checkouts route alike)."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        stage1_tail_codes_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, w, c = SHAPE
+
+    def rand(shape, scale):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+
+    z1, b1 = rand((n, h, w, c), 1.0), rand((c,), 0.5)
+    k2 = rand((c, c, 3, 3), (1.0 / (9 * c)) ** 0.5).contiguous(
+        memory_format=torch.channels_last)
+    b2, g = rand((c,), 0.1), rand((n, h // 2, w // 2, c), 1.0)
+    zb = (z1 + b1).contiguous()
+    out, codes = stage1_tail_codes_plain(zb, k2, b2)
+    return dict(z1=z1, zb=zb, b1=b1, k2=k2, b2=b2, g=g, out=out, codes=codes)
+
+
+def launch_times(by_op: dict) -> dict:
+    """Device ms of the stage1 backward's launches (``dgrad``, ``wgrad``,
+    ``sum``) from torch.profiler's ms by op name; a launch the profiler did
+    not see is missing."""
+    out = {}
+    for op, ms in by_op.items():
+        for key, name in (("dgrad", "dgrad"), ("wgrad_sum", "sum"), ("wgrad", "wgrad")):
+            if f"stage1_{key}_kernel" in op:
+                out[name] = out.get(name, 0.0) + ms
+                break
+    return out
+
+
+def worker(root: str) -> dict:
+    """The backward times of the checkout at ``root`` (ms)."""
+    sys.path[:0] = [root, os.path.join(REPO, "tools")]
+    import torch
+
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import stage1 as s1
+
+    # after the port: profile_train puts the change's checkout first on the path
+    from profile_train import profile_device
+
+    assert os.path.abspath(s1.__file__).startswith(os.path.abspath(root))
+    t = inputs(torch)
+    n, h, w, c = SHAPE
+    edge = torch.full((n, 1, w, c), float("-inf"), device="cuda", dtype=torch.bfloat16)
+    zero = torch.zeros((n, 1, w // 2, c), device="cuda", dtype=torch.bfloat16)
+    halos = s1.BwdHalos(zero, zero, zero, zero, zero.to(torch.uint8),
+                        zero.to(torch.uint8), edge, edge)
+    bwd = lambda: s1.stage1_tail_bwd(t["g"], t["out"], t["codes"], t["zb"], t["k2"])
+    halo = lambda: s1.stage1_tail_halo_bwd(t["g"], t["out"], t["codes"], t["z1"],
+                                           t["k2"], t["b1"], halos)
+    return {"1b": events_ms(torch, bwd), "1c": events_ms(torch, halo),
+            **launch_times(profile_device(torch, bwd, 10)["by_op"])}
+
+
+def library(torch) -> dict:
+    """In this process: 1b's plain version and cuDNN's weight gradient of
+    the same conv, by CUDA events."""
+    sys.path.insert(0, REPO)
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import stage1 as s1
+
+    t = inputs(torch)
+    leaves = [x.detach().clone().requires_grad_() for x in (t["zb"], t["k2"], t["b2"])]
+    ref_out = s1.stage1_tail_plain(*leaves)
+    plain = events_ms(torch, lambda: torch.autograd.grad(ref_out, leaves, t["g"],
+                                                        retain_graph=True))
+    wgrad = cudnn_wgrad(torch, t["g"], t["out"], t["codes"], t["zb"], t["k2"])
+    return {"plain_1b": plain, "cudnn_wgrad": events_ms(torch, wgrad)}
+
+
+def cudnn_wgrad(torch, g, out, codes, z1, k2):
+    """One PyTorch call computing the backward's weight gradient (cuDNN's
+    ``aten.convolution_backward``, output mask (False, True, False)) on the
+    same routed dz2 and relu(z1) in bf16, NCHW views of channels_last
+    tensors: a callable. z1 carries b1."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import _route
+
+    gr = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    dz2 = _route(gr, codes).to(torch.bfloat16).permute(0, 3, 1, 2)
+    y = torch.relu(z1).permute(0, 3, 1, 2)
+    w = k2.contiguous(memory_format=torch.channels_last)
+    return lambda: torch.ops.aten.convolution_backward(
+        dz2, y, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [False, True, False])
+
+
+def run_worker(root: str) -> dict:
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+                         cwd=root, capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(f"worker for {root} failed:\n{out.stdout[-2000:]}\n"
+                           f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--base", help="the other checkout (the parent)")
+    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "stage1_bwd_ab.json"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(args.worker)))
+        return 0
+    import torch
+
+    if not args.base:
+        ap.error("--base is required")
+    if not torch.cuda.is_available():
+        print("stage1_bwd_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from chip_smoke import bound, conv3x3_flops
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    who = ["base", "change", "change", "base"]
+    roots = {"base": os.path.abspath(args.base), "change": REPO}
+    runs = {"base": [], "change": []}
+    for w in who:
+        runs[w].append(run_worker(roots[w]))
+    lib = library(torch)
+    n, h, w, c = SHAPE
+    flops = conv3x3_flops(n, h, w, c)
+    wb = bound(2 * n * h * w * c + 5 * n * h * w * c / 4 + 4 * 9 * c * c + 4 * c, flops)
+
+    def mean(who_, key):
+        vals = [r[key] for r in runs[who_] if key in r]
+        return sum(vals) / len(vals) if vals else None
+
+    rows = {k: {who_: mean(who_, k) for who_ in ("base", "change")}
+            for k in ("1b", "1c", "dgrad", "wgrad", "sum")}
+    print(f"stage1 backward at {list(SHAPE)}, change {REPO} vs base "
+          f"{roots['base']} ({smi}); turns {' '.join(who)}; "
+          "ms (1b, 1c: CUDA events; launches: torch.profiler)")
+    for k, v in rows.items():
+        print(f"  {k}: " + ", ".join(f"{who_} {ms:.4f}" if ms is not None else
+                                      f"{who_} not measured" for who_, ms in v.items()))
+    wg = rows["wgrad"].get("change")
+    print(f"  plain 1b (autograd through cuDNN) {lib['plain_1b']:.4f}; cuDNN weight "
+          f"gradient {lib['cudnn_wgrad']:.4f}; wgrad bound {wb['bound_ms']:.4f} "
+          f"({wb['bound_by']})" + (f"; change's wgrad {flops / wg / 1e9:.1f} TFLOP/s, "
+                                   f"{100 * wb['bound_ms'] / wg:.1f} % of the bound"
+                                   if wg else ""))
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"card": smi, "turns": who, "runs": runs, "rows": rows, **lib,
+                   "wgrad_bound": wb}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
