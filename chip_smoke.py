@@ -362,7 +362,7 @@ def check_stage1_train(torch, gen) -> dict:
 
     lib = build.lib()
     for n, h, w, c in ((2, 16, 48, 64), (8, 64, 256, 64)):
-        tiles = n * -(-h // 4) * -(-w // 64)       # wgrad tiles of 4x64 pixels
+        tiles = n * -(-h // 4) * -(-w // 64)  # dgrad and wgrad tiles of 4x64 pixels
         parts = lib.seg_stage1_bwd_parts(n, h, w, c)
         for case in (tie_windows, int_case):
             z1, k2, b2 = (t.to("cuda", torch.bfloat16)
@@ -391,41 +391,53 @@ def check_stage1_train(torch, gen) -> dict:
                                          "through the Function not exact")
                 what += ", and through the autograd Function"
             log(f"stage1 {case.__name__} [{n},{h},{w},{c}] (integer, ties incl. "
-                f"c = b > a; {tiles} wgrad tiles over {parts} blocks): codes, out, "
+                f"c = b > a; {tiles} dgrad and wgrad tiles over {parts} blocks): codes, out, "
                 f"dz1, dk2, db2 exact, {what}")
-        # each wgrad block walks more tiles than its two pipeline stages
+        # each dgrad and wgrad block walks more tiles than its two stages
         if n == 8 and tiles <= 2 * parts:
-            raise AssertionError(f"the multi-tile case gives {tiles} wgrad tiles "
+            raise AssertionError(f"the multi-tile case gives {tiles} tiles "
                                  f"to {parts} blocks")
     return result
 
 
-def backward_by_launch(torch, fn, g, out, codes, z1, k2) -> dict:
-    """The device time of each launch of kernel 1b's backward ``fn`` (dgrad,
-    wgrad, sum; torch.profiler, by kernel name) and, beside the wgrad, cuDNN's
-    weight gradient of the same conv on the same dz2 and relu(z1) in bf16
-    (``aten.convolution_backward``, output mask (False, True, False)), by
-    the same device clock, with the wgrad's TFLOP/s and share of its bound."""
+def backward_by_launch(torch, fn, g, out, codes, z1, k2, what: str = "1b") -> dict:
+    """The device time of each launch of the stage1 backward ``fn`` (kernel
+    1b, or 1c as ``what``; dgrad, wgrad, sum; torch.profiler, by kernel
+    name) and, beside the dgrad and the wgrad, cuDNN's data and weight
+    gradients of the same conv on the same dz2 (and relu(z1)) in bf16
+    (``aten.convolution_backward``, output masks (True, False, False) and
+    (False, True, False); the data gradient without the relu' mask), by the
+    same device clock, with each launch's TFLOP/s and share of its bound.
+    z1 carries b1."""
     from profile_train import profile_device
-    from stage1_bwd_ab import cudnn_wgrad, launch_times
+    from stage1_bwd_ab import cudnn_dgrad, cudnn_wgrad, dgrad_work, launch_times
 
     by = launch_times(profile_device(torch, fn, 10)["by_op"])
-    lib_ms = device_ms(cudnn_wgrad(torch, g, out, codes, z1, k2))[0]
+    lib_w = device_ms(cudnn_wgrad(torch, g, out, codes, z1, k2))[0]
+    lib_d = device_ms(cudnn_dgrad(torch, g, out, codes, z1, k2))[0]
     n, h, wd, c = z1.shape
     flops = conv3x3_flops(n, h, wd, c)
-    # z1 and the pooled g, out, codes in; dk2, db2 out
+    # wgrad: z1 and the pooled g, out, codes in; dk2, db2 out
     wb = bound(2 * n * h * wd * c + 5 * n * h * wd * c / 4 + 4 * 9 * c * c + 4 * c, flops)
-    wg = by.get("wgrad")
-    if wg is None:
-        log("stage1 backward by launch: not measured (the profiler saw no kernel); "
-            f"cuDNN weight gradient {lib_ms:.4f} ms")
-        return {"wgrad_ms": None, "library_wgrad_ms": lib_ms}
-    log(f"stage1 backward at {list(z1.shape)} by launch (device ms): dgrad "
-        f"{by.get('dgrad', float('nan')):.4f}, wgrad {wg:.4f}, sum "
-        f"{by.get('sum', float('nan')):.4f}; cuDNN weight gradient {lib_ms:.4f};"
-        f" wgrad {flops / wg / 1e9:.1f} TFLOP/s, {100 * wb['bound_ms'] / wg:.1f} % of "
-        f"its bound {wb['bound_ms']:.4f} ms ({wb['bound_by']})")
-    return {"wgrad_ms": wg, "library_wgrad_ms": lib_ms}
+    db = bound(*dgrad_work(n, h, wd, c))
+    res = {"dgrad_ms": by.get("dgrad"), "library_dgrad_ms": lib_d,
+           "dgrad_bound_ms": db["bound_ms"], "wgrad_ms": by.get("wgrad"),
+           "library_wgrad_ms": lib_w}
+    if "wgrad" not in by or "dgrad" not in by:
+        log(f"stage1 backward {what} by launch: not measured (the profiler saw no "
+            f"kernel); cuDNN data gradient {lib_d:.4f} ms, weight gradient {lib_w:.4f}")
+        return res
+
+    def rate(ms, b):
+        return (f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * b['bound_ms'] / ms:.1f} % of "
+                f"its bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+
+    log(f"stage1 backward {what} at {list(z1.shape)} by launch (device ms): dgrad "
+        f"{by['dgrad']:.4f}, wgrad {by['wgrad']:.4f}, sum "
+        f"{by.get('sum', float('nan')):.4f}; cuDNN data gradient (unmasked) "
+        f"{lib_d:.4f}, weight gradient {lib_w:.4f}; dgrad {rate(by['dgrad'], db)}; "
+        f"wgrad {rate(by['wgrad'], wb)}")
+    return res
 
 
 def check_preprocess(torch, gen) -> dict:
@@ -1619,15 +1631,9 @@ def check_stage1_halo(torch, gen) -> dict:
                 f"forward 1 {(one[0] + one[3]) / 2:.4f} vs 1c {(one[1] + one[2]) / 2:.4f},"
                 f" backward 1b {(one[4] + one[7]) / 2:.4f} vs 1c "
                 f"{(one[5] + one[6]) / 2:.4f}")
-            from profile_train import profile_device
-
-            for what, fn in (("1b", lambda: stage1_tail_bwd(g, ob, cb, zb, k2)),
-                             ("1c", lambda: _halo_bwd(torch, stage1_tail_halo_bwd, g,
-                                                      out, codes, z1, k2, b1, 1))):
-                by_op = profile_device(torch, fn, 10)["by_op"]
-                log(f"backward {what} by launch (device ms): " + ", ".join(
-                    f"{k[max(k.find('stage1_'), 0):].split('(')[0]} {v:.4f}"
-                    for k, v in sorted(by_op.items(), key=lambda kv: -kv[1])[:5]))
+            halo_launch = backward_by_launch(
+                torch, lambda: _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes,
+                                         z1, k2, b1, 1), g, out, codes, zb, k2, "1c")
             nhwc = n * h * w * c
             # forward: z1 and its halo rows, b1, b2, weights in; out, codes out
             bf = bound(2 * nhwc + 4 * n * w * c + 3 * nhwc / 4 + 2 * 9 * c * c + 4 * c,
@@ -1644,7 +1650,9 @@ def check_stage1_halo(torch, gen) -> dict:
                           fwd_bound_ms=bf["bound_ms"], bwd_ms=tb["ms"],
                           bwd_plain_ms=tb["plain_ms"], bwd_bound_ms=bb["bound_ms"],
                           kernel1_fwd_ms=(one[0] + one[3]) / 2,
-                          kernel1b_bwd_ms=(one[4] + one[7]) / 2)
+                          kernel1b_bwd_ms=(one[4] + one[7]) / 2,
+                          bwd_dgrad_ms=halo_launch["dgrad_ms"],
+                          bwd_library_dgrad_ms=halo_launch["library_dgrad_ms"])
         del z1, k2, b2, b1, g, out, codes, got, want, halves, again
 
     for n, h, w, c in ((2, 16, 48, 64), (8, 64, 256, 64)):
@@ -2126,7 +2134,9 @@ def main() -> int:
              source=f"{PKG}/csrc/stage1_bwd.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:271",
              launches=total("stage1_tail_bwd"),
-             **{k: stage1_bwd[k] for k in keys + ("wgrad_ms", "library_wgrad_ms")}),
+             **{k: stage1_bwd[k] for k in keys + (
+                 "dgrad_ms", "library_dgrad_ms", "dgrad_bound_ms", "wgrad_ms",
+                 "library_wgrad_ms")}),
         dict(name="preprocess_normalize", route="cuda",
              source=f"{PKG}/csrc/preprocess.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/preprocess.py:40",
@@ -2157,7 +2167,7 @@ def main() -> int:
                       "and :652",
              launches=total("stage1_tail_halo", "stage1_tail_halo_bwd")
              + sum(grid["grid_launches"]),
-             **{k: halo[k] for k in keys}),
+             **{k: halo[k] for k in keys + ("bwd_dgrad_ms", "bwd_library_dgrad_ms")}),
     ]
 
     print(json.dumps({"kernels": kernels}))

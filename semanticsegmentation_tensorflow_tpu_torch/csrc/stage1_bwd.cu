@@ -18,19 +18,44 @@
 // f32 accumulation throughout; dz2 is zero and relu(z1) is zero outside the
 // image (the SAME halo); dz1 is written only inside it.
 //
-// What bounds it on the H100: the math. dgrad and wgrad each do the
-// forward conv's multiply-adds (2 x 17.7 G per 384x1248 image, 2 x 136 G
-// for a 8x320x1152 batch); the bytes are g, out, codes, z1 read and dz1
-// written (~5 bytes per conv pixel per channel). The wgrad alone at
-// [8,320,1152,64]: 217 GFLOP, 0.22 ms at 989 TFLOP/s, against 0.18 ms for
-// its 613 MB (z1 377 MB; g, out, codes 236 MB): bound by operations.
+// What bounds it on the H100. dgrad and wgrad each do the forward conv's
+// multiply-adds (2 x 17.7 G per 384x1248 image, 2 x 136 G for a
+// 8x320x1152 batch). At [8,320,1152,64] the wgrad reads z1 377 MB and g,
+// out, codes 236 MB: 0.18 ms at 3.35 TB/s against 0.22 ms for its 217
+// GFLOP, bound by operations. The dgrad reads the same and writes dz1 (377
+// MB): 991 MB, 0.296 ms, bound by bytes.
 //
 // Design, three launches:
-//  1. dgrad: the forward kernel's implicit GEMM (stage1_mma.cuh) with the
-//     flipped, transposed kernel wt[ci][dy][dx][co] = k2[co][ci][2-dy][2-dx]
-//     (M = conv pixels, N = Cin, K = 9*Cout). The staged input tile is dz2,
-//     built in shared memory from g, out and codes, halo zero; the epilogue
-//     applies relu'(z1) and stores bf16.
+//  1. dgrad on wgmma (the SAME conv of dz2 with the flipped kernel
+//     wt[ty][tx][co][ci] = k2[co][ci][2-ty][2-tx]): M = conv pixels, N =
+//     Cin, K = 9 taps x Cout. A persistent block of 512 threads walks tiles
+//     of 4 x 64 output pixels. Two producer warpgroups build each tile's
+//     dz2, (4+2) x (64+2) pixels with its halo, into a ring of two stages
+//     from g, out and codes (each pooled chunk read once and written to the
+//     pixels of its window in the stage; codes compared four bytes at a
+//     time). Each thread's chunk j comes by cp.async as a commit group of
+//     its own, and the next tile's copy of that slot is issued as soon as
+//     the slot is read, so every copy has about a tile's build to land (with
+//     one producer warpgroup, or copies issued after a whole build, the
+//     producer set the launch's time). Two consumer warpgroups own two
+//     output rows each. A = dz2 [pixel][co] comes from registers by ldmatrix
+//     at any pixel (the dx shift, which no descriptor can start at), and
+//     each fragment of a dz2 row feeds the products of both output rows it
+//     is a tap row of: 6 m64n64k16 products per 4 ldmatrix.x4. B = the
+//     weights, staged once per block as [tap][co][ci] with 128-byte
+//     swizzled rows, MN-major. A stage is released after the consumers'
+//     last ldmatrix of it, so the producers refill it while the products
+//     run. The epilogue needs no shared memory: the weights' ci columns are
+//     permuted so that lane q of each quad accumulates the 16 contiguous
+//     channels 16q..16q+15 of its pixel, and z1 (loaded before the
+//     products) and dz1 go as two 16-byte accesses a pixel. C < 64 (test
+//     widths) pads N with zero weight columns and runs C/16 k16 steps a
+//     tap. Shared memory: weights 9 x 64 x 128 B = 73,728 B; dz2 2 stages x
+//     6 x 66 x 128 B = 101,376 B; the producers' staging 5 slots x 256
+//     threads x 40 B = 51,200 B; 1,024 B of alignment and the barriers:
+//     227,360 of the 232,448 a block may use. A third stage (50,688 B) or a
+//     z1 tile (32,768 B) does not fit beside the staging, so z1 comes into
+//     registers and the ring has two stages.
 //  2. wgrad on wgmma, in the TPU kernel's form dM[dy][dx] += y_shifted^T @
 //     dz (stage1.py:389-392): M = Cin, N = Cout, K = conv pixels. A
 //     persistent block of 512 threads walks tiles of 4 x 64 conv pixels and
@@ -101,145 +126,339 @@ struct Pooled {
   const uint8_t* cb;
 };
 
-// dz2 for one conv pixel (y, x) and 8 channels from ch8: the pooled gradient
-// where the code selects this pixel and out > 0. y in [0, H), or -1 / H
-// (the halo rows) in halo mode.
-__device__ __forceinline__ uint4 routed_grad(const Pooled& P, int n, int y, int x,
-                                             int Ho, int Wo, int C, int ch8) {
-  const __nv_bfloat16 *g = P.g, *out = P.out;
-  const uint8_t* codes = P.codes;
-  size_t o;
-  if (y < 0 || y >= 2 * Ho) {
-    if (y < 0) g = P.gt, out = P.ot, codes = P.ct;
-    else g = P.gb, out = P.ob, codes = P.cb;
-    o = ((size_t)n * Wo + (x >> 1)) * C + ch8;
-  } else {
-    o = (((size_t)n * Ho + (y >> 1)) * Wo + (x >> 1)) * C + ch8;
-  }
-  const uint4 gv = *reinterpret_cast<const uint4*>(g + o);
-  const uint4 ov = *reinterpret_cast<const uint4*>(out + o);
-  const uint2 cv = *reinterpret_cast<const uint2*>(codes + o);
-  const uint32_t sel = 2u * (y & 1) + (x & 1);  // y = -1: the window's row 1
-  const uint16_t* gh = reinterpret_cast<const uint16_t*>(&gv);
-  const __nv_bfloat16* oh = reinterpret_cast<const __nv_bfloat16*>(&ov);
-  const uint8_t* cb = reinterpret_cast<const uint8_t*>(&cv);
-  uint4 r;
-  uint16_t* rh = reinterpret_cast<uint16_t*>(&r);
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    rh[k] = (cb[k] == sel && __bfloat162float(oh[k]) > 0.f) ? gh[k] : (uint16_t)0;
-  return r;
-}
-
-// z1 + b1 in halo mode (one bf16 rounding, as the forward adds it), z1
-// otherwise; 2 channels
-template <bool kHalo>
-__device__ __forceinline__ float2 biased2(const __nv_bfloat16* __restrict__ z,
-                                          const __nv_bfloat16* __restrict__ b1) {
-  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(z);
-  if constexpr (kHalo) v = __hadd2(v, *reinterpret_cast<const __nv_bfloat162*>(b1));
-  return __bfloat1622float2(v);
-}
-
 // ---------------------------------------------------------------------------
-// 1. dgrad
+// 1. dgrad (+ db1 partials in halo mode)
 // ---------------------------------------------------------------------------
 
+constexpr int kDRows = 4;                          // output rows per dgrad tile
+constexpr int kDCols = 64;                         // output columns: one m64 product
+constexpr int kDZRows = kDRows + 2;                // dz2 rows staged, halo incl.
+constexpr int kDZCols = kDCols + 2;                // dz2 columns staged, halo incl.
+constexpr int kDStages = 2;
+constexpr int kDConsumers = 256;                   // warpgroups 0-1: rows 2 wg, 2 wg + 1
+constexpr int kDProducers = 256;                   // warpgroups 2-3
+constexpr int kDThreads = kDConsumers + kDProducers;
+constexpr int kDWBytes = 9 * 64 * 128;             // weights [tap][co][64 ci], 128-byte rows
+constexpr int kDZBytes = kDZRows * kDZCols * 128;  // dz2 [row][pixel][64 co]
+// the pooled pixels whose windows cover a stage: 4 rows x 34 columns
+constexpr int kDPoolRows = kDRows / 2 + 2;
+constexpr int kDPoolCols = kDCols / 2 + 2;
+// the producer's staging of g, out (16 bytes) and codes (8) of the pooled
+// chunks it routes, slot [j][thread]: 1088 chunks at C = 64, 5 a thread
+constexpr int kDSlots = (kDPoolRows * kDPoolCols * 8 + kDProducers - 1) / kDProducers;
+constexpr int kDSlotBytes = kDSlots * kDProducers * (16 + 16 + 8);
+constexpr size_t kDSmem =
+    1024 + kDWBytes + (size_t)kDStages * kDZBytes + kDSlotBytes + 2 * kDStages * 8;
+static_assert(kDSmem <= 232448, "shared memory a block can use");
+static_assert(kDConsumers * 16 * 4 <= kDZBytes, "db1 reduction in a dz2 stage");
+// registers a thread: 128 at launch (512 threads), then the producers give
+// 72 of them to the consumers (two 64 x 64 f32 accumulators, z1 prefetch).
+// setmaxnreg moves registers within the block's launch allocation: a
+// larger sum never completes (the consumers' increase waits forever).
+constexpr int kDLaunchRegs = 128, kDProducerRegs = 56, kDConsumerRegs = 200;
+static_assert(kDProducers * kDProducerRegs + kDConsumers * kDConsumerRegs <=
+                  kDThreads * kDLaunchRegs,
+              "the block's registers");
+
+// wt: the flipped kernel [tap = 3 ty + tx][co][ci] = k2[co][ci][2-ty][2-tx]
 template <int C, bool kHalo>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+__global__ void __launch_bounds__(kDThreads, 1)
 stage1_dgrad_kernel(const Pooled P,                          // [N][H/2][W/2][C]
                     const __nv_bfloat16* __restrict__ z1,    // [N][H][W][C]
                     const __nv_bfloat16* __restrict__ b1,    // [C] halo mode
-                    const __nv_bfloat16* __restrict__ wt,    // [Cin][3][3][Cout]
+                    const __nv_bfloat16* __restrict__ wt,    // [9][Cout][Cin]
                     __nv_bfloat16* __restrict__ dz1,         // [N][H][W][C]
                     float* __restrict__ db1_part,            // [gridDim.x][C] halo mode
                     int n_img, int H, int W) {
-  constexpr int RS = row_stride(C);
-  constexpr int NB = C / 16;
   constexpr int CH = C / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [9][C][RS]
-  __nv_bfloat16* tile = ws + weight_elems(C);                  // [6][34][RS]
-
-  stage_weights<C>(ws, wt);
+  constexpr int KS = C / 16;  // k16 steps per tap
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024u - (hopper::smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* ws = smem;                                   // [9][64 co][128 B]
+  unsigned char* dzs = smem + kDWBytes;                       // [stages][kDZBytes]
+  uint4* stg_g = reinterpret_cast<uint4*>(dzs + kDStages * kDZBytes);  // [slots][producers]
+  uint4* stg_out = stg_g + kDSlots * kDProducers;
+  uint2* stg_codes = reinterpret_cast<uint2*>(stg_out + kDSlots * kDProducers);
+  // per stage: full (dz2 built) and empty (the consumers' last ldmatrix of it)
+  const uint32_t full = hopper::smem_u32(stg_codes + kDSlots * kDProducers);
+  const uint32_t empty = full + 8 * kDStages;
 
   const int Ho = H / 2, Wo = W / 2;
-  const int tiles_x = (W + kConvCols - 1) / kConvCols;
-  const int tiles_y = (H + kConvRows - 1) / kConvRows;
+  const int tiles_x = (W + kDCols - 1) / kDCols;
+  const int tiles_y = (H + kDRows - 1) / kDRows;
   const int n_tiles = n_img * tiles_y * tiles_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int pr = warp & 1;
-  const int cs = ((warp >> 1) & 1) * 16;
-  const int nbase = (warp >> 2) * (C / 2);
-  // halo mode: this thread's sums of the dz1 it stores, channels
-  // nbase + 8j + 2*(lane%4) + {0,1}
-  float db1acc[2 * NB];
+  // the weights once per block, as the MN-major B operand: row co, 128-byte
+  // swizzled rows of 64 ci in the order that gives lane q of each quad the
+  // 16 contiguous channels 16q..16q+15 of its accumulator row: physical
+  // column n = 8 (n/8) + 2 q + e holds ci = 16 q + 2 (n/8) + e; ci >= C zero
+  for (int i = threadIdx.x; i < 9 * C * 8; i += kDThreads) {
+    const int nc = i % 8, row = i / 8;  // row = tap * C + co
+    uint32_t v[4];
 #pragma unroll
-  for (int k = 0; k < 2 * NB; ++k) db1acc[k] = 0.f;
+    for (int q = 0; q < 4; ++q) {
+      const int ci = 16 * q + 2 * nc;
+      v[q] = ci < C ? *reinterpret_cast<const uint32_t*>(wt + (size_t)row * C + ci) : 0u;
+    }
+    *reinterpret_cast<uint4*>(ws + (row / C) * 8192 + hopper::sw128_offset(row % C, nc)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  hopper::fence_proxy_async();  // wgmma reads the weights
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDStages; ++s) {
+      hopper::mbar_init(full + 8 * s, kDProducers);
+      hopper::mbar_init(empty + 8 * s, kDConsumers);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+  if (warp >= kDConsumers / 32) {
+    // producer: builds each tile's dz2 (halo incl.) from g, out and codes;
+    // each pooled chunk is read once and written to the pixels of its window
+    // that lie in the stage. Chunk j of a thread comes by cp.async into its
+    // own slot as one commit group, and the next tile's copy of that slot is
+    // issued as soon as the slot is read, so every copy has about a tile's
+    // build to land (cp.async.wait_group kDSlots - 1 before a slot is read).
+    hopper::setmaxnreg_dec<kDProducerRegs>();
+    const int pt = threadIdx.x - kDConsumers;
+    constexpr int kItems = kDPoolRows * kDPoolCols * CH;
+    static_assert(kItems <= kDSlots * kDProducers, "staging slots");
+    // the pooled window of tile t: image n, first pooled row and column
+    struct Window {
+      int n, py0, px0;
+    };
+    auto window = [&](int t) {
+      const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y;
+      return Window{t / (tiles_x * tiles_y), ty * (kDRows / 2) - 1, tx * (kDCols / 2) - 1};
+    };
+    // g, out, codes of pooled chunk j of this thread in window w into its
+    // slot (zero past the image)
+    auto copy_chunk = [&](const Window& w, int j) {
+      const int i = pt + j * kDProducers;
+      if (i >= kItems) return;
+      const int n = w.n, ch = i % CH, pp = i / CH;
+      const int py = w.py0 + pp / kDPoolCols, px = w.px0 + pp % kDPoolCols;
+      const __nv_bfloat16 *g = P.g, *out = P.out;
+      const uint8_t* cd = P.codes;
+      bool in = px >= 0 && px < Wo;
+      size_t o = 0;
+      if (py >= 0 && py < Ho) {
+        o = (((size_t)n * Ho + py) * Wo + px) * C + ch * 8;
+      } else if (kHalo && (py == -1 || py == Ho)) {  // the neighbours' pooled rows
+        if (py < 0) g = P.gt, out = P.ot, cd = P.ct;
+        else g = P.gb, out = P.ob, cd = P.cb;
+        o = ((size_t)n * Wo + px) * C + ch * 8;
+      } else {
+        in = false;
+      }
+      if (!in) o = 0, g = P.g, out = P.out, cd = P.codes;
+      const int slot = j * kDProducers + pt;
+      hopper::cp_async16(stg_g + slot, g + o, in);
+      hopper::cp_async16(stg_out + slot, out + o, in);
+      hopper::cp_async8(stg_codes + slot, cd + o, in);
+    };
+    if (blockIdx.x < n_tiles) {
+      const Window w = window(blockIdx.x);
+#pragma unroll
+      for (int j = 0; j < kDSlots; ++j) {
+        copy_chunk(w, j);
+        hopper::cp_async_commit();
+      }
+    }
+    int it = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+      const int s = it % kDStages;
+      hopper::mbar_wait(empty + 8 * s, ((it / kDStages) & 1) ^ 1);
+      const Window w = window(t);
+      const int r0 = 2 * (w.py0 + 1), c0 = 2 * (w.px0 + 1);
+      const bool more = t + (int)gridDim.x < n_tiles;
+      const Window next = window(more ? t + gridDim.x : t);
+      unsigned char* dz = dzs + s * kDZBytes;
+#pragma unroll
+      for (int j = 0; j < kDSlots; ++j) {
+        hopper::cp_async_wait_group<kDSlots - 1>();  // this slot's copy has landed
+        const int i = pt + j * kDProducers;
+        if (i < kItems) {
+          const int ch = i % CH, pp = i / CH;
+          const int py = w.py0 + pp / kDPoolCols, px = w.px0 + pp % kDPoolCols;
+          const int slot = j * kDProducers + pt;
+          uint4 gv = stg_g[slot];
+          const uint4 ov = stg_out[slot];
+          const uint2 cv = stg_codes[slot];
+          uint16_t* gh = reinterpret_cast<uint16_t*>(&gv);
+          const __nv_bfloat16* oh = reinterpret_cast<const __nv_bfloat16*>(&ov);
+#pragma unroll
+          for (int k = 0; k < 8; ++k)  // gr = out > 0 ? g : 0
+            if (!(__bfloat162float(oh[k]) > 0.f)) gh[k] = 0;
+          // the window's pixel (2 py + a, 2 px + b) at stage row y - r0 + 1,
+          // column x - c0 + 1 takes gr where the code is 2a + b; zero outside
+          // the image (rows -1 and H are the halo rows' in halo mode)
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const int y = 2 * py + a, tr = y - r0 + 1;
+            if (tr < 0 || tr >= kDZRows) continue;
+            const bool y_ok = kHalo ? (y >= -1 && y <= H) : (y >= 0 && y < H);
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const int x = 2 * px + b, tc = x - c0 + 1;
+              if (tc < 0 || tc >= kDZCols) continue;
+              // 0xFF in each byte of codes that equals 2a + b: bit 7 of a
+              // byte of ((x & 0x7F..) + 0x7F..) | x is set where the byte of
+              // x = codes ^ sel is not 0 (no carry crosses a byte)
+              const uint32_t sel = (uint32_t)(2 * a + b) * 0x01010101u;
+              const uint32_t x0 = cv.x ^ sel, x1 = cv.y ^ sel;
+              const uint32_t m0 =
+                  ((~(((x0 & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x0) & 0x80808080u) >> 7) * 0xFFu;
+              const uint32_t m1 =
+                  ((~(((x1 & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x1) & 0x80808080u) >> 7) * 0xFFu;
+              uint4 v = make_uint4(gv.x & __byte_perm(m0, 0, 0x1100),
+                                   gv.y & __byte_perm(m0, 0, 0x3322),
+                                   gv.z & __byte_perm(m1, 0, 0x1100),
+                                   gv.w & __byte_perm(m1, 0, 0x3322));
+              if (!(y_ok && x >= 0 && x < W)) v = make_uint4(0u, 0u, 0u, 0u);
+              *reinterpret_cast<uint4*>(dz + hopper::sw128_offset(tr * kDZCols + tc, ch)) = v;
+            }
+          }
+        }
+        if (more) copy_chunk(next, j);  // the slot is read: the next tile's copy
+        hopper::cp_async_commit();
+      }
+      hopper::mbar_arrive(full + 8 * s);
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: output rows r0 + 2 wg + oo (oo = 0, 1), 64 pixels
+  // each (M), all Cin (N = 64), K = 9 taps x Cout. A = dz2 [pixel][co] from
+  // registers (ldmatrix at any pixel: the dx shift), B = the weights by
+  // descriptor. Each A fragment of stage row 2 wg + tr feeds the products of
+  // both rows it is a tap row of (ty = tr - oo in 0..2): 6 per 4 ldmatrix.
+  hopper::setmaxnreg_inc<kDConsumerRegs>();
+  const int wg = warp >> 2, wl = warp & 3;
+  const int q = lane & 3, gq = lane >> 2;
+  const bool live = 16 * q < C;  // this lane's output channels 16 q..+16
+  // this lane's ldmatrix row: pixel 16 wl + (lane & 7) + 8 ((lane >> 3) & 1),
+  // channel chunk + (lane >> 4) (matrices: rows +8, then k +8)
+  const int apix = 16 * wl + (lane & 7) + 8 * ((lane >> 3) & 1), achunk = lane >> 4;
+  const uint32_t wbase = hopper::smem_u32(ws);
+  __nv_bfloat162 bias[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    bias[j] = (kHalo && live) ? *reinterpret_cast<const __nv_bfloat162*>(b1 + 16 * q + 2 * j)
+                              : __float2bfloat162_rn(0.f);
+  // halo mode: this thread's sums of the dz1 it stores, channels 16 q + k
+  float db1acc[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) db1acc[k] = 0.f;
+
+  int it = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++it) {
+    const int s = it % kDStages;
     const int tx = t % tiles_x, ty = (t / tiles_x) % tiles_y;
     const int n = t / (tiles_x * tiles_y);
-    const int r0 = ty * kConvRows, c0 = tx * kConvCols;
+    const int r0 = ty * kDRows, c0 = tx * kDCols;
+    // z1 for the relu' mask, loaded before the products: this lane's 32
+    // bytes (channels 16 q..) of pixels 16 wl + gq (+8) of its two rows
+    uint4 zv[2][2][2];
+#pragma unroll
+    for (int oo = 0; oo < 2; ++oo)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int y = r0 + 2 * wg + oo, x = c0 + 16 * wl + gq + 8 * h;
+        const bool ok = live && y < H && x < W;
+        const size_t o = ok ? (((size_t)n * H + y) * W + x) * C + 16 * q : 0;
+        const uint4* src = reinterpret_cast<const uint4*>(z1 + o);
+        const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+        zv[oo][h][0] = ok ? __ldg(src) : zero4;
+        zv[oo][h][1] = ok ? __ldg(src + 1) : zero4;
+      }
+    float acc[2][32];
+#pragma unroll
+    for (int oo = 0; oo < 2; ++oo)
+#pragma unroll
+      for (int r = 0; r < 32; ++r) acc[oo][r] = 0.f;
 
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kTileRows * kTileCols * CH; i += kThreads) {
-      const int ch = i % CH, p = i / CH;
-      const int tc = p % kTileCols, tr = p / kTileCols;
-      const int y = r0 - 1 + tr, x = c0 - 1 + tc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      const bool row_ok = kHalo ? (y >= -1 && y <= H) : (y >= 0 && y < H);
-      if (row_ok && x >= 0 && x < W) v = routed_grad(P, n, y, x, Ho, Wo, C, ch * 8);
-      *reinterpret_cast<uint4*>(tile + p * RS + ch * 8) = v;
+    hopper::mbar_wait(full + 8 * s, (it / kDStages) & 1);
+    const unsigned char* st = dzs + s * kDZBytes;
+#pragma unroll
+    for (int tx3 = 0; tx3 < 3; ++tx3) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int tr = 0; tr < 4; ++tr)
+          ldsm_x4(a[tr], st + hopper::sw128_offset((2 * wg + tr) * kDZCols + apix + tx3,
+                                                   2 * ks + achunk));
+        if (tx3 == 2 && ks == KS - 1) hopper::mbar_arrive(empty + 8 * s);  // dz2 read
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int tr = 0; tr < 4; ++tr)
+#pragma unroll
+          for (int oo = 0; oo < 2; ++oo) {
+            const int tyy = tr - oo;
+            if (tyy < 0 || tyy > 2) continue;
+            hopper::wgmma_n64_rs_tb(
+                acc[oo], a[tr],
+                hopper::desc_sw128(wbase + (3 * tyy + tx3) * 8192 + ks * 2048), 1);
+          }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous step's A registers are free
+      }
     }
-    __syncthreads();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
 
-    float acc[2][NB][4];
-    conv_tile<C>(tile, ws, acc, pr, cs, nbase, lane);
-
-    // epilogue: relu'(z1) mask, one bf16 rounding, 4-byte stores
-    const int gq = lane >> 2;
+    // epilogue: register 4 j + 2 h + e of a row holds pixel 16 wl + gq + 8 h,
+    // ci 16 q + 2 j + e: relu'(z1) mask, one bf16 rounding, 2 x 16-byte stores
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int y = r0 + 2 * pr + m;
+    for (int oo = 0; oo < 2; ++oo)
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int x = c0 + cs + gq + 8 * half;
-        if (y >= H || x >= W) continue;
+      for (int h = 0; h < 2; ++h) {
+        const int y = r0 + 2 * wg + oo, x = c0 + 16 * wl + gq + 8 * h;
+        const bool ok = live && y < H && x < W;
+        const uint32_t* zw = reinterpret_cast<const uint32_t*>(zv[oo][h]);
+        uint32_t d[8];
 #pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const int c = nbase + j * 8 + 2 * (lane & 3);
-          const size_t o = (((size_t)n * H + y) * W + x) * C + c;
-          const float2 z = biased2<kHalo>(z1 + o, b1 + c);
-          const float d0 = z.x > 0.f ? acc[m][j][2 * half] : 0.f;
-          const float d1 = z.y > 0.f ? acc[m][j][2 * half + 1] : 0.f;
-          const __nv_bfloat162 d = __floats2bfloat162_rn(d0, d1);
-          *reinterpret_cast<__nv_bfloat162*>(dz1 + o) = d;
-          if constexpr (kHalo) {
-            const float2 f = __bfloat1622float2(d);
+        for (int j = 0; j < 8; ++j) {
+          __nv_bfloat162 z = *reinterpret_cast<const __nv_bfloat162*>(&zw[j]);
+          if constexpr (kHalo) z = __hadd2(z, bias[j]);
+          const float2 zf = __bfloat1622float2(z);
+          const __nv_bfloat162 v = __floats2bfloat162_rn(
+              zf.x > 0.f ? acc[oo][4 * j + 2 * h] : 0.f,
+              zf.y > 0.f ? acc[oo][4 * j + 2 * h + 1] : 0.f);
+          d[j] = *reinterpret_cast<const uint32_t*>(&v);
+          if (kHalo && ok) {
+            const float2 f = __bfloat1622float2(v);
             db1acc[2 * j] += f.x;
             db1acc[2 * j + 1] += f.y;
           }
         }
+        if (ok) {
+          uint4* dst = reinterpret_cast<uint4*>(
+              dz1 + (((size_t)n * H + y) * W + x) * C + 16 * q);
+          dst[0] = make_uint4(d[0], d[1], d[2], d[3]);
+          dst[1] = make_uint4(d[4], d[5], d[6], d[7]);
+        }
       }
-    }
   }
   if constexpr (kHalo) {
-    // the block's db1 partial: the 32 threads of channel c (4 warps with
-    // its nbase, 8 lanes with its lane%4) summed in a fixed order
-    __syncthreads();  // the tile is no longer read: reuse it
-    float* red = reinterpret_cast<float*>(tile);  // [kThreads][2*NB]
+    // the block's db1 partial: the 64 threads of channel c (8 warps, 8 quads,
+    // lane q = c / 16) summed in a fixed order, in dz2 stage 0
+    hopper::bar_sync(1, kDConsumers);  // every consumer is past its last ldmatrix
+    float* red = reinterpret_cast<float*>(dzs);  // [consumer thread][16]
 #pragma unroll
-    for (int k = 0; k < 2 * NB; ++k) red[threadIdx.x * 2 * NB + k] = db1acc[k];
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += kThreads) {
-      const int half = c / (C / 2), j = (c % (C / 2)) / 8, q = (c % 8) / 2;
-      float s = 0.f;
-      for (int wl = 0; wl < 4; ++wl)
-        for (int g8 = 0; g8 < 8; ++g8)
-          s += red[((4 * half + wl) * 32 + 4 * g8 + q) * 2 * NB + 2 * j + (c & 1)];
-      db1_part[(size_t)blockIdx.x * C + c] = s;
+    for (int k = 0; k < 16; ++k) red[threadIdx.x * 16 + k] = db1acc[k];
+    hopper::bar_sync(1, kDConsumers);
+    for (int c = threadIdx.x; c < C; c += kDConsumers) {
+      const int qq = c / 16, k = c % 16;
+      float sum = 0.f;
+      for (int w8 = 0; w8 < kDConsumers / 32; ++w8)
+        for (int g8 = 0; g8 < 8; ++g8) sum += red[(w8 * 32 + 4 * g8 + qq) * 16 + k];
+      db1_part[(size_t)blockIdx.x * C + c] = sum;
     }
   }
 }
@@ -564,17 +783,17 @@ struct BwdArgs {
   void *dz1, *dk_part, *db_part, *db1_part, *dk2, *db2, *db1;
 };
 
-// The dgrad launch's persistent grid: the number of db1 partials.
-template <int C>
+// The dgrad launch's persistent grid (the number of db1 partials in halo
+// mode): one block per SM, at most one per tile of kDRows x kDCols pixels.
+template <int C, bool kHalo>
 cudaError_t dgrad_parts(int n, int h, int w, int* parts) {
-  const size_t smem = conv_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(stage1_dgrad_kernel<C, true>,
+  cudaError_t err = cudaFuncSetAttribute(stage1_dgrad_kernel<C, kHalo>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)kDSmem);
   if (err != cudaSuccess) return err;
-  const long long tiles = (long long)n * ((h + kConvRows - 1) / kConvRows) *
-                          ((w + kConvCols - 1) / kConvCols);
-  return persistent_grid(stage1_dgrad_kernel<C, true>, kThreads, smem, tiles, parts);
+  const long long tiles =
+      (long long)n * ((h + kDRows - 1) / kDRows) * ((w + kDCols - 1) / kDCols);
+  return persistent_grid(stage1_dgrad_kernel<C, kHalo>, kDThreads, kDSmem, tiles, parts);
 }
 
 template <int C, bool kHalo>
@@ -585,22 +804,14 @@ cudaError_t launch_bwd(const BwdArgs& a, int parts, int dparts, int n, int h, in
   const auto* b1 = static_cast<const B*>(a.b1);
   cudaError_t err;
 
-  // 1. dgrad
-  const size_t smem = conv_smem_bytes(C);
-  auto dgrad = stage1_dgrad_kernel<C, kHalo>;
-  if ((err = cudaFuncSetAttribute(dgrad, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
-    return err;
-  const long long tiles = (long long)n * ((h + kConvRows - 1) / kConvRows) *
-                          ((w + kConvCols - 1) / kConvCols);
-  int grid = dparts;  // halo mode: as many blocks as db1 partials
-  if (!kHalo &&
-      (err = persistent_grid(dgrad, kThreads, smem, tiles, &grid)) != cudaSuccess)
-    return err;
+  // 1. dgrad; in halo mode on as many blocks as the caller has db1 partials
+  int grid = 0;
+  if ((err = dgrad_parts<C, kHalo>(n, h, w, &grid)) != cudaSuccess) return err;
+  if (kHalo) grid = dparts;
   if (grid < 1) return cudaErrorInvalidValue;
-  dgrad<<<grid, kThreads, smem, stream>>>(a.P, zb, b1, static_cast<const B*>(a.wt),
-                                          static_cast<B*>(a.dz1),
-                                          static_cast<float*>(a.db1_part), n, h, w);
+  stage1_dgrad_kernel<C, kHalo><<<grid, kDThreads, kDSmem, stream>>>(
+      a.P, zb, b1, static_cast<const B*>(a.wt), static_cast<B*>(a.dz1),
+      static_cast<float*>(a.db1_part), n, h, w);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // 2. wgrad + db2 partials
@@ -677,18 +888,18 @@ extern "C" int seg_stage1_bwd_dgrad_parts(int n, int h, int w, int c) {
   int parts = 0;
   cudaError_t err;
   switch (c) {
-    case 16: err = dgrad_parts<16>(n, h, w, &parts); break;
-    case 32: err = dgrad_parts<32>(n, h, w, &parts); break;
-    case 48: err = dgrad_parts<48>(n, h, w, &parts); break;
-    case 64: err = dgrad_parts<64>(n, h, w, &parts); break;
+    case 16: err = dgrad_parts<16, true>(n, h, w, &parts); break;
+    case 32: err = dgrad_parts<32, true>(n, h, w, &parts); break;
+    case 48: err = dgrad_parts<48, true>(n, h, w, &parts); break;
+    case 64: err = dgrad_parts<64, true>(n, h, w, &parts); break;
     default: err = cudaErrorInvalidValue;
   }
   return err == cudaSuccess ? parts : -(int)err;
 }
 
 // C entry. Device pointers: g, out, codes [N][H/2][W/2][C] (bf16, bf16, u8),
-// z1 [N][H][W][C] bf16 (pre-relu, b1 added), wt = the flipped, transposed
-// conv kernel [Cin][3][3][Cout] bf16 (wt[ci][dy][dx][co] = k2[co][ci][2-dy][2-dx]),
+// z1 [N][H][W][C] bf16 (pre-relu, b1 added), wt = the flipped conv kernel
+// [3][3][Cout][Cin] bf16 (wt[ty][tx][co][ci] = k2[co][ci][2-ty][2-tx]),
 // all 16-byte aligned; outputs dz1 [N][H][W][C] bf16, dk2 [Cout][3][3][Cin]
 // f32, db2 [C] f32; scratch dk_part, db_part as seg_stage1_bwd_parts says.
 // C must be 16, 32, 48 or 64; H, W even; N >= 1. Returns a cudaError_t.

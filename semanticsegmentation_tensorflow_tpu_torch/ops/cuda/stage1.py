@@ -400,8 +400,8 @@ def _backward(g, out, codes, z1, k2, b1=None, halos: BwdHalos | None = None):
                  b1k.data_ptr()]
     else:
         ptrs.append(z1.data_ptr())
-    # dgrad is the forward conv of dz2 with wt[ci][dy][dx][co] = k2[co][ci][2-dy][2-dx]
-    wt = (k2.to(bf).flip((2, 3)).transpose(0, 1).permute(0, 2, 3, 1).contiguous())
+    # dgrad is the SAME conv of dz2 with wt[ty][tx][co][ci] = k2[co][ci][2-ty][2-tx]
+    wt = k2.to(bf).flip((2, 3)).permute(2, 3, 0, 1).contiguous()
     lib = build.lib()
     with torch.cuda.device(dev):
         parts = lib.seg_stage1_bwd_parts(n, h, w, c)

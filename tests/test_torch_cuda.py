@@ -126,15 +126,16 @@ def test_predictor_runs_both_kernels_on_card(gen):
 
 
 @pytest.mark.parametrize("shape", [(2, 12, 40, 64), (8, 64, 256, 64),
-                                   (8, 64, 200, 64)])
+                                   (8, 64, 200, 64), (8, 70, 200, 64)])
 @pytest.mark.parametrize("case", [tie_windows, int_case])
 def test_stage1_train_and_bwd_exact_with_ties_on_card(gen, case, shape):
     """Integer inputs: every sum is exact in f32, so the codes (first
     maximum in row-major window order, c = b > a included) and the kernel's
     dz1, dk2 and db2 equal the f32 plain versions bit for bit: at a shape
     where every backward block takes one tile and at ones where each walks
-    several (each wgrad block more 4 x 64 tiles than its two stages, the
-    last column of tiles ragged at W = 200). At the small shape the
+    several (each dgrad and wgrad block more 4 x 64 tiles than its two
+    stages, the last column of tiles ragged at W = 200 and, at H = 70, the
+    last row of tiles too). At the small shape the
     autograd Function also equals autograd through the plain forward."""
     z1, k2, b2 = (t.to("cuda", torch.bfloat16) for t in case(*shape, 1))
     out, codes = stage1_tail_train(z1, k2, b2)
@@ -159,13 +160,16 @@ def test_stage1_train_and_bwd_exact_with_ties_on_card(gen, case, shape):
 @pytest.mark.parametrize("shape", [(3, 12, 40, 64), (1, 6, 34, 16),
                                    (1, 8, 64, 32), (2, 10, 66, 48),
                                    (1, 8, 200, 32), (2, 14, 96, 16),
-                                   (8, 64, 200, 64)])
+                                   (8, 64, 200, 64), (8, 70, 200, 64),
+                                   (12, 38, 136, 48)])
 def test_stage1_bwd_kernel_matches_plain_on_card(gen, shape):
     """The backward kernel against its f32 plain version on the same
     (g, out, codes): the same bf16 products summed in f32 in another order,
-    at widths whose columns (W = 200) and rows (H = 14) end inside a wgrad
-    tile of 4 x 64 pixels and where each wgrad block walks more tiles than
-    its pipeline has stages ((8, 64, 200, 64): 512 tiles).
+    at widths whose columns (W = 200, 136) and rows (H = 14, 70, 38) end
+    inside a dgrad and wgrad tile of 4 x 64 pixels and where each block of
+    both launches walks more tiles than its pipeline has stages
+    ((8, 64, 200, 64): 512 tiles; (8, 70, 200, 64): 576; (12, 38, 136, 48):
+    360; at most 132 blocks).
     dz1, one bf16 rounding in both: one ulp (2^-7 |ref|) where the sums
     straddle a rounding boundary, plus the order difference near zero
     (2^-12 of the scale). dk2 and db2: f32 sums of up to N*H*W products,
@@ -473,10 +477,14 @@ def test_stage1_halo_kernel_matches_plain_on_card(gen, mode, shape):
         assert torch.equal(h_codes, codes)
 
 
-@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (1, 8, 64, 32), (8, 64, 256, 64)])
+@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (1, 8, 64, 32), (8, 64, 256, 64),
+                                   (2, 20, 66, 48), (8, 68, 200, 64)])
 def test_stage1_halo_bwd_matches_plain_on_card(gen, shape):
     """Kernel 1c's backward against its f32 plain version on the same
-    (g, out, codes), with the bounds of test_stage1_bwd_kernel_matches_plain
+    (g, out, codes), at widths whose last 4 x 64 tile is ragged (W = 66,
+    200; the halves' H = 10, 34) and where each block walks more tiles than
+    its two stages ((8, 68, 200, 64): 288 tiles a half), with the bounds of
+    test_stage1_bwd_kernel_matches_plain
     (dz1 one bf16 ulp + 2^-12 of the scale; dk2, db2, db1 1e-4 of the
     scale); as two halves with real halo rows, dz1 bit-equal to the whole
     image's and dk2, db2, db1 within 1e-4 of the scale; reruns bit-identical."""

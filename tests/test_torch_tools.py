@@ -1,6 +1,8 @@
 """tools/convert_checkpoint_to_torch.py: an orbax checkpoint written by the
 JAX package becomes a port state_dict that the port's CLIs load with
---weights, and the port's forward on it matches the JAX forward."""
+--weights, and the port's forward on it matches the JAX forward; and
+tools/stage1_bwd_ab.py's cuDNN yardstick for the backward's dgrad launch
+computes that launch's function."""
 
 import os
 import sys
@@ -23,6 +25,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 
 import convert_checkpoint_to_torch  # noqa: E402
+import stage1_bwd_ab  # noqa: E402
 
 KW = "fc_features=32,width_mult=0.25"
 
@@ -58,3 +61,36 @@ def test_missing_checkpoint_raises(tmp_path):
         convert_checkpoint_to_torch.main(
             ["--checkpoint-dir", str(tmp_path / "none"), "--model-kw", KW,
              "--out", str(tmp_path / "w.pt")])
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 12, 16), (1, 6, 10, 32)])
+def test_cudnn_dgrad_yardstick_is_the_backward_dgrad(shape):
+    """tools/stage1_bwd_ab.py's yardstick for the dgrad launch computes the
+    conv's data gradient of the same routed dz2: masked by relu'(z1) and
+    rounded once to bf16 it is dz1 of the f32 plain backward, within one
+    bf16 ulp (2^-7 |ref|, where the two sums straddle a rounding boundary)
+    plus 2^-12 of the scale (their order differs); its work counts one
+    conv's FLOPs and each tensor's bytes once."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        stage1_tail_bwd_plain, stage1_tail_codes_plain,
+    )
+
+    n, h, w, c = shape
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    z1 = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(bf)
+    k2 = torch.from_numpy(rng.standard_normal((c, c, 3, 3), np.float32)
+                          / np.sqrt(9 * c)).to(bf)
+    b2 = torch.from_numpy(rng.standard_normal(c, np.float32) / 10).to(bf)
+    g = torch.from_numpy(rng.standard_normal((n, h // 2, w // 2, c), np.float32)).to(bf)
+    out, codes = stage1_tail_codes_plain(z1, k2, b2)
+    want = stage1_tail_bwd_plain(g, out, codes, z1, k2)[0].float()
+    dx = stage1_bwd_ab.cudnn_dgrad(torch, g, out, codes, z1, k2)()[0]
+    got = torch.where(z1 > 0, dx.permute(0, 2, 3, 1).float(), 0.0).to(bf).float()
+    assert got.shape == want.shape
+    scale = want.abs().max().item()
+    assert scale > 0
+    assert bool(((got - want).abs() <= 2 ** -7 * want.abs() + 2 ** -12 * scale).all())
+    nbytes, flops = stage1_bwd_ab.dgrad_work(8, 320, 1152, 64)
+    assert flops == 2.0 * 8 * 320 * 1152 * 9 * 64 * 64
+    assert abs(nbytes - 990.9e6) < 0.1e6

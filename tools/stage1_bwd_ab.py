@@ -2,7 +2,7 @@
 """Kernel 1b's and 1c's backward of two checkouts of the port, timed in turns
 on one CUDA card.
 
-    python tools/stage1_bwd_ab.py --base DIR [--out chiprun_out/stage1_bwd_ab.json]
+    python tools/stage1_bwd_ab.py --base DIR [--steps] [--out chiprun_out/stage1_bwd_ab.json]
 
 ``DIR`` is another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``), this one is the change. At the
@@ -11,17 +11,24 @@ inputs, each checkout's kernels time by CUDA events (10 calls after two
 warm-ups) the 1b backward (``stage1_tail_bwd``) and the 1c backward
 (``stage1_tail_halo_bwd`` over the whole image, -inf halo rows), and by
 torch.profiler the device time of each launch of the 1b backward (dgrad,
-wgrad, sum). Each checkout runs in a process of its own (its own kernel
+wgrad, sum); with ``--steps`` also the FCN and SegNet preset train steps
+(``tools/profile_train.py``'s ``preset`` and ``segnet`` workloads by its
+``time_train``: host ms per step and device ms per step, 8 steps each).
+Each checkout runs in a process of its own (its own kernel
 build under its ``build/``), in turns base, change, change, base; a
 checkout's time is the mean of its turns. Beside them, in this
 process: the plain version of 1b (autograd through the bf16 plain forward,
 cuDNN's convs, the backward ``packed_stage1=False`` trains with), cuDNN's
-weight gradient of the same conv on the same dz2 and relu(z1) in bf16
-(``aten.convolution_backward``, output mask (False, True, False)), and the
-wgrad's bound (``chip_smoke.bound``: its 217 GFLOP over 989 TFLOP/s against
-its bytes over 3.35 TB/s). Prints a table and writes JSON. Imports nothing
-of JAX. ``launch_times`` and ``cudnn_wgrad`` are also what ``chip_smoke.py``
-reads the backward's launches and its yardstick with.
+weight gradient and data gradient of the same conv on the same dz2 (and
+relu(z1)) in bf16 (``aten.convolution_backward``, output mask (False, True,
+False) and (True, False, False); the data gradient without the relu' mask),
+and the bounds of the wgrad and the dgrad (``chip_smoke.bound``: the wgrad's
+217 GFLOP over 989 TFLOP/s against its 613 MB over 3.35 TB/s; the dgrad's
+991 MB, dz1 written included, against the same GFLOP). Prints a table with
+each launch's TFLOP/s and share of its bound, and writes JSON. Imports
+nothing of JAX. ``launch_times``, ``cudnn_wgrad``, ``cudnn_dgrad`` and
+``dgrad_work`` are also what ``chip_smoke.py`` reads the backward's launches,
+its yardsticks and the dgrad's bound with.
 """
 
 from __future__ import annotations
@@ -89,8 +96,9 @@ def launch_times(by_op: dict) -> dict:
     return out
 
 
-def worker(root: str) -> dict:
-    """The backward times of the checkout at ``root`` (ms)."""
+def worker(root: str, steps: bool = False) -> dict:
+    """The backward times of the checkout at ``root`` (ms); with ``steps``
+    also its preset train steps."""
     sys.path[:0] = [root, os.path.join(REPO, "tools")]
     import torch
 
@@ -109,8 +117,18 @@ def worker(root: str) -> dict:
     bwd = lambda: s1.stage1_tail_bwd(t["g"], t["out"], t["codes"], t["zb"], t["k2"])
     halo = lambda: s1.stage1_tail_halo_bwd(t["g"], t["out"], t["codes"], t["z1"],
                                            t["k2"], t["b1"], halos)
-    return {"1b": events_ms(torch, bwd), "1c": events_ms(torch, halo),
-            **launch_times(profile_device(torch, bwd, 10)["by_op"])}
+    res = {"1b": events_ms(torch, bwd), "1c": events_ms(torch, halo),
+           **launch_times(profile_device(torch, bwd, 10)["by_op"])}
+    if steps:
+        from profile_train import WORKLOADS, time_train, train_workload
+
+        del t, edge, zero, halos, bwd, halo
+        for name in ("preset", "segnet"):
+            torch.cuda.empty_cache()
+            wl = WORKLOADS[name]
+            r = time_train(torch, train_workload(torch, wl), wl["n"], iters=8)
+            res[f"{name}_host"], res[f"{name}_device"] = r["host_ms"], r["device_ms"]
+    return res
 
 
 def library(torch) -> dict:
@@ -125,7 +143,9 @@ def library(torch) -> dict:
     plain = events_ms(torch, lambda: torch.autograd.grad(ref_out, leaves, t["g"],
                                                         retain_graph=True))
     wgrad = cudnn_wgrad(torch, t["g"], t["out"], t["codes"], t["zb"], t["k2"])
-    return {"plain_1b": plain, "cudnn_wgrad": events_ms(torch, wgrad)}
+    dgrad = cudnn_dgrad(torch, t["g"], t["out"], t["codes"], t["zb"], t["k2"])
+    return {"plain_1b": plain, "cudnn_wgrad": events_ms(torch, wgrad),
+            "cudnn_dgrad": events_ms(torch, dgrad)}
 
 
 def cudnn_wgrad(torch, g, out, codes, z1, k2):
@@ -133,10 +153,7 @@ def cudnn_wgrad(torch, g, out, codes, z1, k2):
     ``aten.convolution_backward``, output mask (False, True, False)) on the
     same routed dz2 and relu(z1) in bf16, NCHW views of channels_last
     tensors: a callable. z1 carries b1."""
-    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import _route
-
-    gr = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
-    dz2 = _route(gr, codes).to(torch.bfloat16).permute(0, 3, 1, 2)
+    dz2 = _dz2_nchw(torch, g, out, codes)
     y = torch.relu(z1).permute(0, 3, 1, 2)
     w = k2.contiguous(memory_format=torch.channels_last)
     return lambda: torch.ops.aten.convolution_backward(
@@ -144,8 +161,39 @@ def cudnn_wgrad(torch, g, out, codes, z1, k2):
         [False, True, False])
 
 
-def run_worker(root: str) -> dict:
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
+def _dz2_nchw(torch, g, out, codes):
+    """The routed conv gradient dz2 in bf16, an NCHW view of NHWC."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import _route
+
+    gr = torch.where(out > 0, g, torch.zeros((), dtype=g.dtype, device=g.device))
+    return _route(gr, codes).to(torch.bfloat16).permute(0, 3, 1, 2)
+
+
+def cudnn_dgrad(torch, g, out, codes, z1, k2):
+    """One PyTorch call computing the conv's data gradient (cuDNN's
+    ``aten.convolution_backward``, output mask (True, False, False)) on the
+    same routed dz2 and k2 in bf16: a callable returning the NCHW view of
+    the unmasked dz1 first. The relu'(z1) mask is not applied (no one call
+    fuses it); z1 gives only the input's shape."""
+    dz2 = _dz2_nchw(torch, g, out, codes)
+    x = z1.permute(0, 3, 1, 2)
+    w = k2.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return lambda: torch.ops.aten.convolution_backward(
+        dz2, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+        [True, False, False])
+
+
+def dgrad_work(n: int, h: int, w: int, c: int) -> tuple[float, float]:
+    """Bytes and FLOPs of the dgrad launch at [n,h,w,c]: z1 (bf16) and the
+    pooled g, out (bf16) and codes (u8) read once, dz1 (bf16) written once,
+    the bf16 weights read; the conv's multiply-adds, 2 FLOP each."""
+    nhwc = n * h * w * c
+    return 4 * nhwc + 5 * nhwc / 4 + 2 * 9 * c * c, 2.0 * n * h * w * 9 * c * c
+
+
+def run_worker(root: str, steps: bool) -> dict:
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root]
+                         + (["--steps"] if steps else []),
                          cwd=root, capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"worker for {root} failed:\n{out.stdout[-2000:]}\n"
@@ -157,10 +205,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", help="the other checkout (the parent)")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "stage1_bwd_ab.json"))
+    ap.add_argument("--steps", action="store_true",
+                    help="also time the FCN and SegNet preset train steps")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker)))
+        print(json.dumps(worker(args.worker, args.steps)))
         return 0
     import torch
 
@@ -179,34 +229,40 @@ def main() -> int:
     roots = {"base": os.path.abspath(args.base), "change": REPO}
     runs = {"base": [], "change": []}
     for w in who:
-        runs[w].append(run_worker(roots[w]))
+        runs[w].append(run_worker(roots[w], args.steps))
     lib = library(torch)
     n, h, w, c = SHAPE
     flops = conv3x3_flops(n, h, w, c)
     wb = bound(2 * n * h * w * c + 5 * n * h * w * c / 4 + 4 * 9 * c * c + 4 * c, flops)
+    db = bound(*dgrad_work(n, h, w, c))
 
     def mean(who_, key):
         vals = [r[key] for r in runs[who_] if key in r]
         return sum(vals) / len(vals) if vals else None
 
     rows = {k: {who_: mean(who_, k) for who_ in ("base", "change")}
-            for k in ("1b", "1c", "dgrad", "wgrad", "sum")}
+            for k in ("1b", "1c", "dgrad", "wgrad", "sum", "preset_host", "preset_device",
+                      "segnet_host", "segnet_device")
+            if any(k in r for rs in runs.values() for r in rs)}
     print(f"stage1 backward at {list(SHAPE)}, change {REPO} vs base "
           f"{roots['base']} ({smi}); turns {' '.join(who)}; "
-          "ms (1b, 1c: CUDA events; launches: torch.profiler)")
+          "ms (1b, 1c: CUDA events; launches: torch.profiler; steps per step, host "
+          "clock and device sum)")
     for k, v in rows.items():
-        print(f"  {k}: " + ", ".join(f"{who_} {ms:.4f}" if ms is not None else
-                                      f"{who_} not measured" for who_, ms in v.items()))
-    wg = rows["wgrad"].get("change")
+        print(f"  {k}: " + ", ".join(
+            f"{who_} {ms:.4f} (turns " + " ".join(f"{r[k]:.4f}" for r in runs[who_] if k in r)
+            + ")" if ms is not None else f"{who_} not measured" for who_, ms in v.items()))
     print(f"  plain 1b (autograd through cuDNN) {lib['plain_1b']:.4f}; cuDNN weight "
-          f"gradient {lib['cudnn_wgrad']:.4f}; wgrad bound {wb['bound_ms']:.4f} "
-          f"({wb['bound_by']})" + (f"; change's wgrad {flops / wg / 1e9:.1f} TFLOP/s, "
-                                   f"{100 * wb['bound_ms'] / wg:.1f} % of the bound"
-                                   if wg else ""))
+          f"gradient {lib['cudnn_wgrad']:.4f}, data gradient (unmasked) "
+          f"{lib['cudnn_dgrad']:.4f}")
+    for k, b in (("wgrad", wb), ("dgrad", db)):
+        print(f"  {k} bound {b['bound_ms']:.4f} ({b['bound_by']}); " + ", ".join(
+            f"{who_} {flops / ms / 1e9:.1f} TFLOP/s, {100 * b['bound_ms'] / ms:.1f} % "
+            "of the bound" for who_, ms in rows[k].items() if ms))
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": smi, "turns": who, "runs": runs, "rows": rows, **lib,
-                   "wgrad_bound": wb}, f, indent=1)
+                   "wgrad_bound": wb, "dgrad_bound": db}, f, indent=1)
     return 0
 
 
