@@ -42,8 +42,9 @@ and 384x1248, two steps held against the single-process step.
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
 version, device times of the kernel, its plain version and the one PyTorch
-call computing the same function where there is one, and the least time the
-card could take for the work), the card's name and power limit, and
+call computing the same function where there is one (for the stage1
+forward, a yardstick that computes less: cuDNN's conv alone), and the least
+time the card could take for the work), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -135,6 +136,23 @@ def conv3x3_flops(n: int, h: int, w: int, c: int) -> float:
     return 2.0 * n * h * w * 9 * c * c
 
 
+def forward_rate(torch, what: str, ms: float, z1, k2, codes: bool = True) -> dict:
+    """The stage1 forward's TFLOP/s and share of its bound at z1's shape
+    (``fwd_work``), beside its yardstick ``cudnn_fwd`` (cuDNN's conv of the
+    same relu(z1) alone, by the same device clock): the row's bound and
+    ``library_ms``. z1 carries b1."""
+    from stage1_bwd_ab import cudnn_fwd, fwd_work
+
+    nbytes, flops = fwd_work(*z1.shape, codes=codes)
+    b = bound(nbytes, flops)
+    lib = device_ms(cudnn_fwd(torch, z1, k2))[0]
+    log(f"stage1 forward {what} at {list(z1.shape)}: {ms:.4f} ms, "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * b['bound_ms'] / ms:.1f} % of its bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); yardstick cuDNN conv only (no pool, "
+        f"bias, relu; writes the full-resolution output) {lib:.4f} ms")
+    return {"library_ms": lib, **b}
+
+
 def check_stage1(torch, gen) -> dict:
     """Kernel A against its plain version: the slice's shape, small ragged
     shapes (odd batch, partial tiles, narrow channels) and an exact tie case.
@@ -194,13 +212,10 @@ def check_stage1(torch, gen) -> dict:
     t = ab_ms(lambda: stage1_tail_plain(z1, k2, b2),
               lambda: stage1_tail(z1, k2, b2))
     show_ab(f"stage1 at [1,{PADDED_HW[0]},{PADDED_HW[1]},64]", t)
-    n, (h, w), c = 1, PADDED_HW, 64
-    # z1 in, the pooled bf16 out, the bf16 weights
-    b = bound(2 * n * h * w * c + 2 * n * h * w * c / 4 + 2 * 9 * c * c,
-              conv3x3_flops(n, h, w, c))
-    # no one PyTorch call fuses the conv, pool, bias and relu
+    # no one PyTorch call fuses the conv, pool, bias and relu: the yardstick
+    # is cuDNN's conv alone; z1 in, the pooled bf16 out, the bf16 weights
     return {"max_abs_err": main_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            **b, "library_ms": None}
+            **forward_rate(torch, "(inference)", t["ms"], z1, k2, codes=False)}
 
 
 def check_overlay(torch, gen) -> dict:
@@ -356,7 +371,10 @@ def check_stage1_train(torch, gen) -> dict:
                        lambda: stage1_tail_train(z1, k2, b2))
             show_ab(f"stage1 training forward (with codes) at {list(TRAIN_SHAPE)}",
                     tf)
-            result.update(train_fwd_ms=tf["ms"], train_fwd_plain_ms=tf["plain_ms"])
+            fr = forward_rate(torch, "(training, codes)", tf["ms"], z1, k2)
+            result.update(train_fwd_ms=tf["ms"], train_fwd_plain_ms=tf["plain_ms"],
+                          train_fwd_library_ms=fr["library_ms"],
+                          train_fwd_bound_ms=fr["bound_ms"])
             del leaves, ref_out
         del z1, k2, b2, g, out, codes, out_p, codes_p, want, got, again
 
@@ -876,14 +894,15 @@ def check_segnet_stage1(torch, gen) -> dict:
         t = ab_ms(lambda: stage1_tail_segnet_plain(z1, k2, b2),
                   lambda: stage1_tail_segnet(z1, k2, b2))
         show_ab(f"segnet stage1 at [{n},{h},{w},{c}]", t)
+        # z1 in; out (bf16) and idx (u8) pooled out; the yardstick is
+        # cuDNN's conv alone
+        fr = forward_rate(torch, "(SegNet)", t["ms"], z1, k2)
         if (n, h, w, c) != TRAIN_SHAPE:
-            result["infer_ms"], result["infer_plain_ms"] = t["ms"], t["plain_ms"]
+            result.update(infer_ms=t["ms"], infer_plain_ms=t["plain_ms"],
+                          infer_library_ms=fr["library_ms"])
             continue
-        # z1 in; out (bf16) and idx (u8) pooled out
         result.update(max_abs_err=err.max().item(), idx_agree=agree, ms=t["ms"],
-                      plain_ms=t["plain_ms"], library_ms=None,
-                      **bound(2 * n * h * w * c + 3 * n * h * w * c / 4
-                              + 2 * 9 * c * c, conv3x3_flops(n, h, w, c)))
+                      plain_ms=t["plain_ms"], **fr)
         g = rand(out.shape, 1.0)
         got = stage1_tail_bwd(g, out_p, idx_p, z1, k2)
         want = stage1_tail_bwd_plain(g, out_p, idx_p, z1, k2)
@@ -1613,6 +1632,7 @@ def check_stage1_halo(torch, gen) -> dict:
                        lambda: _halo_bwd(torch, stage1_tail_halo_bwd, g, out, codes,
                                          z1, k2, b1, 1))
             show_ab(f"stage1 halo forward (codes) at {list(TRAIN_SHAPE)}", tf)
+            fr = forward_rate(torch, "1c (codes)", tf["ms"], zb, k2)
             show_ab(f"stage1 halo backward at {list(TRAIN_SHAPE)}", tb)
             # kernels 1 (training forward) and 1b on the same inputs, in turns
             # with 1c: forward 1, 1c, 1c, 1; backward likewise
@@ -1647,7 +1667,8 @@ def check_stage1_halo(torch, gen) -> dict:
                           bound_ms=bf["bound_ms"] + bb["bound_ms"],
                           bound_by="operations", library_ms=None,
                           fwd_ms=tf["ms"], fwd_plain_ms=tf["plain_ms"],
-                          fwd_bound_ms=bf["bound_ms"], bwd_ms=tb["ms"],
+                          fwd_bound_ms=bf["bound_ms"], fwd_library_ms=fr["library_ms"],
+                          bwd_ms=tb["ms"],
                           bwd_plain_ms=tb["plain_ms"], bwd_bound_ms=bb["bound_ms"],
                           kernel1_fwd_ms=(one[0] + one[3]) / 2,
                           kernel1b_bwd_ms=(one[4] + one[7]) / 2,
@@ -2129,7 +2150,9 @@ def main() -> int:
         dict(name="stage1_tail", route="cuda",
              source=f"{PKG}/csrc/stage1_tail.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:155",
-             launches=total("stage1_tail", "stage1_tail_train"), **stage1),
+             launches=total("stage1_tail", "stage1_tail_train"), **stage1,
+             **{k: stage1_bwd[k] for k in ("train_fwd_ms", "train_fwd_library_ms",
+                                           "train_fwd_bound_ms")}),
         dict(name="stage1_tail_bwd", route="cuda",
              source=f"{PKG}/csrc/stage1_bwd.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/stage1.py:271",
@@ -2167,7 +2190,8 @@ def main() -> int:
                       "and :652",
              launches=total("stage1_tail_halo", "stage1_tail_halo_bwd")
              + sum(grid["grid_launches"]),
-             **{k: halo[k] for k in keys + ("bwd_dgrad_ms", "bwd_library_dgrad_ms")}),
+             **{k: halo[k] for k in keys + ("fwd_ms", "fwd_library_ms", "bwd_dgrad_ms",
+                                            "bwd_library_dgrad_ms")}),
     ]
 
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels: mbarriers, TMA
 // tensor loads, wgmma with both operands in shared memory (K-major, 128-byte
-// swizzle) or with A in registers and B MN-major in shared memory, and the
-// host-side tensor-map encoder.
+// swizzle) or with A in registers and B K-major or MN-major in shared memory,
+// and the host-side tensor-map encoder.
 //
 // Operand tiles. A TMA box of {64 bf16 (K), rows} with CU_TENSOR_MAP_SWIZZLE_128B
 // lands as rows of 128 bytes, 8-row atoms of 1024 bytes, the 16-byte chunks of
@@ -95,6 +95,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive at named barrier `id` without waiting (the other `threads` minus
+// these wait there in bar_sync)
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // byte offset of 16-byte chunk `chunk` of 128-byte row `row` in a tile laid
@@ -238,6 +244,25 @@ __device__ __forceinline__ void wgmma_n64_rs_tb(float (&d)[32], const uint32_t (
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
       "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The same product with B K-major in shared memory (rows of N, each 128
+// bytes of K, swizzled as wgmma_n16 reads them; no transpose flag): step K
+// by 16 with start address + 32 bytes.
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),

@@ -48,17 +48,22 @@ def gen(monkeypatch):
 
 
 @pytest.mark.parametrize("shape", [(3, 12, 40, 64), (1, 6, 34, 16),
-                                   (2, 10, 66, 48)])
+                                   (2, 10, 66, 48), (2, 8, 130, 64),
+                                   (1, 8, 64, 32)])
 def test_stage1_kernel_matches_plain_on_card(gen, shape):
+    """Ragged tiles of 4 x 64 conv pixels (H % 4, W % 64, odd W/2, W over
+    two tiles) and every width; a rerun is bit-identical."""
     n, h, w, c = shape
     z1 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
     k2 = (torch.randn((c, c, 3, 3), generator=gen, device="cuda")
           / (9 * c) ** 0.5).bfloat16()
     b2 = (torch.randn((c,), generator=gen, device="cuda") / 10).bfloat16()
     before = stage1_tail.launches
-    got = stage1_tail(z1, k2, b2).float()
+    out = stage1_tail(z1, k2, b2)
     want = stage1_tail_plain(z1, k2, b2).float()
     assert stage1_tail.launches == before + 1
+    assert torch.equal(stage1_tail(z1, k2, b2), out)
+    got = out.float()
     assert got.shape == (n, h // 2, w // 2, c)
     # one bf16 ulp of the conv value (another f32 summation order before
     # the rounding), plus one of the bias add
@@ -450,17 +455,23 @@ def _halo_inputs(gen, shape):
 
 
 @pytest.mark.parametrize("mode", ["infer", "codes", "segnet"])
-@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (2, 20, 66, 48)])
+@pytest.mark.parametrize("shape", [(3, 12, 40, 64), (2, 20, 66, 48), (2, 8, 130, 64),
+                                   (1, 8, 64, 32)])
 def test_stage1_halo_kernel_matches_plain_on_card(gen, mode, shape):
     """Kernel 1c's forward over the whole image (-inf halo rows) equals the
     single-device kernel on z1 + b1 (the same bf16 add) bit for bit, codes
     included; against its plain version within check_stage1's bf16 bound
     (2^-6 (|plain| + |b2|) + 1e-6), codes on >= 99.9 %. Split in two halves
-    with real halo rows it equals the whole-image call bit for bit."""
+    with real halo rows it equals the whole-image call bit for bit; a rerun
+    is bit-identical."""
     z1, k2, b2, b1, _ = _halo_inputs(gen, shape)
     before = stage1_tail_halo.launches
     out, codes = _halo_fwd(z1, k2, b2, b1, mode, 1)
     assert stage1_tail_halo.launches == before + 1
+    again, again_codes = _halo_fwd(z1, k2, b2, b1, mode, 1)
+    assert torch.equal(again, out)
+    if mode != "infer":
+        assert torch.equal(again_codes, codes)
     ref_out, ref_codes = _HALO_SINGLE[mode]((z1 + b1).contiguous(), k2, b2)
     assert torch.equal(out, ref_out)
     plain = stage1_tail_halo_plain(z1, *_band(z1, 1, 0, float("-inf"))[1:], k2, b2, b1,

@@ -94,3 +94,35 @@ def test_cudnn_dgrad_yardstick_is_the_backward_dgrad(shape):
     nbytes, flops = stage1_bwd_ab.dgrad_work(8, 320, 1152, 64)
     assert flops == 2.0 * 8 * 320 * 1152 * 9 * 64 * 64
     assert abs(nbytes - 990.9e6) < 0.1e6
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 12, 16), (1, 6, 10, 32)])
+def test_cudnn_fwd_yardstick_is_the_forward_conv(shape):
+    """tools/stage1_bwd_ab.py's yardstick for the stage1 forward computes
+    the conv of the same relu(z1): pooled, biased and relu'd by the plain
+    code it is the plain training forward's out (and codes), bit for bit;
+    its work counts one conv's FLOPs and each tensor's bytes once."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        _pool_codes, stage1_tail_codes_plain,
+    )
+
+    n, h, w, c = shape
+    rng = np.random.default_rng(0)
+    bf = torch.bfloat16
+    z1 = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(bf)
+    k2 = torch.from_numpy(rng.standard_normal((c, c, 3, 3), np.float32)
+                          / np.sqrt(9 * c)).to(bf)
+    b2 = torch.from_numpy(rng.standard_normal(c, np.float32) / 10).to(bf)
+    conv = stage1_bwd_ab.cudnn_fwd(torch, z1, k2)()
+    assert conv.shape == (n, c, h, w)
+    got, got_codes = _pool_codes(conv, b2)
+    want, want_codes = stage1_tail_codes_plain(z1, k2, b2)
+    assert torch.equal(got, want)
+    assert torch.equal(got_codes, want_codes)
+    nbytes, flops = stage1_bwd_ab.fwd_work(8, 320, 1152, 64)
+    assert flops == 2.0 * 8 * 320 * 1152 * 9 * 64 * 64
+    assert abs(flops - 217.4e9) < 0.05e9
+    weights = 2 * 9 * 64 * 64 + 2 * 64
+    # z1 377.5 MB read, out 94.4 MB and codes 47.2 MB written
+    assert abs(nbytes - weights - 519.0e6) < 0.1e6
+    assert stage1_bwd_ab.fwd_work(8, 320, 1152, 64, codes=False)[0] == nbytes - 47185920

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernel 1b's and 1c's backward of two checkouts of the port, timed in turns
-on one CUDA card.
+"""Kernels 1b's and 1c's backward and the stage1 forward (kernels 1, 3 and
+1c's forward) of two checkouts of the port, timed in turns on one CUDA card.
 
     python tools/stage1_bwd_ab.py --base DIR [--steps] [--out chiprun_out/stage1_bwd_ab.json]
 
@@ -14,6 +14,16 @@ torch.profiler the device time of each launch of the 1b backward (dgrad,
 wgrad, sum); with ``--steps`` also the FCN and SegNet preset train steps
 (``tools/profile_train.py``'s ``preset`` and ``segnet`` workloads by its
 ``time_train``: host ms per step and device ms per step, 8 steps each).
+The forward rows time, by torch.profiler's device time per call, the
+training forward with codes (``stage1_tail_train``, kernel 1) and SegNet's
+(``stage1_tail_segnet``, kernel 3) at the training shape, the inference
+forward (``stage1_tail``) and SegNet's at the inference shape
+[1,384,1248,64] (``INFER_SHAPE``), and 1c's forward with codes
+(``stage1_tail_halo`` over the whole image, -inf halo rows) at the training
+shape; beside them their bounds (``fwd_work``) and a yardstick,
+``cudnn_fwd``: cuDNN's bf16 channels_last ``F.conv2d`` of the same relu(z1)
+without bias, which computes less than the kernels (no pool, bias or relu)
+and writes the full-resolution conv output instead.
 Each checkout runs in a process of its own (its own kernel
 build under its ``build/``), in turns base, change, change, base; a
 checkout's time is the mean of its turns. Beside them, in this
@@ -26,9 +36,10 @@ and the bounds of the wgrad and the dgrad (``chip_smoke.bound``: the wgrad's
 217 GFLOP over 989 TFLOP/s against its 613 MB over 3.35 TB/s; the dgrad's
 991 MB, dz1 written included, against the same GFLOP). Prints a table with
 each launch's TFLOP/s and share of its bound, and writes JSON. Imports
-nothing of JAX. ``launch_times``, ``cudnn_wgrad``, ``cudnn_dgrad`` and
-``dgrad_work`` are also what ``chip_smoke.py`` reads the backward's launches,
-its yardsticks and the dgrad's bound with.
+nothing of JAX. ``launch_times``, ``cudnn_wgrad``, ``cudnn_dgrad``,
+``dgrad_work``, ``cudnn_fwd`` and ``fwd_work`` are also what
+``chip_smoke.py`` reads the backward's launches, the yardsticks and the
+dgrad's and the forward's bounds with.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (8, 320, 1152, 64)
+INFER_SHAPE = (1, 384, 1248, 64)  # one KITTI image, padded
 
 
 def events_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -59,16 +71,16 @@ def events_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def inputs(torch):
-    """Seeded inputs at SHAPE on the card: z1 (with b1 for 1b, without for
-    1c), k2, b1, the pooled gradient g and the training forward's out and
-    codes (from the plain forward, so both checkouts route alike)."""
+def inputs(torch, shape=SHAPE):
+    """Seeded inputs at ``shape`` on the card: z1 (with b1 for 1b, without
+    for 1c), k2, b1, the pooled gradient g and the training forward's out
+    and codes (from the plain forward, so both checkouts route alike)."""
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
         stage1_tail_codes_plain,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    n, h, w, c = SHAPE
+    n, h, w, c = shape
 
     def rand(shape, scale):
         return (torch.randn(shape, generator=gen, device="cuda") * scale
@@ -119,10 +131,22 @@ def worker(root: str, steps: bool = False) -> dict:
                                            t["k2"], t["b1"], halos)
     res = {"1b": events_ms(torch, bwd), "1c": events_ms(torch, halo),
            **launch_times(profile_device(torch, bwd, 10)["by_op"])}
+    fwd = {"fwd1_train": lambda: s1.stage1_tail_train(t["zb"], t["k2"], t["b2"]),
+           "fwd3_train": lambda: s1.stage1_tail_segnet(t["zb"], t["k2"], t["b2"]),
+           "fwd1c_train": lambda: s1.stage1_tail_halo(t["z1"], edge, edge, t["k2"],
+                                                      t["b2"], t["b1"], "codes")}
+    for k, fn in fwd.items():
+        res[k] = profile_device(torch, fn, 10)["device_ms"]
+    del t, edge, zero, halos, bwd, halo, fwd
+    t = inputs(torch, INFER_SHAPE)
+    fwd = {"fwd1_infer": lambda: s1.stage1_tail(t["zb"], t["k2"], t["b2"]),
+           "fwd3_infer": lambda: s1.stage1_tail_segnet(t["zb"], t["k2"], t["b2"])}
+    for k, fn in fwd.items():
+        res[k] = profile_device(torch, fn, 10)["device_ms"]
+    del t, fwd
     if steps:
         from profile_train import WORKLOADS, time_train, train_workload
 
-        del t, edge, zero, halos, bwd, halo
         for name in ("preset", "segnet"):
             torch.cuda.empty_cache()
             wl = WORKLOADS[name]
@@ -132,9 +156,12 @@ def worker(root: str, steps: bool = False) -> dict:
 
 
 def library(torch) -> dict:
-    """In this process: 1b's plain version and cuDNN's weight gradient of
-    the same conv, by CUDA events."""
-    sys.path.insert(0, REPO)
+    """In this process: 1b's plain version and cuDNN's weight and data
+    gradients of the same conv, by CUDA events; cuDNN's forward conv at the
+    training and inference shapes, by torch.profiler's device time."""
+    sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
+    from profile_train import profile_device
+
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import stage1 as s1
 
     t = inputs(torch)
@@ -144,8 +171,39 @@ def library(torch) -> dict:
                                                         retain_graph=True))
     wgrad = cudnn_wgrad(torch, t["g"], t["out"], t["codes"], t["zb"], t["k2"])
     dgrad = cudnn_dgrad(torch, t["g"], t["out"], t["codes"], t["zb"], t["k2"])
-    return {"plain_1b": plain, "cudnn_wgrad": events_ms(torch, wgrad),
-            "cudnn_dgrad": events_ms(torch, dgrad)}
+    res = {"plain_1b": plain, "cudnn_wgrad": events_ms(torch, wgrad),
+           "cudnn_dgrad": events_ms(torch, dgrad),
+           "cudnn_fwd_train": profile_device(
+               torch, cudnn_fwd(torch, t["zb"], t["k2"]), 10)["device_ms"]}
+    del t, leaves, ref_out, wgrad, dgrad
+    t = inputs(torch, INFER_SHAPE)
+    res["cudnn_fwd_infer"] = profile_device(
+        torch, cudnn_fwd(torch, t["zb"], t["k2"]), 10)["device_ms"]
+    return res
+
+
+def cudnn_fwd(torch, z1, k2):
+    """The stage1 forward's yardstick: one PyTorch call (cuDNN's bf16
+    ``F.conv2d``, channels_last) for the conv of the same relu(z1), without
+    bias: a callable returning the NCHW view of the full-resolution conv.
+    It computes less than the kernels (no pool, bias or relu) and writes the
+    conv output that they keep in registers. z1 carries b1."""
+    import torch.nn.functional as F
+
+    y = torch.relu(z1).permute(0, 3, 1, 2)
+    w = k2.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(y, w, padding=1)
+
+
+def fwd_work(n: int, h: int, w: int, c: int, codes: bool = True
+             ) -> tuple[float, float]:
+    """Bytes and FLOPs of the stage1 forward at [n,h,w,c]: z1 (bf16) read
+    once, the pooled out (bf16) and, with ``codes``, the codes (u8) written
+    once, the bf16 weights and b2 read; the conv's multiply-adds, 2 FLOP
+    each (the pool, bias and relu are not counted)."""
+    nhwc = n * h * w * c
+    return (2 * nhwc + (3 if codes else 2) * nhwc / 4 + 2 * 9 * c * c + 2 * c,
+            2.0 * n * h * w * 9 * c * c)
 
 
 def cudnn_wgrad(torch, g, out, codes, z1, k2):
@@ -189,6 +247,12 @@ def dgrad_work(n: int, h: int, w: int, c: int) -> tuple[float, float]:
     the bf16 weights read; the conv's multiply-adds, 2 FLOP each."""
     nhwc = n * h * w * c
     return 4 * nhwc + 5 * nhwc / 4 + 2 * 9 * c * c, 2.0 * n * h * w * 9 * c * c
+
+
+# the forward rows: (shape, whether the launch writes codes)
+FWD_ROWS = {"fwd1_train": (SHAPE, True), "fwd3_train": (SHAPE, True),
+            "fwd1c_train": (SHAPE, True), "fwd1_infer": (INFER_SHAPE, False),
+            "fwd3_infer": (INFER_SHAPE, True)}
 
 
 def run_worker(root: str, steps: bool) -> dict:
@@ -241,13 +305,13 @@ def main() -> int:
         return sum(vals) / len(vals) if vals else None
 
     rows = {k: {who_: mean(who_, k) for who_ in ("base", "change")}
-            for k in ("1b", "1c", "dgrad", "wgrad", "sum", "preset_host", "preset_device",
-                      "segnet_host", "segnet_device")
+            for k in ("1b", "1c", "dgrad", "wgrad", "sum", *FWD_ROWS, "preset_host",
+                      "preset_device", "segnet_host", "segnet_device")
             if any(k in r for rs in runs.values() for r in rs)}
-    print(f"stage1 backward at {list(SHAPE)}, change {REPO} vs base "
+    print(f"stage1 backward at {list(SHAPE)} and forward, change {REPO} vs base "
           f"{roots['base']} ({smi}); turns {' '.join(who)}; "
-          "ms (1b, 1c: CUDA events; launches: torch.profiler; steps per step, host "
-          "clock and device sum)")
+          "ms (1b, 1c: CUDA events; launches and forwards: torch.profiler; steps "
+          "per step, host clock and device sum)")
     for k, v in rows.items():
         print(f"  {k}: " + ", ".join(
             f"{who_} {ms:.4f} (turns " + " ".join(f"{r[k]:.4f}" for r in runs[who_] if k in r)
@@ -259,10 +323,24 @@ def main() -> int:
         print(f"  {k} bound {b['bound_ms']:.4f} ({b['bound_by']}); " + ", ".join(
             f"{who_} {flops / ms / 1e9:.1f} TFLOP/s, {100 * b['bound_ms'] / ms:.1f} % "
             "of the bound" for who_, ms in rows[k].items() if ms))
+    fwd_bounds = {}
+    for k, (shape, codes) in FWD_ROWS.items():
+        if k not in rows:
+            continue
+        nbytes, fl = fwd_work(*shape, codes=codes)
+        b = fwd_bounds[k] = bound(nbytes, fl)
+        lib_ms = lib["cudnn_fwd_" + k.rsplit("_", 1)[1]]
+        print(f"  {k} at {list(shape)}: bound {b['bound_ms']:.4f} ({b['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB, {fl / 1e9:.1f} GFLOP); " + ", ".join(
+                  f"{who_} {fl / ms / 1e9:.1f} TFLOP/s, {100 * b['bound_ms'] / ms:.1f} % "
+                  "of the bound" for who_, ms in rows[k].items() if ms)
+              + f"; yardstick cuDNN conv only (no pool, bias, relu; writes the "
+              f"full-resolution output) {lib_ms:.4f}")
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": smi, "turns": who, "runs": runs, "rows": rows, **lib,
-                   "wgrad_bound": wb, "dgrad_bound": db}, f, indent=1)
+                   "wgrad_bound": wb, "dgrad_bound": db, "fwd_bounds": fwd_bounds},
+                  f, indent=1)
     return 0
 
 
