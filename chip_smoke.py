@@ -218,9 +218,27 @@ def check_stage1(torch, gen) -> dict:
             **forward_rate(torch, "(inference)", t["ms"], z1, k2, codes=False)}
 
 
+# (batch, H, W, padded H, padded W, classes, alpha, blend_class0): the FCN
+# Predictor's image and batch, 5 and 19 classes (the Cityscapes palette),
+# and a ragged shape (W not a multiple of 4, H*W not of a warp's 128-pixel
+# tile)
+OVERLAY_CASES = ((1, *IMAGE_HW, *PADDED_HW, 2, 0.5, False),
+                 (1, *IMAGE_HW, *PADDED_HW, 5, 0.7, True),
+                 (8, *IMAGE_HW, *PADDED_HW, 2, 0.5, False),
+                 (1, *IMAGE_HW, *PADDED_HW, 19, 0.5, True),
+                 (2, 37, 1238, 64, 1248, 2, 0.5, False),
+                 (2, 37, 1238, 64, 1248, 5, 0.7, True))
+
+
 def check_overlay(torch, gen) -> dict:
-    """Kernel B against its plain version: exact labels and exact bytes
-    (the kernel rounds the blend like the plain version, without FMA)."""
+    """Kernel B against its plain version at ``OVERLAY_CASES``: exact labels
+    and exact bytes (the kernel rounds the blend like the plain version,
+    without FMA). At the C=2 image and batch of 8, its device time beside the
+    plain version's, the bound and a yardstick: a device-to-device ``copy_``
+    of half the kernel's bytes (as many bytes read and written, nothing
+    computed; no one PyTorch call computes the overlay)."""
+    from overlay_ab import work
+
     from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
         CITYSCAPES_PALETTE, KITTI_OVERLAY_PALETTE,
     )
@@ -228,38 +246,47 @@ def check_overlay(torch, gen) -> dict:
         argmax_colormap_overlay_cuda, argmax_colormap_overlay_plain,
     )
 
-    h, w = IMAGE_HW
     result = {}
-    for c, palette, alpha, blend0 in ((2, KITTI_OVERLAY_PALETTE, 0.5, False),
-                                      (5, CITYSCAPES_PALETTE[:5], 0.7, True)):
-        img = torch.randint(0, 256, (1, h, w, 3), generator=gen, device="cuda",
+    for n, h, w, hp, wp, c, alpha, blend0 in OVERLAY_CASES:
+        img = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
                             dtype=torch.uint8)
-        logits = torch.randn((1, *PADDED_HW, c), generator=gen, device="cuda")
-        tie = torch.rand((1, *PADDED_HW), generator=gen, device="cuda") < 0.1
+        logits = torch.randn((n, hp, wp, c), generator=gen, device="cuda")
+        tie = torch.rand((n, hp, wp), generator=gen, device="cuda") < 0.1
         logits[..., 1] = torch.where(tie, logits[..., 0], logits[..., 1])
-        pal = torch.as_tensor(palette, device="cuda")
+        pal = torch.as_tensor(KITTI_OVERLAY_PALETTE if c == 2
+                              else CITYSCAPES_PALETTE[:c], device="cuda")
         ov_k, lab_k = argmax_colormap_overlay_cuda(img, logits, pal, alpha, blend0)
         ov_p, lab_p = argmax_colormap_overlay_plain(
             img, logits[:, :h, :w], pal, alpha, blend0)
         torch.cuda.synchronize()
+        what = f"overlay C={c} [{n},{h},{w}] from [{n},{hp},{wp},{c}] logits"
         if not torch.equal(lab_k, lab_p):
-            raise AssertionError(f"overlay C={c}: labels differ at "
+            raise AssertionError(f"{what}: labels differ at "
                                  f"{int((lab_k != lab_p).sum())} pixels")
         err = (ov_k.int() - ov_p.int()).abs().max().item()
         if err:
-            raise AssertionError(f"overlay C={c}: bytes differ (max {err})")
-        log(f"overlay C={c} [1,{h},{w}] from padded logits: labels and bytes "
-            f"exact ({int(tie.sum())} tied pixels injected)")
-        if c == 2:
+            raise AssertionError(f"{what}: bytes differ (max {err})")
+        log(f"{what}: labels and bytes exact ({int(tie[:, :h, :w].sum())} tied "
+            "pixels injected)")
+        if c == 2 and (h, w) == IMAGE_HW:
             t = ab_ms(
                 lambda: argmax_colormap_overlay_plain(
                     img, logits[:, :h, :w], pal, alpha, blend0),
                 lambda: argmax_colormap_overlay_cuda(img, logits, pal, alpha, blend0))
-            show_ab(f"overlay at [1,{h},{w}], C=2", t)
-            # logits (the crop) and image in; overlay and int32 labels out
-            result = {"max_abs_err": float(err), "ms": t["ms"],
-                      "plain_ms": t["plain_ms"],
-                      **bound(h * w * (4 * c + 3 + 3 + 4)), "library_ms": None}
+            src = torch.empty(work(n, h, w, c) // 2, dtype=torch.uint8, device="cuda")
+            dst = torch.empty_like(src)
+            copy = device_ms(lambda: dst.copy_(src))[0]
+            b = bound(work(n, h, w, c))
+            show_ab(f"overlay at [{n},{h},{w}], C=2", t)
+            log(f"overlay at [{n},{h},{w}], C=2: {100 * b['bound_ms'] / t['ms']:.1f} % "
+                f"of its bound {b['bound_ms']:.4f} ms ({work(n, h, w, c) / 1e6:.2f} MB); "
+                f"yardstick copy_ of {work(n, h, w, c) / 2e6:.2f} MB {copy:.4f} ms")
+            row = {"ms": t["ms"], "plain_ms": t["plain_ms"], **b, "copy_ms": copy}
+            if n == 1:
+                result.update(max_abs_err=float(err), library_ms=None, **row)
+            else:
+                result.update({f"b{n}_{k}": v for k, v in row.items()
+                               if k != "bound_by"})
     return result
 
 

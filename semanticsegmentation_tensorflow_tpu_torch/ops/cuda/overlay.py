@@ -30,7 +30,10 @@ def argmax_colormap_overlay_cuda(image_u8: torch.Tensor, logits: torch.Tensor,
     palette [C,3] -> (overlay [N,H,W,3] u8, labels [N,H,W] i32).
 
     Bit-equal to the plain version: the blend is rounded like PyTorch's
-    separate multiply, multiply and add (no FMA contraction)."""
+    separate multiply, multiply and add (no FMA contraction). On the card
+    the image must be 16-byte aligned (a tensor of its own is; a view that
+    starts mid-storage may not be) and N*H*W below 2^31: the wrapper raises
+    otherwise."""
     n, h, w, _ = image_u8.shape
     if logits.dim() != 4 or logits.shape[0] != n or logits.shape[1] < h \
             or logits.shape[2] < w:
@@ -52,9 +55,13 @@ def argmax_colormap_overlay_cuda(image_u8: torch.Tensor, logits: torch.Tensor,
     if logits.device != image_u8.device:
         raise ValueError("image and logits must be on one device")
     if not (image_u8.is_contiguous() and logits.is_contiguous()) \
-            or logits.data_ptr() % 8:
-        raise ValueError("image and logits must be contiguous; logits "
-                         "8-byte aligned")
+            or image_u8.data_ptr() % 16 or logits.data_ptr() % 8:
+        raise ValueError("image and logits must be contiguous; the image "
+                         "16-byte aligned (the kernel moves it by 16-byte "
+                         "accesses), the logits 8-byte aligned")
+    if n * h * w >= 2 ** 31:
+        raise ValueError(f"{n}x{h}x{w} pixels: the kernel indexes pixels in "
+                         "32 bits")
     pal = palette_tensor(palette, image_u8.device).contiguous()
     if tuple(pal.shape) != (c, 3):
         raise ValueError(f"palette must be [{c},3], got {tuple(pal.shape)}")

@@ -10,8 +10,10 @@ import sys
 
 import torch
 
-# flags of the JAX package's CLIs that the port does not implement yet
-UNPORTED_FLAGS = ("int8", "tiled", "mesh", "artifact")
+# flags of the JAX package's CLIs that the port does not implement yet (by
+# their argparse names: --calib-dir is serve's, --tile-overlap infer_image's)
+UNPORTED_FLAGS = ("int8", "tiled", "mesh", "artifact", "calib_dir",
+                  "tile_overlap")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -45,15 +47,16 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="serve the EMA params of --checkpoint-dir (trained "
                         "with --ema-decay)")
     for flag in UNPORTED_FLAGS:
-        p.add_argument(f"--{flag}", default=None, nargs="?", const=True,
-                       help="not ported yet (raises)")
+        p.add_argument("--" + flag.replace("_", "-"), default=None,
+                       nargs="?", const=True, help="not ported yet (raises)")
 
 
 def check_unported(args: argparse.Namespace) -> None:
     used = [f for f in UNPORTED_FLAGS if getattr(args, f) is not None]
     if used:
         raise NotImplementedError(
-            f"not ported yet: {', '.join('--' + f for f in used)}")
+            "not ported yet: "
+            + ", ".join("--" + f.replace("_", "-") for f in used))
     if args.checkpoint_dir is not None and args.weights:
         raise ValueError("pass --weights or --checkpoint-dir, not both")
     if args.ema and args.checkpoint_dir is None:

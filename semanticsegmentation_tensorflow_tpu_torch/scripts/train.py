@@ -40,7 +40,8 @@ import tempfile
 # when set away from its default
 UNPORTED = {"shard_opt": False,
             "qat": False, "scale_jitter": None, "color_jitter": None,
-            "val_frac": 0.0, "keep_best": False, "loader_workers": 0,
+            "val_frac": 0.0, "val_every": 1, "keep_best": False,
+            "qat_calib_batches": 4, "loader_workers": 0,
             "vgg_weights": None, "strict_import": False}
 
 

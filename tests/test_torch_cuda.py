@@ -87,15 +87,20 @@ def test_stage1_kernel_exact_with_ties_on_card(gen, k2_format):
     assert torch.equal(stage1_tail(z1, k2, b2), stage1_tail_plain(z1, k2, b2))
 
 
-@pytest.mark.parametrize("c,alpha,blend0", [(2, 0.5, False), (5, 0.7, True)])
-def test_overlay_kernel_matches_plain_on_card(gen, c, alpha, blend0):
+@pytest.mark.parametrize("n,h,w,hp,wp,c,alpha,blend0", [
+    (2, 37, 50, 64, 64, 2, 0.5, False), (2, 37, 50, 64, 64, 5, 0.7, True),
+    (8, 375, 1242, 384, 1248, 2, 0.5, False),     # the batched Predictor
+    (1, 375, 1242, 384, 1248, 19, 0.5, True),     # Cityscapes classes
+    # W not a multiple of 4, H*W not a multiple of a warp's 128 pixels
+    (2, 37, 1238, 64, 1248, 2, 0.5, False), (2, 37, 1238, 64, 1248, 5, 0.7, True),
+])
+def test_overlay_kernel_matches_plain_on_card(gen, n, h, w, hp, wp, c, alpha, blend0):
     """Labels and bytes exact (the blend is rounded without FMA), from the
     padded logits, with ties injected."""
-    h, w = 37, 50
-    img = torch.randint(0, 256, (2, h, w, 3), generator=gen, device="cuda",
+    img = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
                         dtype=torch.uint8)
-    logits = torch.randn((2, 64, 64, c), generator=gen, device="cuda")
-    tie = torch.rand((2, 64, 64), generator=gen, device="cuda") < 0.2
+    logits = torch.randn((n, hp, wp, c), generator=gen, device="cuda")
+    tie = torch.rand((n, hp, wp), generator=gen, device="cuda") < 0.2
     logits[..., 1] = torch.where(tie, logits[..., 0], logits[..., 1])
     palette = KITTI_OVERLAY_PALETTE if c == 2 else CITYSCAPES_PALETTE[:c]
     before = argmax_colormap_overlay_cuda.launches
@@ -104,6 +109,18 @@ def test_overlay_kernel_matches_plain_on_card(gen, c, alpha, blend0):
         img, logits[:, :h, :w], palette, alpha, blend0)
     assert argmax_colormap_overlay_cuda.launches == before + 1
     assert torch.equal(lab, want_lab) and torch.equal(ov, want_ov)
+
+
+def test_overlay_kernel_refuses_a_misaligned_image(gen):
+    """The kernel moves the image by 16-byte accesses: an image that starts
+    off a 16-byte boundary raises (no launch, no fallback)."""
+    buf = torch.zeros(1 + 4 * 8 * 3, dtype=torch.uint8, device="cuda")
+    img = buf[1:].view(1, 4, 8, 3)
+    logits = torch.zeros((1, 4, 8, 2), device="cuda")
+    before = argmax_colormap_overlay_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        argmax_colormap_overlay_cuda(img, logits, KITTI_OVERLAY_PALETTE)
+    assert argmax_colormap_overlay_cuda.launches == before
 
 
 def test_predictor_runs_both_kernels_on_card(gen):

@@ -174,13 +174,15 @@ def test_infer_image_cli_with_weights_file(tmp_path):
     (["--device", "cuda"], RuntimeError),
     (["--device", "cpu", "--int8"], NotImplementedError),
     (["--device", "cpu", "--tiled"], NotImplementedError),
+    (["--device", "cpu", "--calib-dir", "imgs/"], NotImplementedError),
+    (["--device", "cpu", "--tile-overlap", "64"], NotImplementedError),
     (["--device", "cpu", "--checkpoint-dir", "ckpt"], NotImplementedError),
 ])
 def test_cli_guards(entry, extra, err, monkeypatch, tmp_path):
     """--device cuda raises when no card is present (never drops to the
-    CPU); unported flags raise before any model is built; a --checkpoint-dir
-    of the JAX package's orbax checkpoints (step subdirectories) raises with
-    the conversion hint."""
+    CPU); unported flags raise before any model is built, naming the flag; a
+    --checkpoint-dir of the JAX package's orbax checkpoints (step
+    subdirectories) raises with the conversion hint."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import (
         infer_image, serve,
     )
@@ -190,7 +192,8 @@ def test_cli_guards(entry, extra, err, monkeypatch, tmp_path):
     (tmp_path / "ckpt" / "1").mkdir(parents=True)
     argv = extra + (["--image", "x.png"] if entry == "infer_image" else [])
     fn = infer_image.main if entry == "infer_image" else serve.make_server
-    with pytest.raises(err):
+    with pytest.raises(err, match=extra[2] if err is NotImplementedError
+                       else None):
         fn(argv)
 
 

@@ -2,7 +2,8 @@
 JAX package becomes a port state_dict that the port's CLIs load with
 --weights, and the port's forward on it matches the JAX forward; and
 tools/stage1_bwd_ab.py's cuDNN yardstick for the backward's dgrad launch
-computes that launch's function."""
+computes that launch's function; tools/overlay_ab.py's byte counts, bounds,
+turns and ptxas report."""
 
 import os
 import sys
@@ -25,6 +26,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 
 import convert_checkpoint_to_torch  # noqa: E402
+import overlay_ab  # noqa: E402
 import stage1_bwd_ab  # noqa: E402
 
 KW = "fc_features=32,width_mult=0.25"
@@ -126,3 +128,38 @@ def test_cudnn_fwd_yardstick_is_the_forward_conv(shape):
     # z1 377.5 MB read, out 94.4 MB and codes 47.2 MB written
     assert abs(nbytes - weights - 519.0e6) < 0.1e6
     assert stage1_bwd_ab.fwd_work(8, 320, 1152, 64, codes=False)[0] == nbytes - 47185920
+
+
+@pytest.mark.parametrize("n,c,mb,ms", [(1, 2, 8.3835, 0.0025025),
+                                       (8, 2, 67.068, 0.0200203),
+                                       (1, 19, 40.0545, 0.0119566)])
+def test_overlay_ab_work_and_bound(n, c, mb, ms):
+    """tools/overlay_ab.py counts the overlay's bytes at 4C + 10 a pixel
+    (logits and image read once, overlay and int32 labels written once) over
+    the [375,1242] window of the padded logits, and bounds them by 3.35 TB/s;
+    its copy yardstick moves half of them each way."""
+    h, w = overlay_ab.IMAGE_HW
+    nbytes = overlay_ab.work(n, h, w, c)
+    assert nbytes == n * 375 * 1242 * (4 * c + 3 + 3 + 4)
+    assert abs(nbytes / 1e6 - mb) < 1e-3
+    b = overlay_ab.row_bound(n, h, w, c)
+    assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - ms) < 1e-6
+    assert overlay_ab.ROWS["b1_c2"][:2] == (1, 2)
+
+
+def test_overlay_ab_turns_and_ptxas():
+    """Each version runs twice in mirrored turns, and the ptxas report keeps
+    the register and spill lines of the overlay kernels only."""
+    assert overlay_ab.turns([]) == ["base", "change", "change", "base"]
+    assert overlay_ab.turns(["a", "b"]) == ["base", "change", "a", "b", "b", "a",
+                                            "change", "base"]
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z10pool_kernelv' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, 380 bytes cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114overlay_kernelILb1EEEvPKh' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 30 registers, 3072 bytes smem, 412 bytes cmem[0]"])
+    assert overlay_ab.ptxas_lines(log) == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 30 registers, 3072 bytes smem, 412 bytes cmem[0]"]

@@ -398,16 +398,23 @@ def test_train_cli_then_infer_image_from_its_checkpoint(tmp_path, capsys):
     (["--scale-jitter", "0.75,1.0"], NotImplementedError),
     (["--val-frac", "0.2"], NotImplementedError),
     (["--loader-workers", "2"], NotImplementedError),
+    (["--val-every", "2"], NotImplementedError),
+    (["--qat-calib-batches", "8"], NotImplementedError),
     (["--synthetic", "--device", "cuda"], RuntimeError),
     (["--data-dir", "/nonexistent", "--device", "cpu"], FileNotFoundError),
+    # the JAX defaults of the unported flags parse and do not raise
+    (["--val-every", "1", "--qat-calib-batches", "4", "--data-dir",
+      "/nonexistent", "--device", "cpu"], FileNotFoundError),
 ])
 def test_train_cli_guards(argv, err, monkeypatch):
-    """Unported flags raise before any work; --device cuda raises without a
-    card (never drops to the CPU); a bad --data-dir fails fast."""
+    """Unported flags raise before any work, naming the flag; --device cuda
+    raises without a card (never drops to the CPU); a bad --data-dir fails
+    fast."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(err):
+    with pytest.raises(err, match=argv[0] if err is NotImplementedError
+                       else None):
         train.main(argv)
 
 
