@@ -15,6 +15,13 @@ just before it and read just after:
   on a generated PNG, the ``serve`` handler answering requests, one forward
   at ``fcn8s_kitti_parity`` (fc 4096), then the whole forward with the
   kernels against plain PyTorch;
+* the host IO of serving and the sweep (the port's native ``segio`` on this
+  host, with no Python fallback: PNG encode against numpy + zlib and PIL,
+  the LUT blend against the numpy blend, decode against PIL where libpng
+  is there), then the test-set sweep through ``scripts/test.py`` over 16
+  generated KITTI-like images at ``--batch 1``, ``--batch 8`` and
+  ``--confidence --batch 8``, and ``segnet_kitti`` at ``--batch 8`` over 8,
+  every file checked against the Predictor (its own counters per run);
 * training: ``scripts/train.py`` for 3 steps on a generated synthetic KITTI
   set with ``--pallas-preprocess``, ``--resume``, and ``infer_image`` on the
   checkpoint; then one train step with the kernels against plain PyTorch,
@@ -514,18 +521,260 @@ def check_preprocess(torch, gen) -> dict:
             **bound(px + 4 * px, 2 * px, F32_FLOP_PER_S), "library_ms": None}
 
 
-def write_png(path: str, seed: int) -> None:
+def kitti_like(seed: int):
+    """A [375, 1242, 3] u8 image: smooth structure plus noise, so the labels
+    are not all one class."""
     import numpy as np
-    from PIL import Image
 
     rng = np.random.default_rng(seed)
     h, w = IMAGE_HW
-    # smooth structure plus noise, so the labels are not all one class
     yy, xx = np.mgrid[0:h, 0:w]
     base = np.stack([(xx * 255 // w), (yy * 255 // h),
                      ((xx + yy) * 255 // (h + w))], -1)
     noise = rng.integers(-40, 41, (h, w, 3))
-    Image.fromarray(np.clip(base + noise, 0, 255).astype(np.uint8)).save(path)
+    return np.clip(base + noise, 0, 255).astype(np.uint8)
+
+
+def write_png(path: str, seed: int) -> None:
+    from PIL import Image
+
+    Image.fromarray(kitti_like(seed)).save(path)
+
+
+HOST_ITERS = 20
+
+
+def host_median_ms(fn, iters: int = HOST_ITERS) -> float:
+    """Median host-clock ms of ``iters`` calls of ``fn`` after one warm-up."""
+    import numpy as np
+
+    fn()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def check_host_io() -> dict:
+    """The port's native host IO (``native/segio.cpp``) on this machine's
+    host, at one KITTI image (375x1242): it must load (no leg may pass on a
+    Python fallback); each PNG encoder's output, decoded by PIL, equals its
+    input; the LUT blend equals the numpy blend bit for bit (C=2, and C=19
+    with ``blend_class0``); native decode equals PIL where segio was built
+    with libpng, and raises saying why where it was not. Host-clock medians
+    of ``HOST_ITERS`` calls: the native fixed-Huffman encode (what
+    ``fastpng.encode_png`` runs at level 1), the numpy + zlib encode at
+    level 1, PIL's encode at level 1 (what the server used before), the LUT
+    blend and the numpy blend. Returns the numbers."""
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch import native
+    from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
+        CITYSCAPES_PALETTE, KITTI_OVERLAY_PALETTE,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import (
+        blend_numpy, host_overlay,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.utils.fastpng import (
+        encode_png, encode_png_numpy,
+    )
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"native segio did not load: {native.why_unavailable()}")
+    res = {"segio_load_s": time.perf_counter() - t0,
+           "segio_decode": native.decode_available()}
+    log(f"host IO: segio loaded in {res['segio_load_s']:.2f} s (g++ build "
+        f"included), decode {'built' if res['segio_decode'] else 'not built'}")
+    img = kitti_like(seed=1)
+    rng = np.random.default_rng(1)
+    labels = (img[..., 1] > 160).astype(np.uint8)   # a road-like binary map
+    overlay = host_overlay(img, labels, KITTI_OVERLAY_PALETTE)
+
+    def pil_png(arr, level=1):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG", compress_level=level)
+        return buf.getvalue()
+
+    if encode_png(overlay) != native.encode_png(overlay, "fixed"):
+        raise AssertionError("fastpng.encode_png did not run the native encoder")
+    for name, fn in (("encode_native_fixed", lambda: encode_png(overlay)),
+                     ("encode_numpy_zlib1", lambda: encode_png_numpy(overlay, 1)),
+                     ("encode_pil_level1", lambda: pil_png(overlay))):
+        data = fn()
+        back = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        if not np.array_equal(back, overlay):
+            raise AssertionError(f"{name}: PIL decodes other pixels")
+        res[f"{name}_ms"] = host_median_ms(fn)
+        res[f"{name}_bytes"] = len(data)
+        log(f"host IO {name}: {res[f'{name}_ms']:.3f} ms (median of "
+            f"{HOST_ITERS}), {len(data)} bytes, round trip exact")
+    for nc, palette, blend0 in ((2, KITTI_OVERLAY_PALETTE, False),
+                                (19, CITYSCAPES_PALETTE, True)):
+        lab = labels if nc == 2 else rng.integers(0, nc, IMAGE_HW).astype(np.uint8)
+        lut = lambda: host_overlay(img, lab, palette, 0.5, blend0)
+        ref = lambda: blend_numpy(img, lab, palette, 0.5, blend0)
+        if not np.array_equal(lut(), ref()):
+            raise AssertionError(f"LUT blend differs from the numpy blend at C={nc}")
+        res[f"blend_lut_c{nc}_ms"] = host_median_ms(lut)
+        res[f"blend_numpy_c{nc}_ms"] = host_median_ms(ref)
+        log(f"host IO blend C={nc}: LUT {res[f'blend_lut_c{nc}_ms']:.3f} ms, numpy "
+            f"{res[f'blend_numpy_c{nc}_ms']:.3f} ms (medians of {HOST_ITERS}), "
+            "bit-equal")
+    png = pil_png(img, 6)
+    pil_decode = lambda: np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))
+    res["decode_pil_ms"] = host_median_ms(pil_decode)
+    if native.decode_available():
+        if not np.array_equal(native.decode_png(png), pil_decode()):
+            raise AssertionError("native decode differs from PIL")
+        res["decode_native_ms"] = host_median_ms(lambda: native.decode_png(png))
+        log(f"host IO decode: native {res['decode_native_ms']:.3f} ms, PIL "
+            f"{res['decode_pil_ms']:.3f} ms, equal")
+    else:
+        try:
+            native.decode_png(png)
+        except RuntimeError as e:
+            log(f"host IO decode: no native decode in this build ({e}); PIL "
+                f"{res['decode_pil_ms']:.3f} ms")
+        else:
+            raise AssertionError("decode_png ran in a build without libpng")
+    log("host IO: " + json.dumps(res))
+    return res
+
+
+SWEEP_N = 16            # KITTI-like test images of the FCN sweeps
+SWEEP_SEGNET_N = 8      # and of the SegNet sweep (one batch of 8)
+
+
+def _sweep_predictor(preset: str):
+    """The Predictor ``scripts/test.py`` builds at ``preset`` (the same
+    seeded random weights)."""
+    import torch
+    from argparse import ArgumentParser
+
+    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
+        add_model_args, build_predictor,
+    )
+
+    p = ArgumentParser()
+    add_model_args(p)
+    return build_predictor(p.parse_args(["--preset", preset, "--device", "cuda"]),
+                           torch.device("cuda"))
+
+
+def drive_sweep(torch, tmp: str, counters: dict) -> dict:
+    """The test-set sweep through ``scripts/test.py``'s ``main``: FCN-8s
+    (fcn8s_kitti, random weights) over ``SWEEP_N`` generated KITTI-like test
+    images at --batch 1, --batch 8 and --confidence --batch 8, then SegNet
+    (segnet_kitti) at --batch 8 over ``SWEEP_SEGNET_N``. Each run must launch
+    its model's stage1 kernel (and SegNet's pool kernels) and write one file
+    of the right name per image; each overlay must equal ``host_overlay``
+    of its image with the Predictor's labels at the sweep's batch, those
+    labels the device path's (``Predictor.__call__``, kernel 2), and the
+    overlay the device path's within 1 count a byte; each confidence map
+    must lie within 1 count of round(softmax64 * 255) of the Predictor's
+    f32 logits. Returns img/s (the CLI's own count, after the model build)
+    and the launches of each run."""
+    import contextlib
+
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.kitti import load_image
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import test as test_cli
+
+    h, w = IMAGE_HW
+    res = {}
+    runs = (("fcn8s_kitti", SWEEP_N, "b1", ["--batch", "1"], ("stage1_tail",)),
+            ("fcn8s_kitti", SWEEP_N, "b8", ["--batch", "8"], ("stage1_tail",)),
+            ("fcn8s_kitti", SWEEP_N, "conf_b8", ["--batch", "8", "--confidence"],
+             ("stage1_tail",)),
+            ("segnet_kitti", SWEEP_SEGNET_N, "segnet_b8", ["--batch", "8"],
+             ("stage1_tail_segnet", "pool_argmax", "unpool")))
+    data, pred = {}, {}
+    for preset, n, name, extra, kernels in runs:
+        if n not in data:
+            data[n] = generate_synthetic_kitti(os.path.join(tmp, f"kitti{n}"),
+                                               n_train=0, n_test=n)
+        test_dir = os.path.join(data[n], "testing", "image_2")
+        srcs = sorted(os.listdir(test_dir))
+        before = {k: counters[k].launches for k in kernels}
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = test_cli.main(["--preset", preset, "--device", "cuda",
+                                "--data-dir", data[n], "--runs-dir",
+                                os.path.join(tmp, name), *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: counters[k].launches - before[k] for k in kernels}
+        last = out.getvalue().strip().splitlines()[-1]
+        if rc != 0 or not last.startswith(f"{n} images in "):
+            raise AssertionError(f"sweep {name}: rc {rc}, last line {last!r}")
+        if not all(launched.values()):
+            raise AssertionError(f"sweep {name}: kernels not launched {launched}")
+        img_s = float(last.split("(")[1].split()[0])
+        conf = "--confidence" in extra
+        (run_dir,) = os.listdir(os.path.join(tmp, name))
+        run_dir = os.path.join(tmp, name, run_dir)
+        want_names = [s.replace("um_", "um_road_") if conf else s for s in srcs]
+        if sorted(os.listdir(run_dir)) != want_names:
+            raise AssertionError(f"sweep {name}: wrote {sorted(os.listdir(run_dir))}")
+        if preset not in pred:
+            pred[preset] = _sweep_predictor(preset)
+        pr = pred[preset]
+        imgs = np.stack([load_image(os.path.join(test_dir, s)) for s in srcs])
+        got = np.stack([np.asarray(Image.open(os.path.join(run_dir, f)))
+                        for f in want_names])
+        batch = int(extra[1])
+        worst = 0
+        for i in range(0, n, batch):
+            x = imgs[i:i + batch]
+            if conf:
+                logits = pr._padded_logits(pr._to_device(x))[:, :h, :w]
+                p = torch.softmax(logits.double(), -1)[..., 1]
+                want = torch.round(p * 255).cpu().numpy()
+                d = np.abs(got[i:i + batch].astype(np.float64) - want).max()
+                if d > 1:
+                    raise AssertionError(f"sweep {name}: confidence off by {d}")
+                worst = max(worst, d)
+                continue
+            labels = pr._fetch_labels(x)
+            ov_dev, lab_dev = pr(x)
+            if not np.array_equal(labels, lab_dev):
+                raise AssertionError(f"sweep {name}: labels differ from the "
+                                     "device path's")
+            for j in range(len(x)):
+                if not np.array_equal(got[i + j], host_overlay(
+                        x[j], labels[j], pr._palette, pr._alpha)):
+                    raise AssertionError(f"sweep {name}: {want_names[i + j]} "
+                                         "differs from host_overlay")
+            d = np.abs(got[i:i + batch].astype(np.int16) - ov_dev).max()
+            if d > 1:
+                raise AssertionError(f"sweep {name}: overlay off the device "
+                                     f"path's by {d}")
+            worst = max(worst, int(d))
+        # the producer's leg alone: one image's decode (load_image, PIL here)
+        decode_ms = host_median_ms(
+            lambda: load_image(os.path.join(test_dir, srcs[0])), iters=5)
+        res[name] = {"images": n, "img_per_s": img_s, "main_wall_s": wall,
+                     "launches": launched, "max_count_diff": float(worst),
+                     "decode_ms": decode_ms}
+        log(f"sweep {preset} {' '.join(extra)}: {n} files checked, {img_s:.2f} "
+            f"img/s (the CLI's count), main() {wall:.2f} s with the model build; "
+            f"launches {launched}; max |diff| {worst} count "
+            f"({'round(softmax64*255)' if conf else 'device overlay'}); "
+            f"load_image {decode_ms:.2f} ms an image (median of 5)")
+    del pred
+    torch.cuda.empty_cache()
+    return res
 
 
 def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None) -> dict:
@@ -2068,6 +2317,14 @@ def main() -> int:
     check_end_to_end(torch)
     log("timings (s or ms as named): " + json.dumps(times))
 
+    # the host IO of the serving path and the sweep, then the test-set sweep
+    # (scripts/test.py) at both models
+    host_io = check_host_io()
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep, sweep_launches = drive("test-set sweep", drive_sweep, torch, tmp,
+                                      counters)
+    log("sweep timings: " + json.dumps(dict(sweep, host_io=host_io)))
+
     with tempfile.TemporaryDirectory() as tmp:
         train_times, train_launches = drive("training", drive_training, torch, tmp)
     missing = [k for k in ("stage1_tail_train", "stage1_tail_bwd",
@@ -2166,7 +2423,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     def total(*keys):
-        return sum(runs[k] for runs in (infer_launches, train_launches,
+        return sum(runs[k] for runs in (infer_launches, sweep_launches,
+                                        train_launches,
                                         seg_infer_launches, seg_train_launches,
                                         w_infer_launches, w_train_launches,
                                         w_seg_launches, *spatial_runs)

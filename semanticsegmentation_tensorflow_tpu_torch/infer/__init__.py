@@ -1,5 +1,6 @@
-"""Inference of the port: the Predictor (overlay and label maps)."""
+"""Inference of the port: the Predictor (overlay, label and confidence maps)
+and the test-set sweep."""
 
 from semanticsegmentation_tensorflow_tpu_torch.infer.predict import (  # noqa: F401
-    Predictor,
+    Predictor, save_inference_samples,
 )

@@ -1,16 +1,19 @@
-"""Prediction: overlay and label maps for a fixed image size (counterpart of
-the JAX package's ``infer/predict.py:Predictor``).
+"""Prediction: overlay, label and confidence maps for a fixed image size, and
+the test-set sweep (counterpart of the JAX package's ``infer/predict.py``).
 
 Per batch: normalize, edge-pad to the model's stride, forward, then either
 the fused argmax + colormap + blend (``__call__``: the CUDA overlay kernel
-reads the padded logits in place, so the crop is free) or the label map,
-bit-packed on the device for the fetch (``_fetch_labels``, the serving
-path, which blends on the host). Only uint8 crosses the host boundary.
+reads the padded logits in place, so the crop is free), the label map,
+bit-packed on the device for the fetch (``_fetch_labels``: the serving path
+and the sweep, which blend on the host), or the road confidence
+(``confidence``). Only uint8 crosses the host boundary.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+import time
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -65,10 +68,17 @@ class Predictor:
         self._alpha = alpha
         self._pack_mode = labelpack.pack_mode(model.num_classes)
 
-    def _to_device(self, image_u8: np.ndarray) -> torch.Tensor:
+    def _to_device(self, image_u8) -> torch.Tensor:
+        """[N,H,W,3] u8, numpy or a tensor already on ``self.device``."""
         if tuple(image_u8.shape[1:3]) != self.image_size:
             raise ValueError(f"images must be {self.image_size}, got "
                              f"{tuple(image_u8.shape[1:3])}")
+        if torch.is_tensor(image_u8):
+            # _mean's device carries the index ("cuda" resolves to "cuda:0")
+            if image_u8.device != self._mean.device:
+                raise ValueError(f"images on {image_u8.device}, the Predictor "
+                                 f"on {self._mean.device}")
+            return image_u8
         # writable + contiguous (PIL arrays are read-only): copies only then
         return torch.from_numpy(np.require(image_u8, np.uint8, "CW")).to(
             self.device)
@@ -96,12 +106,28 @@ class Predictor:
                            else torch.int32)
         return labelpack.pack_labels(labels, self._pack_mode)
 
-    def _fetch_labels(self, image_u8: np.ndarray) -> np.ndarray:
-        """[N,H,W,3] u8 -> [N,H,W] label map: forward, pack on the device,
-        fetch, unpack on the host."""
+    def _fetch_labels(self, image_u8) -> np.ndarray:
+        """[N,H,W,3] u8 (numpy, or a tensor on the device) -> [N,H,W] label
+        map: forward, pack on the device, fetch, unpack on the host."""
         packed = self._packed_labels(self._to_device(image_u8))
         return labelpack.unpack_labels(packed.cpu().numpy(),
                                        self.image_size[1], self._pack_mode)
+
+    @torch.inference_mode()
+    def confidence(self, image_u8: np.ndarray) -> np.ndarray:
+        """[N,H,W] (or [H,W] for one image) uint8 road confidence,
+        round(P(road) * 255): the KITTI road devkit's submission maps. The
+        softmax runs in f32 on the device; ``torch.round`` rounds half to
+        even, as ``jnp.round`` does. Binary models only."""
+        if self.model.num_classes != 2:
+            raise ValueError("confidence maps need a binary (num_classes=2) "
+                             "model")
+        squeeze = image_u8.ndim == 3
+        x = self._to_device(image_u8[None] if squeeze else image_u8)
+        logits = crop_to(self._padded_logits(x), *self.image_size)
+        p = torch.softmax(logits.float(), dim=-1)[..., 1]
+        out = torch.round(p * 255.0).to(torch.uint8).cpu().numpy()
+        return out[0] if squeeze else out
 
     def __call__(self, image_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """[H,W,3] or [N,H,W,3] uint8 -> (overlay u8, labels i32), same rank."""
@@ -114,3 +140,142 @@ class Predictor:
 
     def predict_file(self, path: str) -> tuple[np.ndarray, np.ndarray]:
         return self(load_image(path, self.image_size))
+
+
+def _upload(predictor: Predictor, imgs: np.ndarray, stream):
+    """A host batch onto ``predictor.device``: on a CUDA card by a pinned,
+    non-blocking copy on the producer's side ``stream`` (so it overlaps the
+    forward of the batch before), with an event the consumer waits on."""
+    if stream is None:
+        return predictor._to_device(imgs), None
+    with torch.cuda.stream(stream):
+        x = torch.from_numpy(imgs).pin_memory().to(predictor.device,
+                                                   non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    return x, done
+
+
+def save_inference_samples(predictor: Predictor, image_paths: Iterable[str],
+                           runs_dir: str = "runs", prefetch: int = 2,
+                           batch_size: int = 1, writers: int = 2,
+                           ) -> Iterator[tuple[str, str]]:
+    """Run the test sweep: one overlay per image into runs/<timestamp>/.
+
+    Yields (image_path, output_path) as each file lands, with three legs
+    overlapped:
+
+    * a producer thread decodes ahead (``load_image``), batches, pads a
+      ragged last batch by repeating its last image, and uploads each batch
+      to ``predictor.device`` (on a card, on a side stream);
+    * the device runs the forward and returns only the packed label map
+      (``Predictor._packed_labels``: 1 bit a pixel for two classes);
+    * a writer pool composites the overlay on the host (``host_overlay``)
+      and writes it (``utils.fastpng.write_png``; PIL by extension for a
+      source that is not a PNG). The native calls and zlib release the GIL.
+
+    Results come in input order once their file is on disk; a decode error
+    is raised by the generator, a writer's error on the yield of its file.
+    """
+    import queue
+    import threading
+
+    out_dir = os.path.join(runs_dir, time.strftime("%Y%m%d-%H%M%S"))
+    os.makedirs(out_dir, exist_ok=True)
+    q: queue.Queue = queue.Queue(maxsize=max(1, prefetch))
+    stream = (torch.cuda.Stream(predictor.device)
+              if predictor.device.type == "cuda" else None)
+    stop = threading.Event()   # the consumer is gone: the producer returns
+
+    def put(item) -> None:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                pass
+
+    def producer() -> None:
+        try:
+            batch: list[tuple[str, np.ndarray]] = []
+
+            def ship() -> None:
+                imgs = np.stack([im for _, im in batch])
+                if len(batch) < batch_size:  # the same shape for every batch
+                    imgs = np.concatenate(
+                        [imgs, np.repeat(imgs[-1:], batch_size - len(batch),
+                                         axis=0)])
+                put(([p for p, _ in batch], imgs,
+                     *_upload(predictor, imgs, stream)))
+                batch.clear()
+
+            for p in image_paths:
+                if stop.is_set():
+                    return
+                batch.append((p, load_image(p, predictor.image_size)))
+                if len(batch) == batch_size:
+                    ship()
+            if batch:
+                ship()
+            put(None)
+        except BaseException as e:  # handed to the consumer, which raises it
+            put(e)
+
+    thread = threading.Thread(target=producer, name="sweep-producer",
+                              daemon=True)
+    thread.start()
+
+    try:
+        yield from _consume(predictor, q, out_dir, batch_size, writers)
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+
+
+def _consume(predictor: Predictor, q, out_dir: str, batch_size: int,
+             writers: int) -> Iterator[tuple[str, str]]:
+    """The sweep's consumer: the forward of each batch the producer queued,
+    then its files on the writer pool, yielded in input order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
+    from semanticsegmentation_tensorflow_tpu_torch.utils.fastpng import write_png
+
+    def render(img: np.ndarray, labels: np.ndarray, path: str) -> None:
+        overlay = host_overlay(img, labels, predictor._palette,
+                               predictor._alpha)
+        if path.lower().endswith(".png"):
+            write_png(path, overlay)
+        else:
+            from PIL import Image
+
+            Image.fromarray(overlay).save(path)
+
+    with ThreadPoolExecutor(max_workers=max(1, writers)) as pool:
+        futures: list[tuple[str, str, object]] = []
+
+        def flush(keep: int) -> Iterator[tuple[str, str]]:
+            # in submission order, leaving at most ``keep`` files in flight
+            while len(futures) > keep:
+                src, dst, fut = futures.pop(0)
+                fut.result()
+                yield src, dst
+
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            names, imgs, x, uploaded = item
+            if uploaded is not None:
+                current = torch.cuda.current_stream(predictor.device)
+                current.wait_event(uploaded)
+                x.record_stream(current)  # allocated on the side stream
+            labels = predictor._fetch_labels(x)
+            for i, name in enumerate(names):
+                out_path = os.path.join(out_dir, os.path.basename(name))
+                futures.append((name, out_path, pool.submit(
+                    render, imgs[i], labels[i], out_path)))
+            yield from flush(keep=batch_size)
+        yield from flush(keep=0)

@@ -10,8 +10,9 @@ import sys
 
 import torch
 
-# flags of the JAX package's CLIs that the port does not implement yet (by
-# their argparse names: --calib-dir is serve's, --tile-overlap infer_image's)
+# flags of the JAX package's serving CLIs that the port does not implement
+# yet (by their argparse names: --calib-dir is serve's, --tile-overlap
+# infer_image's); scripts/test.py has only --int8 and --mesh of them
 UNPORTED_FLAGS = ("int8", "tiled", "mesh", "artifact", "calib_dir",
                   "tile_overlap")
 
@@ -26,7 +27,8 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def add_model_args(p: argparse.ArgumentParser) -> None:
+def add_model_args(p: argparse.ArgumentParser,
+                   unported: tuple[str, ...] = UNPORTED_FLAGS) -> None:
     p.add_argument("--preset", default="fcn8s_kitti")
     p.add_argument("--model", default=None)
     p.add_argument("--model-kw", default=None,
@@ -46,13 +48,13 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--ema", action="store_true",
                    help="serve the EMA params of --checkpoint-dir (trained "
                         "with --ema-decay)")
-    for flag in UNPORTED_FLAGS:
+    for flag in unported:
         p.add_argument("--" + flag.replace("_", "-"), default=None,
                        nargs="?", const=True, help="not ported yet (raises)")
 
 
 def check_unported(args: argparse.Namespace) -> None:
-    used = [f for f in UNPORTED_FLAGS if getattr(args, f) is not None]
+    used = [f for f in UNPORTED_FLAGS if getattr(args, f, None) is not None]
     if used:
         raise NotImplementedError(
             "not ported yet: "

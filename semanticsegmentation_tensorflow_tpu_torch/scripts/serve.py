@@ -19,15 +19,6 @@ import threading
 import time
 
 
-def encode_png(arr) -> bytes:
-    """[H, W, 3] uint8 -> PNG bytes (PIL, fastest deflate level)."""
-    from PIL import Image
-
-    buf = io.BytesIO()
-    Image.fromarray(arr).save(buf, format="PNG", compress_level=1)
-    return buf.getvalue()
-
-
 def make_handler(predictor, stats):
     from http.server import BaseHTTPRequestHandler
 
@@ -36,6 +27,9 @@ def make_handler(predictor, stats):
 
     from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import (
         host_overlay,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.utils.fastpng import (
+        encode_png,
     )
 
     stats_lock = threading.Lock()  # += on a dict value is not atomic
@@ -128,9 +122,12 @@ def make_server(argv=None):
     from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import (
         host_overlay,
     )
+    from semanticsegmentation_tensorflow_tpu_torch.utils.fastpng import (
+        encode_png,
+    )
 
     predictor = build_predictor(args, device)
-    if args.warmup:  # pay the kernel build and cuDNN setup before serving
+    if args.warmup:  # pay the kernel and segio builds, cuDNN setup
         hs, ws = predictor.image_size
         dummy = np.zeros((hs, ws, 3), np.uint8)
         labels = predictor._fetch_labels(dummy[None])[0]

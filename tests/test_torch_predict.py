@@ -27,7 +27,7 @@ from semanticsegmentation_tensorflow_tpu.infer.predict import (
 from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
 from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
 
-from torch_parity import jax_fcn, jax_init, port_fcn
+from torch_parity import decided, jax_fcn, jax_init, port_fcn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IMAGE_HW = (40, 70)   # padded to 64x96 by the predictor
@@ -48,23 +48,13 @@ def images():
                                              np.uint8)
 
 
-def _decided(jax_pred, images):
-    """Pixels whose JAX logits are not a near-tie (see module docstring)."""
-    logits = np.asarray(jax_pred._logits_fn(jax_pred._variables,
-                                            jnp.asarray(images)))
-    margin = np.abs(logits[..., 1] - logits[..., 0])
-    decided = margin > 1e-4 * np.abs(logits).max()
-    assert decided.mean() >= 0.995
-    return decided
-
-
 def test_predictor_overlay_and_labels_match_jax(predictors, images):
     jax_pred, port_pred = predictors
     ov, lab = port_pred(images)
     j_ov, j_lab = jax_pred(images)
     assert ov.shape == j_ov.shape == (2, *IMAGE_HW, 3) and ov.dtype == np.uint8
     assert lab.shape == j_lab.shape and lab.dtype == np.int32
-    ok = _decided(jax_pred, images)
+    ok = decided(jax_pred, images)
     np.testing.assert_array_equal(lab[ok], j_lab[ok])
     same = lab == j_lab      # where the labels agree the bytes are exact
     np.testing.assert_array_equal(ov[same], j_ov[same])
@@ -83,7 +73,7 @@ def test_predictor_packed_labels_match_jax(predictors, images):
     labels = port_pred._fetch_labels(images)
     j_labels = jax_pred._fetch_labels(images)
     assert labels.dtype == j_labels.dtype == np.uint8
-    ok = _decided(jax_pred, images)
+    ok = decided(jax_pred, images)
     np.testing.assert_array_equal(labels[ok], j_labels[ok])
     if np.array_equal(labels, j_labels):
         np.testing.assert_array_equal(packed, j_packed)

@@ -47,3 +47,16 @@ def port_fcn(name: str = "fcn8s", variables=None, **kw):
 
 def nhwc_input(shape, seed=0) -> np.ndarray:
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def decided(jax_pred, images) -> np.ndarray:
+    """Pixels whose JAX Predictor logits are not a near-tie: the two
+    classes differ by more than 1e-4 of the logit scale. Within that margin
+    the f32 sums of the two frameworks (another summation order) may order a
+    near-tie either way; at most 0.5 % of pixels may fall in it."""
+    logits = np.asarray(jax_pred._logits_fn(jax_pred._variables,
+                                            jnp.asarray(images)))
+    margin = np.abs(logits[..., 1] - logits[..., 0])
+    ok = margin > 1e-4 * np.abs(logits).max()
+    assert ok.mean() >= 0.995
+    return ok

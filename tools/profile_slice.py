@@ -94,7 +94,7 @@ def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
     from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
-    from semanticsegmentation_tensorflow_tpu_torch.scripts.serve import encode_png
+    from semanticsegmentation_tensorflow_tpu_torch.utils.fastpng import encode_png
 
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
