@@ -28,6 +28,14 @@ just before it and read just after:
   ten steps on a fixed batch (the loss must fall), and train timings at the
   preset and at bench.py's workload.
 
+Then validated training and evaluation: ``scripts/train.py`` at
+``fcn8s_kitti`` for one epoch with ``--val-frac 0.25 --keep-best``, scale
+and color jitter, 2 decode workers, EMA and a strict import of a seeded
+VGG16 archive, then ``scripts/eval.py --road-metrics`` on its checkpoint
+(raw and ``--ema``) and at ``segnet_kitti``; the eval step with the kernels
+against plain PyTorch on the trained weights; the preset step with ``remat``
+beside the one without.
+
 Then the same two paths at the full width of the ``segnet_kitti`` preset
 (SegNet), after the SegNet stage1 tail and the argmax pool/unpool kernels
 are checked against their plain versions at the shapes SegNet gives them.
@@ -1097,6 +1105,203 @@ def check_train_step(torch) -> None:
         f"({['%.4f' % v for v in losses]})")
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall on a fixed batch")
+
+
+# --- validated training and evaluation (scripts/train.py --val-frac, eval.py) --
+
+
+def vgg_archive(path: str, seed: int) -> int:
+    """An ``.npz`` of VGG16 weights at the fcn8s_kitti preset's shapes (fc
+    1024), as ``--vgg-weights`` reads it: flax paths, HWIO kernels drawn
+    He-normal from ``seed``, biases 0.01. Returns its entry count."""
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.convert import flax_key, flax_layout
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+
+    rng = np.random.default_rng(seed)
+    blob = {}
+    for k, t in build_model("fcn8s", 2, device="meta").state_dict().items():
+        if not k.startswith("vgg16."):
+            continue
+        shape = flax_layout(np.broadcast_to(np.float32(0), tuple(t.shape)), False).shape
+        if len(shape) == 4:
+            std = np.sqrt(2.0 / (shape[0] * shape[1] * shape[2]))
+            blob[flax_key(k)] = rng.standard_normal(shape, np.float32) * np.float32(std)
+        else:
+            blob[flax_key(k)] = np.full(shape, 0.01, np.float32)
+    np.savez(path, **blob)
+    return len(blob)
+
+
+def run_cli(main, argv: list[str]) -> str:
+    """``main(argv)`` with its standard output captured (and echoed);
+    raises unless it returns 0."""
+    import contextlib
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    print(buf.getvalue(), end="")
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {argv} returned {rc}")
+    return buf.getvalue()
+
+
+def parse_eval(out: str) -> dict:
+    """The numbers of scripts/eval.py's lines (the JAX CLI's format)."""
+    import re
+
+    m = re.search(r"^loss=(\S+) miou=(\S+) pixel_acc=(\S+) iou=", out, re.M)
+    r = re.search(r"^kitti-road: MaxF=(\S+) AP=(\S+) .*@tau=(\S+)$", out, re.M)
+    t = re.search(r"^(\d+) images in (\S+)s \((\S+) img/s\)$", out, re.M)
+    if not (m and r and t):
+        raise AssertionError(f"eval printed no metrics: {out!r}")
+    vals = dict(loss=float(m[1]), miou=float(m[2]), pixel_acc=float(m[3]),
+                maxf=float(r[1]), ap=float(r[2]), tau=float(r[3]),
+                images=int(t[1]), seconds=float(t[2]), img_per_s=float(t[3]))
+    if not all(v == v and abs(v) != float("inf") for v in vals.values()):
+        raise AssertionError(f"eval printed a non-finite number: {vals}")
+    return vals
+
+
+def drive_validated_training(torch, tmp: str) -> dict:
+    """The validated-training path and the eval CLI at fcn8s_kitti's full
+    width, through the user's entry points: scripts/train.py for one epoch
+    (3 steps of batch 8) on 40 generated KITTI-like images with 10 held out
+    for validation, keep-best, both jitters, 2 decode workers, EMA and a
+    strict import of a seeded VGG16 archive at the preset's shapes; then
+    scripts/eval.py --road-metrics on the checkpoint it wrote, raw and
+    --ema (40 images at batch 4)."""
+    from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import train
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
+        checkpoint_steps,
+    )
+
+    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=40,
+                                    n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=2)
+    npz = os.path.join(tmp, "vgg16.npz")
+    n_vgg = vgg_archive(npz, seed=4)
+    ck = os.path.join(tmp, "ckpt")
+    t0 = time.perf_counter()
+    out = run_cli(train.main, [
+        "--preset", "fcn8s_kitti", "--data-dir", data, "--epochs", "1",
+        "--val-frac", "0.25", "--val-every", "1", "--keep-best",
+        "--scale-jitter", "0.75,1.0,1.25", "--color-jitter", "0.2,0.2,0.2",
+        "--loader-workers", "2", "--ema-decay", "0.99", "--vgg-weights", npz,
+        "--strict-import", "--checkpoint-dir", ck, "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    for want in ("val split: 10 images held out, 30 train",
+                 f"imported {n_vgg} VGG16 tensors", "scale jitter: [0.75, 1.0, 1.25]",
+                 "color jitter: b/c/s = [0.2, 0.2, 0.2]"):
+        if want not in out:
+            raise AssertionError(f"train.main did not print {want!r}")
+    with open(os.path.join(ck, "logs", "train.jsonl")) as f:
+        epoch = [json.loads(line) for line in f][-1]
+    if epoch.get("step") != 3 or not all(
+            k in epoch for k in ("epoch/val_loss", "epoch/val_miou",
+                                 "epoch/val_best", "epoch/val_seconds")):
+        raise AssertionError(f"validated epoch summary: {epoch}")
+    if checkpoint_steps(os.path.join(ck, "best")) != [3]:
+        raise AssertionError(f"no best/ checkpoint: {os.listdir(ck)}")
+    log(f"train.main validated: 3 steps, val_loss {epoch['epoch/val_loss']:.4f}, "
+        f"val_miou {epoch['epoch/val_miou']:.4f}, best/ at step 3, validation "
+        f"{epoch['epoch/val_seconds']:.3f} s for 10 images, {wall:.1f} s wall")
+    common = ["--preset", "fcn8s_kitti", "--data-dir", data, "--checkpoint-dir",
+              ck, "--road-metrics", "--device", "cuda"]
+    raw = parse_eval(run_cli(eval_cli.main, common))
+    ema = parse_eval(run_cli(eval_cli.main, common + ["--ema"]))
+    if raw["images"] != 40 or ema["images"] != 40:
+        raise AssertionError(f"eval counted {raw['images']} / {ema['images']} images")
+    ds = build_dataset("kitti_road", data, IMAGE_HW)
+    decode_ms = host_median_ms(lambda: ds.load_example(ds.train_images[0]), 5)
+    log(f"eval's loader: load_example (PNG decode of image and GT, resize, "
+        f"label encode) {decode_ms:.2f} ms an image (median of 5, one thread)")
+    return {"data": data, "ckpt": ck, "train_wall_s": wall,
+            "load_example_ms": decode_ms,
+            "val_seconds": epoch["epoch/val_seconds"],
+            "val_loss": epoch["epoch/val_loss"], "val_miou": epoch["epoch/val_miou"],
+            "eval": raw, "eval_ema": ema}
+
+
+def drive_segnet_eval(torch, tmp: str, data: str) -> dict:
+    """scripts/eval.py --road-metrics at segnet_kitti's full width on a
+    checkpoint of seeded random weights, over the 40 images of ``data``."""
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+
+    dev = torch.device("cuda")
+    model = init_params(build_model("segnet", 2, device=dev),
+                        torch.Generator(device=dev).manual_seed(3))
+    ck = os.path.join(tmp, "segnet_ckpt")
+    CheckpointManager(ck).save(create_train_state(
+        model, make_optimizer("adam", model.parameters(), 1e-4),
+        make_lr_schedule(1e-4), seed=0))
+    return parse_eval(run_cli(eval_cli.main, [
+        "--preset", "segnet_kitti", "--data-dir", data, "--checkpoint-dir", ck,
+        "--road-metrics", "--device", "cuda"]))
+
+
+def check_eval_against_plain(torch, data: str, ck: str, cli: dict) -> dict:
+    """The eval step on the card over the eval CLI's batches (40 images, batch
+    4, the same loader) with the trained FCN checkpoint, kernels against
+    plain PyTorch (stage1 as cuDNN convs and a max pool), same weights, bf16.
+
+    Tolerance: the two differ only where a stage1 conv value rounds to the
+    neighbouring bf16 value, a few bf16 ulps in the logits after 13 more
+    bf16 layers; only pixels whose two logits lie that close can flip. At
+    most 0.5 % of the valid pixels may take another class (the end-to-end
+    check's bound). Exact: the road histogram's total and each confusion
+    matrix's total equal the valid-pixel count; the kernel build's mIoU
+    equals the CLI's printed one (4 decimals)."""
+    from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import normalize_images
+    from semanticsegmentation_tensorflow_tpu_torch.data.pipeline import BatchLoader
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import load_weights
+    from semanticsegmentation_tensorflow_tpu_torch.train.metrics import iou_from_confusion
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_eval_step
+
+    dev = torch.device("cuda")
+    weights = load_weights(ck, map_location=dev)
+    kern = build_model("fcn8s", 2, device=dev)
+    plain = build_model("fcn8s", 2, device=dev, packed_stage1=False)
+    kern.load_state_dict(weights)
+    plain.load_state_dict(weights)
+    loader = BatchLoader(build_dataset("kitti_road", data, IMAGE_HW), 4, device=dev,
+                         drop_remainder=False)
+    step = make_eval_step(2, road_hist=True)
+    cm_k = cm_p = 0
+    moved = valid = hist = 0
+    for b in loader.epoch():
+        b = dict(b, image=normalize_images(b["image"], MEAN, STD))
+        ok, op = step(kern, b), step(plain, b)
+        moved += ((ok["pred"] != op["pred"]) & b["valid"]).sum().item()
+        valid += b["valid"].sum().item()
+        hist += ok["road_hist"].sum().item()
+        cm_k, cm_p = cm_k + ok["cm"], cm_p + op["cm"]
+    share = moved / valid
+    miou = iou_from_confusion(cm_k)[1].item()
+    log(f"eval kernels vs plain, fcn8s_kitti trained checkpoint, 40 images: "
+        f"{moved} of {valid} valid pixels change class ({100 * share:.4f} %, "
+        f"bound 0.5 %); confusion matrices {cm_k.tolist()} vs {cm_p.tolist()}; "
+        f"road histogram total {hist}; mIoU {miou:.4f} (CLI {cli['miou']:.4f})")
+    if not (share <= 0.005 and hist == valid == cm_k.sum().item() == cm_p.sum().item()
+            and abs(miou - cli["miou"]) <= 1e-4):
+        raise AssertionError("eval: kernels vs plain outside the bound")
+    return {"moved_share": share, "valid_pixels": valid}
 
 
 # --- SegNet (segnet_kitti): kernels 3 and 5, then its two paths -------------
@@ -2338,6 +2543,43 @@ def main() -> int:
         dict(train_times, preset=preset, bench_workload=bench)))
     torch.cuda.empty_cache()
 
+    # validated training (--val-frac, --keep-best, both jitters, decode
+    # workers, a strict VGG16 import) and the eval CLI at fcn8s_kitti, the
+    # eval CLI at segnet_kitti, the eval step held against plain PyTorch, and
+    # the preset step with remat beside the one without
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        val_run, val_launches = drive("validated training and eval",
+                                      drive_validated_training, torch, tmp)
+        missing = [k for k in ("stage1_tail", "stage1_tail_train", "stage1_tail_bwd")
+                   if not val_launches[k]]
+        if missing:
+            raise AssertionError(f"not launched on the validated training and "
+                                 f"eval path: {missing}")
+        seg_eval, seg_eval_launches = drive("segnet eval", drive_segnet_eval, torch,
+                                            tmp, val_run["data"])
+        missing = [k for k in ("stage1_tail_segnet", "pool_argmax", "unpool")
+                   if not seg_eval_launches[k]]
+        if missing:
+            raise AssertionError(f"not launched on the segnet eval path: {missing}")
+        plain_eval = check_eval_against_plain(torch, val_run["data"], val_run["ckpt"],
+                                              val_run["eval"])
+    torch.cuda.empty_cache()
+    remat = time_train(torch, smi, "preset_remat")
+    no_remat = time_train(torch, smi, "preset")
+    log(f"eval img/s by the CLI's clock after the model build (40 images, batch "
+        f"4): fcn8s_kitti {val_run['eval']['img_per_s']:.2f}, --ema "
+        f"{val_run['eval_ema']['img_per_s']:.2f}, segnet_kitti "
+        f"{seg_eval['img_per_s']:.2f}; validation {val_run['val_seconds']:.3f} s "
+        f"per epoch (10 images); preset step with remat {remat['host_ms']:.2f} "
+        f"ms/step, peak {remat['peak_gib']:.2f} GiB, without "
+        f"{no_remat['host_ms']:.2f} ms/step, {no_remat['peak_gib']:.2f} GiB | {smi}")
+    log(f"validated training and eval phase: {time.perf_counter() - t_phase:.1f} s")
+    log("eval timings: " + json.dumps(dict(
+        {k: v for k, v in val_run.items() if k not in ("data", "ckpt")},
+        segnet_eval=seg_eval, plain=plain_eval, remat=remat, no_remat=no_remat)))
+    torch.cuda.empty_cache()
+
     # --spatial: at one rank through train.main (kernel 1c, no single-device
     # stage1 kernel), the preset step with 1c beside the one with 1/1b, and
     # the 2-rank grid on this card
@@ -2424,7 +2666,8 @@ def main() -> int:
 
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, sweep_launches,
-                                        train_launches,
+                                        train_launches, val_launches,
+                                        seg_eval_launches,
                                         seg_infer_launches, seg_train_launches,
                                         w_infer_launches, w_train_launches,
                                         w_seg_launches, *spatial_runs)

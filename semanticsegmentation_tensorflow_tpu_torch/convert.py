@@ -55,19 +55,38 @@ def unflatten_params(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return tree
 
 
-def _torch_key(flax_key: str) -> str:
+def torch_key(flax_key: str) -> str:
+    """flax path ``a/b/kernel`` -> state-dict key ``a.b.weight``."""
     *path, leaf = flax_key.split("/")
     return ".".join([*path, {"kernel": "weight"}.get(leaf, leaf)])
 
 
-def _flax_key(torch_key: str) -> str:
+def flax_key(torch_key: str) -> str:
+    """The inverse of :func:`torch_key`."""
     *path, leaf = torch_key.split(".")
     return "/".join([*path, {"weight": "kernel"}.get(leaf, leaf)])
 
 
-def _transposed_weights(model: nn.Module) -> set[str]:
+def transposed_weights(model: nn.Module) -> set[str]:
+    """State-dict keys of the model's transposed-conv kernels."""
     return {f"{name}.weight" for name, m in model.named_modules()
             if isinstance(m, ConvTranspose)}
+
+
+def torch_layout(a: np.ndarray, transposed: bool) -> np.ndarray:
+    """A flax leaf in PyTorch's layout (module docstring); a view."""
+    if a.ndim != 4:
+        return a
+    return (np.flip(a, (0, 1)).transpose(2, 3, 0, 1) if transposed
+            else a.transpose(3, 2, 0, 1))
+
+
+def flax_layout(a: np.ndarray, transposed: bool) -> np.ndarray:
+    """The inverse of :func:`torch_layout`; a view."""
+    if a.ndim != 4:
+        return a
+    return (np.flip(a.transpose(2, 3, 0, 1), (0, 1)) if transposed
+            else a.transpose(2, 3, 1, 0))
 
 
 def to_state_dict(flat: Mapping[str, np.ndarray], model: nn.Module, *,
@@ -78,18 +97,15 @@ def to_state_dict(flat: Mapping[str, np.ndarray], model: nn.Module, *,
     shape. ``strict``: raise on any flax leaf the model has no place for and
     on any model parameter the params do not fill."""
     own = model.state_dict()
-    transposed = _transposed_weights(model)
+    transposed = transposed_weights(model)
     out: dict[str, torch.Tensor] = {}
     unused = []
     for fk, v in flat.items():
-        tk = _torch_key(fk)
+        tk = torch_key(fk)
         if tk not in own:
             unused.append(fk)
             continue
-        a = np.asarray(v, dtype=np.float32)
-        if a.ndim == 4:
-            a = (np.flip(a, (0, 1)).transpose(2, 3, 0, 1) if tk in transposed
-                 else a.transpose(3, 2, 0, 1))
+        a = torch_layout(np.asarray(v, dtype=np.float32), tk in transposed)
         if tuple(a.shape) != tuple(own[tk].shape):
             raise ValueError(f"shape mismatch for {fk!r}: {a.shape} (converted) "
                              f"vs {tuple(own[tk].shape)} in the port model")
@@ -105,12 +121,7 @@ def from_state_dict(state_dict: Mapping[str, torch.Tensor],
                     model: nn.Module) -> dict[str, np.ndarray]:
     """A port ``state_dict`` -> flat flax params (float32 numpy), the
     inverse of :func:`to_state_dict`."""
-    transposed = _transposed_weights(model)
-    flat: dict[str, np.ndarray] = {}
-    for tk, t in state_dict.items():
-        a = t.detach().to("cpu", torch.float32).numpy()
-        if a.ndim == 4:
-            a = (np.flip(a.transpose(2, 3, 0, 1), (0, 1)) if tk in transposed
-                 else a.transpose(2, 3, 1, 0))
-        flat[_flax_key(tk)] = np.ascontiguousarray(a)
-    return flat
+    transposed = transposed_weights(model)
+    return {flax_key(tk): np.ascontiguousarray(flax_layout(
+                t.detach().to("cpu", torch.float32).numpy(), tk in transposed))
+            for tk, t in state_dict.items()}

@@ -18,6 +18,7 @@ from __future__ import annotations
 import queue
 import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -36,7 +37,10 @@ class BatchLoader:
     entirely invalid. ``mesh``: a ``parallel.mesh.Grid``; this rank's images
     and rows of every batch (``batch_size`` is global and must divide over
     the grid's data ranks; the padded height over ``pad_multiple`` times
-    its spatial ranks, else a batch raises).
+    its spatial ranks, else a batch raises). ``workers``: decode each
+    batch's examples on a pool of this many threads (0: inline); PNG
+    decode releases the GIL, and the batches are bit-identical to
+    ``workers=0``.
     """
 
     DEFAULT_CACHE_BYTES = 2 << 30
@@ -44,7 +48,7 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, pad_multiple: int = 32,
                  seed: int = 0, *, device, drop_remainder: bool = True,
                  cache: bool = True, cache_bytes: int | None = None,
-                 mesh=None):
+                 mesh=None, workers: int = 0):
         if mesh is not None and batch_size % mesh.data:
             raise ValueError(f"batch_size {batch_size} must divide over the "
                              f"grid's {mesh.data} data ranks")
@@ -59,6 +63,9 @@ class BatchLoader:
         self._cache_bytes = (self.DEFAULT_CACHE_BYTES if cache_bytes is None
                              else int(cache_bytes))
         self._cache_used = 0
+        self._cache_lock = threading.Lock()
+        self.workers = int(workers)
+        self._pool: ThreadPoolExecutor | None = None
 
     # -- host-side example assembly -------------------------------------
     @staticmethod
@@ -66,18 +73,25 @@ class BatchLoader:
         return sum(int(a.nbytes) for a in ex)
 
     def _get(self, path: str):
-        if self._cache is not None and path in self._cache:
-            self._cache.move_to_end(path)  # LRU: recent at the end
-            return self._cache[path]
+        # the decode pool shares the LRU behind a lock; the decode itself
+        # runs outside it, so a rare race decodes one path twice (the same
+        # result; the second insert is skipped)
+        if self._cache is not None:
+            with self._cache_lock:
+                if path in self._cache:
+                    self._cache.move_to_end(path)  # LRU: recent at the end
+                    return self._cache[path]
         ex = self.ds.load_example(path)
         if self._cache is not None:
             size = self._example_nbytes(ex)
             if size <= self._cache_bytes:  # never admit > the whole budget
-                self._cache[path] = ex
-                self._cache_used += size
-                while self._cache_used > self._cache_bytes:
-                    _, old = self._cache.popitem(last=False)
-                    self._cache_used -= self._example_nbytes(old)
+                with self._cache_lock:
+                    if path not in self._cache:
+                        self._cache[path] = ex
+                        self._cache_used += size
+                    while self._cache_used > self._cache_bytes:
+                        _, old = self._cache.popitem(last=False)
+                        self._cache_used -= self._example_nbytes(old)
         return ex
 
     def _pad(self, img, lbl, val):
@@ -91,9 +105,16 @@ class BatchLoader:
         return img, lbl, val
 
     def _stack(self, paths: list[str]) -> dict[str, np.ndarray]:
+        if self.workers > 0:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(self.workers,
+                                                thread_name_prefix="seg-decode")
+            examples = list(self._pool.map(self._get, paths))  # in order
+        else:
+            examples = [self._get(p) for p in paths]
         imgs, lbls, vals = [], [], []
-        for p in paths:
-            i, l, v = self._pad(*self._get(p))
+        for ex in examples:
+            i, l, v = self._pad(*ex)
             imgs.append(i); lbls.append(l); vals.append(v)
         batch = {"image": np.stack(imgs), "label": np.stack(lbls),
                  "valid": np.stack(vals)}
@@ -201,6 +222,30 @@ class BatchLoader:
         n = len(self.ds.train_images)
         return (n // self.batch_size if self.drop_remainder
                 else -(-n // self.batch_size))
+
+
+class _SubsetDataset:
+    """A dataset restricted to an explicit train-image list (how
+    ``scripts/train.py --val-frac`` holds out a validation split; KITTI road
+    has no labeled val split). Everything else delegates."""
+
+    def __init__(self, ds, paths):
+        self._ds = ds
+        self._paths = list(paths)
+
+    @property
+    def train_images(self) -> list[str]:
+        return list(self._paths)
+
+    def load_example(self, path: str):
+        return self._ds.load_example(path)
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+
+def subset_dataset(ds, paths) -> _SubsetDataset:
+    return _SubsetDataset(ds, paths)
 
 
 def class_pixel_counts(dataset, num_classes: int) -> np.ndarray:

@@ -2,13 +2,18 @@
 ``models/vgg16.py``): stages 1-5 with 2x2 pools, then fc6 (7x7 SAME) and
 fc7 (1x1) as convs with dropout. NHWC in, dict of NHWC endpoints out.
 Dropout draws its masks from the generator passed to ``forward`` (flax's
-semantics, ``models.common.dropout``)."""
+semantics, ``models.common.dropout``). :func:`load_npz_weights` imports
+pretrained VGG16 weights from the JAX package's ``.npz`` archives."""
 
 from __future__ import annotations
 
+from typing import Iterable
+
+import numpy as np
 import torch
 import torch.nn as nn
 
+from semanticsegmentation_tensorflow_tpu_torch import convert
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
     Conv, ConvBlock, dropout,
@@ -119,3 +124,64 @@ class VGG16(nn.Module):
         x = dropout(torch.relu(self.conv7(x)), self.dropout_rate, **drop)
         ends["conv7"] = x
         return ends
+
+
+def _is_backbone(flax_path: str) -> bool:
+    return any(p.startswith("stage") or p in ("conv6", "conv7")
+               for p in flax_path.split("/"))
+
+
+def load_npz_weights(state_dict: dict[str, torch.Tensor], npz_path: str, *,
+                     strict: bool = False, report: dict | None = None,
+                     transposed: Iterable[str] = ()) -> dict[str, torch.Tensor]:
+    """Import pretrained VGG16 kernels and biases from an ``.npz`` archive
+    keyed by flax paths (``stage1/conv0/kernel``, HWIO kernels; the JAX
+    package's ``load_npz_weights`` format) into a copy of the port's
+    ``state_dict``.
+
+    Each parameter matches by its flax path (``convert.flax_key``), relative
+    to the model (``vgg16/...``) or to the backbone; kernels convert to
+    PyTorch's layout as ``convert.to_state_dict`` does (``transposed``: the
+    keys of transposed-conv kernels, ``convert.transposed_weights``). A name
+    match with another shape raises in both modes. ``strict``: every
+    backbone parameter (a ``stageN`` or ``conv6``/``conv7`` path) must be
+    matched and every archive entry used, else ValueError. ``report`` is
+    filled with the ``matched``, ``unmatched_params`` and ``unused_archive``
+    lists, in flax path names. Returns the new state_dict."""
+    transposed = set(transposed)
+    blob = np.load(npz_path)
+    out = dict(state_dict)
+    matched: list[str] = []
+    used: set[str] = set()
+    for tk, val in state_dict.items():
+        key = convert.flax_key(tk)
+        for candidate in (key, f"vgg16/{key}", key.removeprefix("vgg16/")):
+            if candidate not in blob.files:
+                continue
+            a = blob[candidate]
+            want = convert.flax_layout(np.broadcast_to(np.float32(0), val.shape),
+                                       tk in transposed).shape
+            if a.shape != want:
+                raise ValueError(
+                    f"shape mismatch importing {candidate!r}: archive "
+                    f"{a.shape} vs param {want} - model width (e.g. "
+                    "fc_features) must match the archive; see the "
+                    "fcn8s_kitti_parity preset")
+            out[tk] = torch.from_numpy(np.ascontiguousarray(
+                convert.torch_layout(a, tk in transposed))).to(val)
+            matched.append(key)
+            used.add(candidate)
+            break
+    done = set(matched)
+    unmatched = [convert.flax_key(tk) for tk in state_dict
+                 if convert.flax_key(tk) not in done
+                 and _is_backbone(convert.flax_key(tk))]
+    unused = [f for f in blob.files if f not in used]
+    if report is not None:
+        report.update(matched=sorted(matched), unmatched_params=sorted(unmatched),
+                      unused_archive=sorted(unused))
+    if strict and (unmatched or unused):
+        raise ValueError("strict VGG16 import failed: unmatched backbone params "
+                         f"{sorted(unmatched)}; unused archive entries "
+                         f"{sorted(unused)}")
+    return out

@@ -24,8 +24,15 @@ logs.
 
 ``--pallas-preprocess`` keeps the JAX flag's name: it selects the CUDA
 preprocess kernel (``ops/cuda/preprocess.py``) for the image leg of the
-augment. Checkpoints (``<checkpoint-dir>/ckpt_<step>.pt``) are read back by
-``infer_image``/``serve --checkpoint-dir``.
+augment; it computes flip, crop and normalize only, so the scale and color
+jitters are ignored with it (as in the JAX CLI). ``--val-frac`` holds out
+the last images of the train split for validation every ``--val-every``
+epochs (sharded over a 1-D data grid, unsharded on every rank under a
+spatial grid); ``--keep-best`` also saves ``<checkpoint-dir>/best``
+whenever the validation mIoU improves. ``--vgg-weights`` imports an
+``.npz`` of VGG16 weights (``models/vgg16.py:load_npz_weights``) before the
+EMA copy is taken. Checkpoints (``<checkpoint-dir>/ckpt_<step>.pt``) are
+read back by ``infer_image``/``serve``/``eval --checkpoint-dir``.
 """
 
 from __future__ import annotations
@@ -38,14 +45,10 @@ import tempfile
 
 # flags of the JAX CLI that the port does not implement yet: each raises
 # when set away from its default
-UNPORTED = {"shard_opt": False,
-            "qat": False, "scale_jitter": None, "color_jitter": None,
-            "val_frac": 0.0, "val_every": 1, "keep_best": False,
-            "qat_calib_batches": 4, "loader_workers": 0,
-            "vgg_weights": None, "strict_import": False}
+UNPORTED = {"shard_opt": False, "qat": False, "qat_calib_batches": 4}
 
 
-def parse_args(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--preset", default="fcn8s_kitti")
@@ -76,6 +79,30 @@ def parse_args(argv=None):
     p.add_argument("--pallas-preprocess", action="store_true",
                    help="flip + crop + normalize with the CUDA preprocess "
                         "kernel (bit-equal to its plain version)")
+    p.add_argument("--scale-jitter", default=None,
+                   help="comma-separated random-scale set, e.g. 0.75,1.0,1.25: "
+                        "one scale per step (zoom-out pads with valid=0); "
+                        "not with --spatial or --pallas-preprocess")
+    p.add_argument("--color-jitter", default=None,
+                   help="per-example photometric magnitudes "
+                        "'brightness,contrast,saturation', e.g. 0.2,0.2,0.2 "
+                        "(not with --pallas-preprocess)")
+    p.add_argument("--val-frac", type=float, default=0.0,
+                   help="hold out this fraction of the train images as a "
+                        "validation split, evaluated every --val-every epochs")
+    p.add_argument("--val-every", type=int, default=1,
+                   help="epochs between validation passes (--val-frac)")
+    p.add_argument("--keep-best", action="store_true",
+                   help="also checkpoint to <checkpoint-dir>/best whenever "
+                        "the validation mIoU improves (needs --val-frac)")
+    p.add_argument("--loader-workers", type=int, default=0,
+                   help="decode each batch on N threads (0 = inline)")
+    p.add_argument("--vgg-weights", default=None,
+                   help=".npz of pretrained VGG16 weights (flax paths, HWIO "
+                        "kernels; e.g. from tools/import_tf_vgg.py)")
+    p.add_argument("--strict-import", action="store_true",
+                   help="error unless --vgg-weights covers every backbone "
+                        "param and every archive entry is used")
     p.add_argument("--cache-gb", type=float, default=None,
                    help="RAM budget for the decoded-image cache (0 disables)")
     p.add_argument("--checkpoint-dir", default=None)
@@ -101,9 +128,13 @@ def parse_args(argv=None):
         if isinstance(default, bool):
             p.add_argument(flag, action="store_true", help="not ported yet")
         else:
-            p.add_argument(flag, type=type(default) if default is not None
-                           else str, default=default, help="not ported yet")
-    args = p.parse_args(argv)
+            p.add_argument(flag, type=type(default), default=default,
+                           help="not ported yet")
+    return p
+
+
+def parse_args(argv=None):
+    args = build_parser().parse_args(argv)
     used = sorted("--" + k.replace("_", "-") for k, d in UNPORTED.items()
                   if getattr(args, k) != d)
     if used:
@@ -113,6 +144,9 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    error = build_parser().error
+    if args.keep_best and not args.val_frac:
+        error("--keep-best needs --val-frac")
 
     import torch
 
@@ -121,14 +155,18 @@ def main(argv=None) -> int:
     )
     from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import (
-        make_augment_fn,
+        check_color_jitter, make_augment_fn, normalize_images,
     )
-    from semanticsegmentation_tensorflow_tpu_torch.data.pipeline import BatchLoader
+    from semanticsegmentation_tensorflow_tpu_torch.data.pipeline import (
+        BatchLoader, subset_dataset,
+    )
     from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
         generate_synthetic_kitti,
     )
+    from semanticsegmentation_tensorflow_tpu_torch.convert import transposed_weights
     from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import load_npz_weights
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
         resolve_device,
     )
@@ -136,10 +174,13 @@ def main(argv=None) -> int:
         CheckpointManager,
     )
     from semanticsegmentation_tensorflow_tpu_torch.train.loop import LoopHooks, train
+    from semanticsegmentation_tensorflow_tpu_torch.train.metrics import SegMetrics
     from semanticsegmentation_tensorflow_tpu_torch.train.state import (
         create_train_state, make_lr_schedule, make_optimizer,
     )
-    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import (
+        make_eval_step, make_train_step,
+    )
     from semanticsegmentation_tensorflow_tpu_torch.utils.logging import MetricsLogger
 
     from semanticsegmentation_tensorflow_tpu_torch.parallel.launch import (
@@ -151,6 +192,17 @@ def main(argv=None) -> int:
 
     if args.spatial < 1:
         raise ValueError(f"--spatial must be >= 1, got {args.spatial}")
+    jitter = (tuple(float(s) for s in args.scale_jitter.split(","))
+              if args.scale_jitter else None)
+    color = check_color_jitter(args.color_jitter.split(",")
+                               if args.color_jitter else None)
+    if jitter and (args.spatial > 1 or args.pallas_preprocess):
+        print("note: --scale-jitter needs the plain augment path on an "
+              "unsharded image; ignored")
+        jitter = None
+    if color and args.pallas_preprocess:
+        print("note: --color-jitter needs the plain augment path; ignored")
+        color = None
     device = resolve_device(args.device)
     world = 1
     if args.distributed:
@@ -202,6 +254,16 @@ def main(argv=None) -> int:
             w=dc.image_size[1])
     # a bad --data-dir fails here, before any device work
     ds = build_dataset(dc.dataset, data_dir, dc.image_size)
+    val_ds = None
+    if args.val_frac:
+        paths = list(ds.train_images)
+        k = max(1, int(round(len(paths) * args.val_frac)))
+        if k >= len(paths):
+            error(f"--val-frac {args.val_frac} leaves no training images")
+        val_ds = subset_dataset(ds, paths[-k:])
+        ds = subset_dataset(ds, paths[:-k])
+        if primary:
+            print(f"val split: {k} images held out, {len(paths) - k} train")
     n_train = len(ds.train_images)
 
     model_kwargs = dict(cfg.model_kwargs, **parse_model_kw(args.model_kw))
@@ -213,6 +275,16 @@ def main(argv=None) -> int:
     model = build_model(cfg.model, num_classes=dc.num_classes, device=device,
                         **model_kwargs)
     init_params(model, torch.Generator(device=device).manual_seed(tr.seed))
+    if args.vgg_weights:        # before the EMA copy, which then starts from it
+        report: dict = {}
+        model.load_state_dict(load_npz_weights(
+            model.state_dict(), args.vgg_weights, strict=args.strict_import,
+            report=report, transposed=transposed_weights(model)))
+        if primary:
+            print(f"imported {len(report['matched'])} VGG16 tensors from "
+                  f"{args.vgg_weights}"
+                  + (f"; unmatched backbone params: {report['unmatched_params']}"
+                     if report["unmatched_params"] else ""))
     stride = getattr(model, "total_stride", 32)
     mesh_kind = ("none" if grid is None else f"1d-data{grid.data}"
                  if grid.spatial == 1 else f"data{grid.data}xspatial{grid.spatial}")
@@ -227,7 +299,8 @@ def main(argv=None) -> int:
         else:
             cache_kw["cache_bytes"] = int(args.cache_gb * (1 << 30))
     loader = BatchLoader(ds, tr.batch_size, pad_multiple=stride, seed=tr.seed,
-                         device=device, mesh=grid, **cache_kw)
+                         device=device, mesh=grid, workers=args.loader_workers,
+                         **cache_kw)
     if args.pallas_preprocess:
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
             make_preprocess_augment_fn,
@@ -236,7 +309,12 @@ def main(argv=None) -> int:
                                          random_flip=dc.random_flip)
     else:
         aug = make_augment_fn(dc.mean, dc.std, crop_size=dc.crop_size,
-                              random_flip=dc.random_flip)
+                              random_flip=dc.random_flip, scale_jitter=jitter,
+                              color_jitter=color)
+        if primary and jitter:
+            print(f"scale jitter: {list(jitter)} (one scale per step)")
+        if primary and color:
+            print(f"color jitter: b/c/s = {list(color)}")
 
     total_steps = tr.epochs * loader.steps_per_epoch()
     lr_fn = make_lr_schedule(tr.learning_rate, tr.lr_schedule, total_steps,
@@ -287,15 +365,39 @@ def main(argv=None) -> int:
             s["step"], {f"epoch/{k}": v for k, v in s.items()
                         if isinstance(v, (int, float)) and k != "step"}))
     step_fn = make_train_step(dc.num_classes, mesh=grid, augment_fn=aug,
-                              class_weights=class_weights,
+                              remat=tr.remat, class_weights=class_weights,
                               grad_accum=args.grad_accum, loss=args.loss,
                               focal_gamma=args.focal_gamma)
+    val_fn = best_ckpt = None
+    if val_ds is not None:
+        vgrid = grid if grid is not None and grid.spatial == 1 else None
+        if primary and grid is not None and vgrid is None:
+            print("note: validation runs unsharded under this mesh")
+        val_loader = BatchLoader(val_ds, tr.batch_size, pad_multiple=stride,
+                                 device=device, drop_remainder=False,
+                                 mesh=vgrid, workers=args.loader_workers,
+                                 **cache_kw)
+        veval = make_eval_step(dc.num_classes, mesh=vgrid)
+
+        def val_fn(state):
+            m = SegMetrics(dc.num_classes, device)
+            for b in val_loader.epoch():
+                out = veval(state, dict(b, image=normalize_images(
+                    b["image"], dc.mean, dc.std)))
+                m.update(out["cm"], out["loss"])
+            s = m.summary()
+            return {"val_loss": float(s["loss"]), "val_miou": float(s["miou"])}
+
+        if args.keep_best and primary:
+            best_ckpt = CheckpointManager(os.path.join(tr.checkpoint_dir, "best"),
+                                          max_to_keep=1)
     try:
         state, summary = train(
             state, step_fn, loader.epoch, epochs=tr.epochs,
             num_classes=dc.num_classes, log_every=tr.log_every,
             checkpoint_every=tr.checkpoint_every, ckpt=ckpt, hooks=hooks,
-            images_per_batch=tr.batch_size if grid is not None else None)
+            images_per_batch=tr.batch_size if grid is not None else None,
+            val_every=args.val_every, val_fn=val_fn, best_ckpt=best_ckpt)
     finally:
         if logger is not None:
             logger.close()

@@ -1,8 +1,10 @@
-"""Segmentation metrics: confusion matrix -> mIoU / pixel accuracy
-(counterpart of the JAX package's ``train/metrics.py``)."""
+"""Segmentation metrics: confusion matrix -> mIoU / pixel accuracy, and the
+KITTI road devkit measures from a road-confidence histogram (counterpart of
+the JAX package's ``train/metrics.py``)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,6 +23,58 @@ def confusion_matrix(true_labels: torch.Tensor, pred_labels: torch.Tensor,
     counts = torch.zeros(c * c + 1, dtype=torch.int64, device=idx.device)
     counts.scatter_add_(0, idx, torch.ones_like(idx))
     return counts[:c * c].reshape(c, c)
+
+
+def binary_confidence_histogram(prob_fg: torch.Tensor, gt_fg: torch.Tensor,
+                                valid_mask: torch.Tensor | None = None,
+                                bins: int = 256) -> torch.Tensor:
+    """[2, bins] int64 counts of foreground-confidence bins, row = GT class
+    (0 background, 1 foreground). A pixel's bin is ``clip(floor(p * bins),
+    0, bins - 1)`` of its f32 probability: the uint8 confidence map the
+    KITTI road devkit sweeps. One integer scatter-add over ``gt * bins +
+    bin``, as :func:`confusion_matrix`, exact at any pixel count."""
+    b = torch.floor(prob_fg.reshape(-1).float() * bins).clamp(0, bins - 1).long()
+    idx = gt_fg.reshape(-1).long() * bins + b
+    if valid_mask is not None:
+        idx = torch.where(valid_mask.reshape(-1).bool(), idx, 2 * bins)
+    counts = torch.zeros(2 * bins + 1, dtype=torch.int64, device=idx.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
+    return counts[:2 * bins].reshape(2, bins)
+
+
+def kitti_road_metrics(hist) -> dict[str, float]:
+    """KITTI road devkit measures from a [2, bins] confidence histogram (a
+    numpy copy of the JAX package's host-side finish). For every threshold
+    ``k / bins`` (road iff the bin >= k, k = 0..bins) suffix sums give the
+    exact TP/FP counts; ``maxf`` is the best F1 over the sweep, ``ap`` the
+    11-point interpolated average precision, and ``precision`` /
+    ``recall`` / ``fpr`` / ``fnr`` / ``threshold`` the working point where
+    F1 peaks. No positive or no valid pixel returns zeros."""
+    if isinstance(hist, torch.Tensor):
+        hist = hist.cpu().numpy()
+    hist = np.asarray(hist, np.int64)
+    neg, pos = hist[0], hist[1]
+    n_pos, n_neg = int(pos.sum()), int(neg.sum())
+    bins = hist.shape[1]
+    if n_pos == 0 or (n_pos + n_neg) == 0:
+        return {k: 0.0 for k in ("maxf", "ap", "precision", "recall",
+                                 "fpr", "fnr", "threshold")}
+    # k = bins (predict nothing) closes the PR curve at recall 0
+    tp = np.concatenate([np.cumsum(pos[::-1])[::-1], [0]]).astype(np.float64)
+    fp = np.concatenate([np.cumsum(neg[::-1])[::-1], [0]]).astype(np.float64)
+    fn = n_pos - tp
+    with np.errstate(divide="ignore", invalid="ignore"):
+        precision = np.where(tp + fp > 0, tp / (tp + fp), 0.0)
+        recall = tp / n_pos
+        f1 = np.where(precision + recall > 0,
+                      2 * precision * recall / (precision + recall), 0.0)
+    k = int(np.argmax(f1))
+    ap = float(np.mean([precision[recall >= r].max(initial=0.0)
+                        for r in np.linspace(0.0, 1.0, 11)]))
+    return {"maxf": float(f1[k]), "ap": ap, "precision": float(precision[k]),
+            "recall": float(recall[k]),
+            "fpr": float(fp[k] / n_neg) if n_neg else 0.0,
+            "fnr": float(fn[k] / n_pos), "threshold": k / bins}
 
 
 def iou_from_confusion(cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

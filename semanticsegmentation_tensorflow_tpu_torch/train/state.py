@@ -61,25 +61,100 @@ def make_lr_schedule(learning_rate: float, schedule: str = "constant",
     return warm
 
 
+def _as_dtype(d: torch.dtype | str) -> torch.dtype:
+    """A torch dtype, or its name (``"bfloat16"``, ``"float16"``, ...)."""
+    dtype = d if isinstance(d, torch.dtype) else getattr(torch, str(d), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown mu_dtype {d!r}")
+    return dtype
+
+
+class MomentDtypeOptimizer(torch.optim.Optimizer):
+    """optax's ``adam`` / ``adamw`` (``mu_dtype=``) and ``sgd`` with
+    momentum 0.9 (``accumulator_dtype=``) with the first moment (Adam's
+    ``mu``, SGD's trace) stored in ``mu_dtype``.
+
+    As in optax, each update forms the new moment in f32 from the f32
+    gradient and the decayed stored moment (``decay * moment`` in
+    ``mu_dtype``, the factor rounded to it too, as jnp's weak typing
+    computes it), computes the update from that f32 moment, and only then
+    casts the moment for storage; Adam's second moment stays f32. Adam:
+    ``mu_hat = mu / (1 - b1^t)``, ``nu_hat = nu / (1 - b2^t)``, update
+    ``mu_hat / (sqrt(nu_hat) + eps)``; ``adam`` adds ``weight_decay * p`` to
+    the gradient first (coupled L2), ``adamw`` adds it to the update."""
+
+    def __init__(self, params, kind: str, lr: float, mu_dtype: torch.dtype | str,
+                 weight_decay: float = 0.0, betas=(0.9, 0.999),
+                 eps: float = 1e-8, momentum: float = 0.9):
+        if kind not in ("adam", "adamw", "sgd"):
+            raise ValueError(f"unknown optimizer {kind!r}")
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay,
+                                      betas=betas, eps=eps,
+                                      momentum=momentum))
+        self.kind = kind
+        self.mu_dtype = _as_dtype(mu_dtype)
+
+    def _decay(self, moment: torch.Tensor, decay: float) -> torch.Tensor:
+        """``decay * moment`` as jnp computes it for a weakly typed Python
+        float: the factor rounded to ``mu_dtype``, the product too; f32."""
+        m = moment.to(self.mu_dtype)
+        return (m * torch.tensor(decay, dtype=self.mu_dtype)).float()
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, wd = group["lr"], group["weight_decay"]
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.float()
+                st = self.state[p]
+                if self.kind == "sgd":
+                    t = st.get("momentum_buffer")
+                    trace = g if t is None else g + self._decay(t, group["momentum"])
+                    st["momentum_buffer"] = trace.to(self.mu_dtype)
+                    p.add_(trace, alpha=-lr)
+                    continue
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                if self.kind == "adam" and wd:
+                    g = g + wd * p
+                st["step"] += 1
+                mu = (1 - b1) * g + self._decay(st["exp_avg"], b1)
+                nu = st["exp_avg_sq"].mul_(b2).add_((1 - b2) * g * g)
+                mu_hat = mu / (1 - b1 ** st["step"])
+                nu_hat = nu / (1 - b2 ** st["step"])
+                update = mu_hat / (nu_hat.sqrt() + group["eps"])
+                if self.kind == "adamw" and wd:
+                    update = update + wd * p
+                st["exp_avg"] = mu.to(self.mu_dtype)
+                p.add_(update, alpha=-lr)
+
+
 def make_optimizer(name: str, params, learning_rate: float,
                    weight_decay: float = 0.0, mu_dtype: Any = None
                    ) -> torch.optim.Optimizer:
     """``adam`` (coupled L2 weight decay), ``adamw`` (decoupled) or ``sgd``
     (momentum 0.9, weight decay ignored as in the JAX package) over
-    ``params``; the rate is set per step from the
-    schedule (:class:`TrainState`). ``mu_dtype`` (a bf16 first moment on
-    the TPU) is not ported."""
+    ``params``; the rate is set per step from the schedule
+    (:class:`TrainState`). ``mu_dtype`` (e.g. ``torch.bfloat16`` or
+    ``"bfloat16"``) stores the first moment in that dtype
+    (:class:`MomentDtypeOptimizer`); None keeps torch's f32 optimizers."""
+    if name not in ("adam", "adamw", "sgd"):
+        raise ValueError(f"unknown optimizer {name!r}")
     if mu_dtype is not None:
-        raise NotImplementedError("mu_dtype is not ported yet")
+        return MomentDtypeOptimizer(params, name, learning_rate, mu_dtype,
+                                    weight_decay if name != "sgd" else 0.0)
     if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate,
                                 weight_decay=weight_decay)
     if name == "adamw":
         return torch.optim.AdamW(params, lr=learning_rate,
                                  weight_decay=weight_decay)
-    if name == "sgd":
-        return torch.optim.SGD(params, lr=learning_rate, momentum=0.9)
-    raise ValueError(f"unknown optimizer {name!r}")
+    return torch.optim.SGD(params, lr=learning_rate, momentum=0.9)
 
 
 @dataclasses.dataclass

@@ -15,6 +15,13 @@ gradient and the confusion matrix get one ``all_reduce(SUM)`` over the
 world before the single divide, so the grid step equals the single-process
 step up to summation order and the update is the same on every rank.
 
+``remat`` recomputes the model's forward in the backward
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` with
+``nothing_saveable``): the dropout generator's state is saved before the
+forward and put back for the recompute, so the recompute draws the same
+masks. The eval step (:func:`make_eval_step`) runs the forward in
+``eval()`` mode without gradients and draws from no generator.
+
 Batch contract (leading dim = batch): image [N,H,W,3] (uint8 with an
 augment function, or float32 already normalized), label [N,H,W] class ids,
 valid [N,H,W] bool (optional).
@@ -22,17 +29,22 @@ valid [N,H,W] bool (optional).
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import Callable
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
+from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import labels_from_logits
 from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import use_grid
 from semanticsegmentation_tensorflow_tpu_torch.train.loss import (
     focal_loss_sum, softmax_cross_entropy_sum,
 )
-from semanticsegmentation_tensorflow_tpu_torch.train.metrics import confusion_matrix
+from semanticsegmentation_tensorflow_tpu_torch.train.metrics import (
+    binary_confidence_histogram, confusion_matrix,
+)
 from semanticsegmentation_tensorflow_tpu_torch.train.state import TrainState
 
 AugmentFn = Callable[[torch.Generator, dict], dict]  # (generator, batch) -> batch
@@ -46,10 +58,11 @@ def make_train_step(num_classes: int, mesh=None,
     """Build ``step(state, batch) -> {"loss", "cm"}`` (``cm``, the [C, C]
     train-time confusion matrix, only ``with_metrics``). The step updates
     ``state`` in place. ``mesh``: a ``parallel.mesh.Grid`` (module
-    docstring); the batch holds this rank's images and rows. ``shard_opt``
-    and ``remat`` are not ported yet and raise."""
-    if shard_opt or remat:
-        raise NotImplementedError("shard_opt and remat are not ported yet")
+    docstring); the batch holds this rank's images and rows. ``remat``:
+    recompute the forward in the backward (module docstring).
+    ``shard_opt`` is not ported yet and raises."""
+    if shard_opt:
+        raise NotImplementedError("shard_opt is not ported yet")
     if loss == "ce":
         loss_sum_fn = softmax_cross_entropy_sum
     elif loss == "focal":
@@ -78,7 +91,9 @@ def make_train_step(num_classes: int, mesh=None,
             with use_grid(mesh):
                 if augment_fn is not None:
                     mb = augment_fn(state.aug_gen, mb)
-                logits = model(mb["image"], generator=state.dropout_gen)
+                logits = (_remat_forward(model, mb["image"], state.dropout_gen)
+                          if remat else
+                          model(mb["image"], generator=state.dropout_gen))
                 ce_sum, valid_sum = loss_sum_fn(logits, mb["label"],
                                                 mb.get("valid"), weights)
                 ce_sum.backward()
@@ -103,6 +118,94 @@ def make_train_step(num_classes: int, mesh=None,
         return out
 
     return step
+
+
+@contextlib.contextmanager
+def _replay(generator: torch.Generator, saved: torch.Tensor):
+    """Run the enclosed recompute from the generator state ``saved`` and
+    leave the generator where it was before."""
+    now = generator.get_state()
+    generator.set_state(saved)
+    try:
+        yield
+    finally:
+        generator.set_state(now)
+
+
+def _remat_forward(model, image: torch.Tensor,
+                   generator: torch.Generator) -> torch.Tensor:
+    """``model(image, generator=generator)`` with no activation kept for
+    the backward: it is recomputed there. ``preserve_rng_state`` restores
+    only the global generators, so the dropout generator's state is saved
+    here and replayed for the recompute."""
+    saved = generator.get_state()
+    return checkpoint(model, image, generator=generator, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _replay(generator, saved)))
+
+
+def make_eval_step(num_classes: int, mesh=None,
+                   road_hist: bool = False) -> Callable:
+    """Build ``step(state, batch) -> {"loss", "cm", "pred"[, "road_hist"]}``
+    (``state`` a TrainState or the model itself).
+
+    The forward runs in ``eval()`` mode under ``torch.no_grad()``; the model
+    goes back to the mode it was in. ``loss`` is the masked CE sum over
+    ``max(valid_sum, 1)``, ``pred`` the first-max argmax (``l1 > l0`` at
+    C == 2), ``cm`` the [C, C] confusion matrix. ``road_hist`` (binary
+    models only) adds the [2, 256] histogram of ``softmax(logits)[..., 1]``
+    for :func:`train.metrics.kitti_road_metrics`. ``mesh``: a data-only
+    ``parallel.mesh.Grid``; each rank evaluates its images and one
+    ``all_reduce(SUM)`` covers cm, the loss sums and the histogram."""
+    if road_hist and num_classes != 2:
+        raise ValueError("road_hist needs a binary (num_classes=2) model")
+    if mesh is not None and mesh.spatial > 1:
+        raise ValueError("the eval step shards over a data-only grid")
+
+    def step(state, batch: dict) -> dict:
+        model = getattr(state, "model", state)
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                logits = model(batch["image"])
+        finally:
+            model.train(was_training)
+        valid = batch.get("valid")
+        ce_sum, valid_sum = softmax_cross_entropy_sum(logits, batch["label"],
+                                                      valid)
+        pred = labels_from_logits(logits)
+        cm = confusion_matrix(batch["label"], pred, num_classes, valid)
+        hist = None
+        if road_hist:
+            prob = torch.softmax(logits.float(), dim=-1)[..., 1]
+            hist = binary_confidence_histogram(prob, batch["label"] == 1, valid)
+        if mesh is not None and mesh.world > 1:
+            ce_sum, valid_sum, cm, hist = _all_reduce_sums(ce_sum, valid_sum,
+                                                           cm, hist)
+        out = {"loss": ce_sum / valid_sum.clamp(min=1.0), "cm": cm,
+               "pred": pred}
+        if hist is not None:
+            out["road_hist"] = hist
+        return out
+
+    return step
+
+
+def _all_reduce_sums(ce_sum, valid_sum, cm, hist):
+    """One SUM over the world of the eval step's sums, in float64 (every
+    count stays exact below 2^53)."""
+    parts = [ce_sum.reshape(1), valid_sum.reshape(1), cm.reshape(-1)]
+    if hist is not None:
+        parts.append(hist.reshape(-1))
+    with torch.profiler.record_function("grid_all_reduce"):
+        flat = torch.cat([t.to(torch.float64) for t in parts])
+        dist.all_reduce(flat)
+    n = cm.numel()
+    cm = flat[2:2 + n].round().to(cm.dtype).view_as(cm)
+    if hist is not None:
+        hist = flat[2 + n:].round().to(hist.dtype).view_as(hist)
+    return flat[0].float(), flat[1].float(), cm, hist
 
 
 def _all_reduce(model, ce_total, valid_total, cm):

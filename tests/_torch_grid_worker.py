@@ -44,7 +44,7 @@ from semanticsegmentation_tensorflow_tpu_torch.train.state import (  # noqa: E40
     create_train_state, make_lr_schedule, make_optimizer,
 )
 from semanticsegmentation_tensorflow_tpu_torch.train.step import (  # noqa: E402
-    make_train_step,
+    make_eval_step, make_train_step,
 )
 
 MEAN, STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
@@ -112,6 +112,24 @@ def run_step(sc: dict) -> dict:
     return res
 
 
+def run_eval(sc: dict) -> dict:
+    """The eval step with the road histogram on a ``world x 1`` data grid,
+    on this rank's images of the global batch; every rank returns the
+    world's sums."""
+    grid = make_grid(dist.get_world_size(), 1)
+    model = build_model(sc["model"], 2, device="cpu", dtype=torch.float32,
+                        **sc["kw"])
+    model.load_state_dict(sc["state_dict"])
+    b = sc["batch"]
+    local = {k: v[grid.images(b["label"].shape[0])] for k, v in b.items()}
+    out = make_eval_step(2, mesh=grid, road_hist=True)(model, local)
+    return {"loss": out["loss"].item(), "cm": out["cm"],
+            "road_hist": out["road_hist"], "pred": out["pred"]}
+
+
+RUN = {"ops": run_ops, "step": run_step, "eval": run_eval}
+
+
 def main() -> None:
     job, rank, world, store, out = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -121,7 +139,7 @@ def main() -> None:
         timeout=datetime.timedelta(seconds=60))
     results = {}
     for sc in torch.load(job, weights_only=False)["scenarios"]:
-        results[sc["name"]] = (run_ops if sc["kind"] == "ops" else run_step)(sc)
+        results[sc["name"]] = RUN[sc["kind"]](sc)
     torch.save(results, out)
     dist.barrier()
     dist.destroy_process_group()

@@ -110,8 +110,8 @@ def test_augment_draws_from_its_generator():
                                (24, 40))
     assert 0.45 < flip.float().mean().item() < 0.55
     assert oy.min() == 0 and oy.max() == 8 and ox.min() == 0 and ox.max() == 8
-    with pytest.raises(NotImplementedError):
-        make_augment_fn(MEAN, STD, scale_jitter=(0.75, 1.0))
+    with pytest.raises(ValueError, match="color_jitter"):
+        make_augment_fn(MEAN, STD, color_jitter=(0.2, 0.2))
     with pytest.raises(TypeError):
         preprocess_normalize(tb["image"].float(), flip[:64], oy[:64], ox[:64],
                              (24, 40), MEAN, STD)

@@ -75,7 +75,9 @@ from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import Grid, make_g
 from semanticsegmentation_tensorflow_tpu_torch.train.state import (
     create_train_state, make_lr_schedule, make_optimizer,
 )
-from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+from semanticsegmentation_tensorflow_tpu_torch.train.step import (
+    make_eval_step, make_train_step,
+)
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "_torch_grid_worker.py")
@@ -339,6 +341,8 @@ def grid_runs(tmp_path_factory):
     init_params(drop_model, torch.Generator().manual_seed(3))
     drop_sd = {k: v.clone() for k, v in drop_model.state_dict().items()}
     drop_batch = _u8_batch(4, FCN_HW, 2)
+    eval_batch = _batch(4, FCN_HW, 5)
+    eval_batch["valid"][-1] = False          # the loader's wrap-padded row
 
     def step_sc(name, model, data, spatial, sd, batch, kw, **extra):
         return dict(name=name, kind="step", model=model, data=data, spatial=spatial,
@@ -351,7 +355,9 @@ def grid_runs(tmp_path_factory):
         step_sc("fcn8s_2x1", "fcn8s", 2, 1, sds["fcn8s"], batches["fcn8s"], fk),
         step_sc("segnet_1x2", "segnet", 1, 2, sds["segnet"], batches["segnet"], sk),
         step_sc("dropout_1x2", "fcn8s", 1, 2, drop_sd, drop_batch, DROP_KW,
-                augment=True)])
+                augment=True),
+        dict(name="eval_2x1", kind="eval", model="fcn8s", state_dict=sds["fcn8s"],
+             batch=eval_batch, kw=fk)])
     four = _launch(tmp, "w4", 4, [
         step_sc("fcn8s_2x2", "fcn8s", 2, 2, sds["fcn8s"], batches["fcn8s"], fk),
         step_sc("segnet_2x2", "segnet", 2, 2, sds["segnet"], batches["segnet"], sk)])
@@ -378,6 +384,8 @@ def grid_runs(tmp_path_factory):
         aug = make_augment_fn((123.68, 116.779, 103.939), (58.393, 57.12, 57.375))
         single["dropout"] = _single_steps(_port_state("fcn8s", drop_sd, **DROP_KW),
                                           drop_batch, augment=aug)
+        single["eval"] = make_eval_step(2, road_hist=True)(
+            _port_state("fcn8s", sds["fcn8s"], **fk), eval_batch)
     finally:
         ranks2, ranks4 = _collect(two), _collect(four)
     return {"jax": jax_out, "single": single, "w2": ranks2, "w4": ranks4}
@@ -496,6 +504,22 @@ def test_grid_dropout_step_matches_single_process(grid_runs):
         assert err <= 1e-4, (k, err.item())
     for k, p in want["params"].items():
         torch.testing.assert_close(got["params"][k], p, rtol=0, atol=3e-6, msg=k)
+
+
+def test_grid_eval_step_matches_single_process(grid_runs):
+    """The eval step on a 2x1 data grid (each rank its two images, the last
+    one wholly invalid; one SUM of cm, the loss sums and the road
+    histogram) against the single-process step on the whole batch: cm and
+    histogram exact, the loss within rtol 1e-6, every rank the same, and
+    each rank's predictions those of its images."""
+    want = grid_runs["single"]["eval"]
+    ranks = _ranks(grid_runs, "eval_2x1")
+    for i, r in enumerate(ranks):
+        assert torch.equal(r["cm"], want["cm"])
+        assert torch.equal(r["road_hist"], want["road_hist"])
+        np.testing.assert_allclose(r["loss"], want["loss"].item(), rtol=1e-6)
+        assert torch.equal(r["pred"], want["pred"][2 * i:2 * i + 2])
+    assert want["road_hist"].sum() == want["cm"].sum()
 
 
 # ---------------------------------------------------------------------------

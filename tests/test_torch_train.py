@@ -393,29 +393,37 @@ def test_train_cli_then_infer_image_from_its_checkpoint(tmp_path, capsys):
     assert not torch.equal(raw["vgg16.conv6.weight"], ema_w["vgg16.conv6.weight"])
 
 
-@pytest.mark.parametrize("argv,err", [
-    (["--shard-opt"], NotImplementedError),
-    (["--scale-jitter", "0.75,1.0"], NotImplementedError),
-    (["--val-frac", "0.2"], NotImplementedError),
-    (["--loader-workers", "2"], NotImplementedError),
-    (["--val-every", "2"], NotImplementedError),
-    (["--qat-calib-batches", "8"], NotImplementedError),
-    (["--synthetic", "--device", "cuda"], RuntimeError),
-    (["--data-dir", "/nonexistent", "--device", "cpu"], FileNotFoundError),
+@pytest.mark.parametrize("argv,err,out", [
+    (["--shard-opt"], NotImplementedError, ""),
+    (["--qat"], NotImplementedError, ""),
+    (["--qat-calib-batches", "8"], NotImplementedError, ""),
+    (["--synthetic", "--device", "cuda"], RuntimeError, ""),
+    (["--data-dir", "/nonexistent", "--device", "cpu"], FileNotFoundError, ""),
     # the JAX defaults of the unported flags parse and do not raise
     (["--val-every", "1", "--qat-calib-batches", "4", "--data-dir",
-      "/nonexistent", "--device", "cpu"], FileNotFoundError),
+      "/nonexistent", "--device", "cpu"], FileNotFoundError, ""),
+    # the JAX CLI's rules for the validated-training flags
+    (["--keep-best", "--device", "cpu"], SystemExit, ""),
+    (["--val-frac", "1.0", "--synthetic", "--image-size", "64", "96",
+      "--device", "cpu"], SystemExit, ""),
+    (["--color-jitter", "0.2,0.2", "--device", "cpu"], ValueError, ""),
+    (["--scale-jitter", "0.75,1.0", "--spatial", "2", "--data-dir",
+      "/nonexistent", "--device", "cpu"], FileNotFoundError,
+     "note: --scale-jitter needs"),
 ])
-def test_train_cli_guards(argv, err, monkeypatch):
+def test_train_cli_guards(argv, err, out, monkeypatch, capsys):
     """Unported flags raise before any work, naming the flag; --device cuda
     raises without a card (never drops to the CPU); a bad --data-dir fails
-    fast."""
+    fast; --keep-best without --val-frac and a --val-frac that leaves no
+    training image are usage errors; a malformed --color-jitter raises;
+    --scale-jitter under --spatial is ignored with the JAX CLI's note."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(err, match=argv[0] if err is NotImplementedError
-                       else None):
+                       else "color_jitter" if err is ValueError else None):
         train.main(argv)
+    assert out in capsys.readouterr().out
 
 
 def test_serving_checkpoint_dir_guards(tmp_path):

@@ -82,6 +82,9 @@ WORKLOADS.update({name: dict(WORKLOADS[base], model_kw=kw,
 # --spatial S trains through on one rank
 WORKLOADS["preset_spmd"] = dict(WORKLOADS["preset"], model_kw={"pallas_spmd": True},
                                 what=WORKLOADS["preset"]["what"] + ", pallas_spmd")
+# the preset with its forward recomputed in the backward (train.remat)
+WORKLOADS["preset_remat"] = dict(WORKLOADS["preset"], remat=True,
+                                 what=WORKLOADS["preset"]["what"] + ", remat")
 
 
 @contextlib.contextmanager
@@ -232,7 +235,8 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None,
                  0, 256, (wl["n"], 384, 1248, 3), np.uint8)).to(dev),
              "label": torch.from_numpy(rng.integers(
                  0, 2, (wl["n"], 384, 1248)).astype(np.int32)).to(dev)}
-    step = partial(make_train_step(2, augment_fn=aug, with_metrics=wl["metrics"]),
+    step = partial(make_train_step(2, augment_fn=aug, with_metrics=wl["metrics"],
+                                   remat=wl.get("remat", False)),
                    state, batch)
     return in_plain_pools(step) if name == "segnet" and not packed else step
 
