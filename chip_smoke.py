@@ -53,6 +53,18 @@ halo kernels > 0, of the single-device stage1 kernels 0); the preset step
 with 1c beside the default; and a 2-rank grid (data 1 x spatial 2, gloo on
 cuda:0, this script re-run as ``--grid-rank``) at full ``fcn8s_kitti`` width
 and 384x1248, two steps held against the single-process step.
+Then DeepLab-ASPP (``deeplab_phase``): the kernels are also held against
+their plain versions at the shapes DeepLab's paths give them (kernel 1 at
+the os8 Predictor's [1,376,1248,64] and eval's [4,376,1248,64], kernels 1,
+1b and 1c at batch 16's [16,320,1152,64], kernel 4 at [16,384,1248,3]);
+both presets through infer_image, serve and the Predictor, the os8 forward
+with the kernels against plain PyTorch, ``train.py`` at
+``deeplab_kitti_dp`` (batch 16, ``--val-frac 0.25 --keep-best``, EMA, 3
+steps, ``--resume``, infer_image on the checkpoint), one preset train step
+with the kernels against plain PyTorch, ``eval.py --road-metrics`` (raw and
+``--ema``) on the checkpoint and its eval step against plain PyTorch,
+``deeplab_kitti_os16 --spatial 2`` at one rank, and both preset steps timed
+with the dilated convs' device time.
 
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
@@ -78,6 +90,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "semanticsegmentation_tensorflow_tpu_torch"
 IMAGE_HW = (375, 1242)      # KITTI road; the model sees it padded to 384x1248
 PADDED_HW = (384, 1248)
+DEEPLAB_OS8_HW = (376, 1248)  # KITTI padded to DeepLab's output stride 8
 
 
 def log(msg: str) -> None:
@@ -205,6 +218,11 @@ def check_stage1(torch, gen) -> dict:
         return z1, k2, b2, err.max().item()
 
     z1, k2, b2, main_err = compare(1, *PADDED_HW, 64, "main")
+    # DeepLab at output stride 8 pads 375 rows to 376 (188 pooled rows)
+    zd, kd, bd, dl_err = compare(1, DEEPLAB_OS8_HW[0], DEEPLAB_OS8_HW[1], 64,
+                                 "DeepLab os8 Predictor")
+    # and eval.py's batches of 4 at that height
+    dl_err = max(dl_err, compare(4, *DEEPLAB_OS8_HW, 64, "DeepLab os8 eval")[3])
     compare(3, 12, 40, 64, "odd batch, partial tiles")
     compare(1, 6, 34, 16, "C=16")
     compare(1, 8, 64, 32, "C=32")
@@ -227,9 +245,15 @@ def check_stage1(torch, gen) -> dict:
     t = ab_ms(lambda: stage1_tail_plain(z1, k2, b2),
               lambda: stage1_tail(z1, k2, b2))
     show_ab(f"stage1 at [1,{PADDED_HW[0]},{PADDED_HW[1]},64]", t)
+    td = ab_ms(lambda: stage1_tail_plain(zd, kd, bd),
+               lambda: stage1_tail(zd, kd, bd))
+    show_ab(f"stage1 at [1,{DEEPLAB_OS8_HW[0]},{DEEPLAB_OS8_HW[1]},64] (DeepLab os8)",
+            td)
     # no one PyTorch call fuses the conv, pool, bias and relu: the yardstick
     # is cuDNN's conv alone; z1 in, the pooled bf16 out, the bf16 weights
-    return {"max_abs_err": main_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+    return {"max_abs_err": max(main_err, dl_err), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "deeplab_os8_ms": td["ms"],
+            "deeplab_os8_plain_ms": td["plain_ms"],
             **forward_rate(torch, "(inference)", t["ms"], z1, k2, codes=False)}
 
 
@@ -306,13 +330,15 @@ def check_overlay(torch, gen) -> dict:
 
 
 TRAIN_SHAPE = (8, 320, 1152, 64)   # fcn8s_kitti batch 8, 320x1152 crops
+DEEPLAB_TRAIN_SHAPE = (16, 320, 1152, 64)   # deeplab_kitti_dp's batch 16
 MEAN, STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
 
 
 def check_stage1_train(torch, gen) -> dict:
     """Kernel A's training variant and kernel 1b (the backward) on the
-    card: the training shape, the ragged and narrow shapes of check_stage1,
-    and exact integer tie cases.
+    card: the training shapes (FCN's and SegNet's batch 8, DeepLab's batch
+    16), the ragged and narrow shapes of check_stage1, and exact integer tie
+    cases.
 
     Forward: ``out`` equals the inference kernel's bit for bit; the codes
     equal the plain first-max codes except where the two conv values of a
@@ -357,8 +383,8 @@ def check_stage1_train(torch, gen) -> dict:
                 rand((c,), 0.1), rand((n, h // 2, w // 2, c), 1.0))
 
     result = {}
-    for n, h, w, c in (TRAIN_SHAPE, (3, 12, 40, 64), (1, 6, 34, 16),
-                       (1, 8, 64, 32), (2, 10, 66, 48)):
+    for n, h, w, c in (TRAIN_SHAPE, DEEPLAB_TRAIN_SHAPE, (3, 12, 40, 64),
+                       (1, 6, 34, 16), (1, 8, 64, 32), (2, 10, 66, 48)):
         z1, k2, b2, g = inputs(n, h, w, c)
         out, codes = stage1_tail_train(z1, k2, b2)
         out_p, codes_p = stage1_tail_codes_plain(z1, k2, b2)
@@ -501,25 +527,28 @@ def backward_by_launch(torch, fn, g, out, codes, z1, k2, what: str = "1b") -> di
 
 
 def check_preprocess(torch, gen) -> dict:
-    """Kernel 4 against its plain version: a [8,384,1248,3] u8 batch, mixed
-    flips and crop offsets, 320x1152 crops; the f32 bytes must be equal."""
+    """Kernel 4 against its plain version: [8,384,1248,3] and DeepLab's
+    [16,384,1248,3] u8 batches, mixed flips and crop offsets, 320x1152
+    crops; the f32 bytes must be equal. Timed at batch 8."""
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
         preprocess_normalize, preprocess_normalize_plain,
     )
 
-    n, (h, w), crop = 8, PADDED_HW, (320, 1152)
-    img = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
-                        dtype=torch.uint8)
-    flip = torch.tensor([True, False] * (n // 2))
-    oy = torch.tensor([0, 64, 13, 37, 64, 1, 50, 0])
-    ox = torch.tensor([96, 0, 5, 71, 96, 0, 33, 60])
-    args = (img, flip, oy, ox, crop, MEAN, STD)
-    got, want = preprocess_normalize(*args), preprocess_normalize_plain(*args)
-    torch.cuda.synchronize()
-    if got.shape != (n, *crop, 3) or not torch.equal(got, want):
-        raise AssertionError("preprocess: kernel bytes differ from plain")
-    log(f"preprocess [{n},{h},{w},3] u8 -> [{n},{crop[0]},{crop[1]},3] f32, "
-        "mixed flips and offsets: bytes exact")
+    (h, w), crop = PADDED_HW, (320, 1152)
+    for n in (16, 8):
+        img = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+        flip = torch.tensor([True, False] * (n // 2))
+        oy = torch.tensor([0, 64, 13, 37, 64, 1, 50, 0] * (n // 8))
+        ox = torch.tensor([96, 0, 5, 71, 96, 0, 33, 60] * (n // 8)).roll(n // 8 - 1)
+        args = (img, flip, oy, ox, crop, MEAN, STD)
+        got, want = preprocess_normalize(*args), preprocess_normalize_plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != (n, *crop, 3) or not torch.equal(got, want):
+            raise AssertionError(f"preprocess at batch {n}: kernel bytes differ "
+                                 "from plain")
+        log(f"preprocess [{n},{h},{w},3] u8 -> [{n},{crop[0]},{crop[1]},3] f32, "
+            "mixed flips and offsets: bytes exact")
     t = ab_ms(lambda: preprocess_normalize_plain(*args),
               lambda: preprocess_normalize(*args))
     show_ab(f"preprocess at [{n},{h},{w},3]", t)
@@ -919,17 +948,20 @@ def drive_fcn_inference(torch, tmp: str) -> dict:
     return times
 
 
-def check_end_to_end(torch) -> None:
-    """The full fcn8s_kitti forward with the kernels against the same
-    forward on plain PyTorch (stage1 as a PooledConvBlock of cuDNN convs and
-    max_pool, overlay by the plain version), same weights, same image, bf16
-    on the card.
+def check_end_to_end(torch, name: str = "fcn8s", padded_hw=PADDED_HW, **kw) -> None:
+    """The full forward of model ``name`` (model flags ``kw``; fcn8s_kitti
+    by default) with the kernels against the same forward on plain PyTorch
+    (stage1 as a PooledConvBlock of cuDNN convs and max_pool, overlay by the
+    plain version), same weights, same image, bf16 on the card; the logits
+    padded to ``padded_hw``.
 
     Tolerance: the two differ only where a stage1 conv value rounds to the
     neighbouring bf16 value; that one-ulp change then passes through 13 more
     bf16 layers. Bound: max |dlogits| <= 0.03 * max |logits|, and labels
     agreeing on >= 99.5 % of pixels (a pixel whose two logits are nearly
-    equal may flip)."""
+    equal may flip); exactly on every pixel whose plain logits differ by
+    more than twice the largest logit difference (none of those can
+    flip)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
@@ -940,9 +972,9 @@ def check_end_to_end(torch) -> None:
     )
 
     dev = torch.device("cuda")
-    fused = build_model("fcn8s", 2, device=dev)
+    fused = build_model(name, 2, device=dev, **kw)
     init_params(fused, torch.Generator(device=dev).manual_seed(3))
-    plain = build_model("fcn8s", 2, device=dev, packed_stage1=False)
+    plain = build_model(name, 2, device=dev, packed_stage1=False, **kw)
     plain.load_state_dict(fused.state_dict())
     pk = Predictor(fused, IMAGE_HW, device=dev)
     pp = Predictor(plain, IMAGE_HW, device=dev)
@@ -951,7 +983,7 @@ def check_end_to_end(torch) -> None:
     x = pk._to_device(img)
     lk = pk._padded_logits(x)
     lp = pp._padded_logits(x)
-    if lk.shape != (1, *PADDED_HW, 2) or not torch.isfinite(lk).all():
+    if lk.shape != (1, *padded_hw, 2) or not torch.isfinite(lk).all():
         raise AssertionError(f"logits {tuple(lk.shape)} not finite/expected")
     rel = ((lk - lp).abs().max() / lp.abs().max()).item()
     ov_k, lab_k = pk._fwd(x)
@@ -959,38 +991,50 @@ def check_end_to_end(torch) -> None:
     ov_p, lab_p = argmax_colormap_overlay_plain(x, lp[:, :h, :w], pp._palette_dev,
                                                 pp._alpha)
     agree = (lab_k == lab_p).float().mean().item()
-    log(f"end to end fcn8s_kitti, kernels vs plain: max |dlogits| / max |logits| "
+    crop = lp[:, :h, :w]
+    decided = (crop[..., 1] - crop[..., 0]).abs() > 2 * (lk - lp).abs().max()
+    flips = int((decided & (lab_k != lab_p)).sum())
+    log(f"end to end {name} {kw}, kernels vs plain: max |dlogits| / max |logits| "
         f"= {rel:.4g} (bound 0.03), labels agree on {100 * agree:.4f} % "
-        f"(bound 99.5 %), road fraction {lab_k.float().mean().item():.3f}")
-    if rel > 0.03 or agree < 0.995:
+        f"(bound 99.5 %), {flips} of {int(decided.sum())} decided pixels differ "
+        f"(bound 0), road fraction {lab_k.float().mean().item():.3f}")
+    if rel > 0.03 or agree < 0.995 or flips:
         raise AssertionError("end-to-end check failed")
 
 
 def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
-                   model_kw: str | None = None) -> dict:
+                   model_kw: str | None = None, data: str | None = None,
+                   extra: tuple = ()) -> dict:
     """The training path through the user's entry points: the port's
-    scripts/train.py on a generated synthetic KITTI set (24 images at
-    375x1242) at ``preset`` (batch 8, 320x1152 crops, full width, 3 steps;
-    ``model_kw`` as ``--model-kw`` takes it) with --pallas-preprocess, then
-    --resume, then infer_image on the checkpoint it wrote."""
+    scripts/train.py on a generated synthetic KITTI set at 375x1242 (24
+    images, or ``data``: as many as 3 steps take after any ``extra`` flags'
+    validation split) at ``preset`` (its batch, 320x1152 crops, full width, 3
+    steps; ``model_kw`` as ``--model-kw`` takes it) with
+    --pallas-preprocess, then --resume, then infer_image on the checkpoint
+    it wrote. Returns timings, and the data and checkpoint directories."""
     import contextlib
     import math
 
     import numpy as np
     from PIL import Image
 
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
     from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
         generate_synthetic_kitti,
     )
     from semanticsegmentation_tensorflow_tpu_torch.scripts import infer_image, train
 
-    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
-                                    n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=0)
+    if data is None:
+        data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
+                                        n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1],
+                                        seed=0)
+    batch = get_preset(preset).train.batch_size
     ck = os.path.join(tmp, "ckpt")
     kw = ["--model-kw", model_kw] if model_kw else []
     what = f"{preset} {model_kw}" if model_kw else preset
     argv = ["--preset", preset, "--data-dir", data, "--epochs", "1",
-            "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda", *kw]
+            "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda", *kw,
+            *extra]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if train.main(argv) != 0:
@@ -1005,7 +1049,7 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
         raise AssertionError(f"train: loss {loss} at step {epoch.get('step')}")
     if not os.path.exists(os.path.join(ck, "ckpt_3.pt")):
         raise AssertionError(f"train wrote no checkpoint: {os.listdir(ck)}")
-    log(f"train.main {what}, 24 images, batch 8, 320x1152 crops: 3 steps, "
+    log(f"train.main {what} {' '.join(extra)}, batch {batch}, 320x1152 crops: 3 steps, "
         f"loss {loss:.4f}, miou {epoch.get('epoch/miou', float('nan')):.4f}, "
         f"{wall:.1f} s wall (data decode, model build, cuDNN setup included), "
         f"peak device memory {peak:.2f} GiB")
@@ -1016,7 +1060,8 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
     if rc != 0 or "resumed at step 3" not in buf.getvalue():
         raise AssertionError("train --resume did not restore step 3")
     out = os.path.join(tmp, "trained_overlay.png")
-    src = os.path.join(data, "testing", "image_2", "um_000024.png")
+    src = os.path.join(data, "testing", "image_2",
+                       sorted(os.listdir(os.path.join(data, "testing", "image_2")))[0])
     if infer_image.main(["--preset", preset, "--checkpoint-dir", ck, "--image",
                          src, "--out", out, "--device", "cuda", *kw]) != 0:
         raise AssertionError("infer_image on the trained checkpoint failed")
@@ -1026,26 +1071,30 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
     log(f"train --resume: restored step 3; infer_image --checkpoint-dir wrote a "
         f"{ov.shape} overlay from the trained weights")
     return {"train_cli_wall_s": wall, "train_cli_peak_gib": peak,
-            "train_cli_loss": loss}
+            "train_cli_loss": loss, "data": data, "ckpt": ck}
 
 
-def check_train_step(torch) -> None:
-    """One fcn8s_kitti train step with the kernels (stage1 training forward
-    and backward, preprocess) against the same step on plain PyTorch
+def check_train_step(torch, preset: str = "fcn8s_kitti", fixed: bool = True) -> None:
+    """One train step at ``preset``'s model and batch (fcn8s_kitti: 8;
+    deeplab_kitti_dp: 16) with the kernels (stage1 training forward and
+    backward, preprocess) against the same step on plain PyTorch
     (packed_stage1=False: stage1 as cuDNN convs + max_pool, and the
-    preprocess kernel's plain version, bit-equal), same weights, same batch,
-    dropout 0, bf16 on the card; then ten steps on one fixed batch.
+    preprocess kernel's plain version, bit-equal), same weights, same batch
+    of 384x1248 images cropped to 320x1152, dropout 0, bf16 on the card;
+    then (``fixed``) ten steps on one fixed batch.
 
     Bound: the two differ where a stage1 conv value rounds to the
     neighbouring bf16 value (and a near-tied window routes the other way);
     that moves a few gradient elements of stage1 and, through 13 more bf16
-    layers, the rest by a few bf16 ulps. Loss within 1e-3 relative; each
-    parameter's gradient within 5e-2 of its L2 norm; the confusion matrices
-    nearly equal (labels agree on >= 99.5 % of the valid pixels)."""
+    layers (FCN; DeepLab's encoder, ASPP and head are as deep), the rest by a
+    few bf16 ulps. Loss within 1e-3 relative; each parameter's gradient
+    within 5e-2 of its L2 norm; the confusion matrices nearly equal (labels
+    agree on >= 99.5 % of the valid pixels)."""
     from functools import partial
 
     import numpy as np
 
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
     from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
     from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
@@ -1059,15 +1108,18 @@ def check_train_step(torch) -> None:
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
 
     dev = torch.device("cuda")
+    cfg = get_preset(preset)
     rng = np.random.default_rng(1)
-    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW) for _ in range(8)))
+    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW)
+                       for _ in range(cfg.train.batch_size)))
     batch = {"image": torch.from_numpy(np.stack(imgs)).to(dev),
              "label": torch.from_numpy(np.stack(lbls)).to(dev)}
     crop = (320, 1152)
 
     def state_for(packed):
-        model = build_model("fcn8s", 2, device=dev, dropout_rate=0.0,
-                            packed_stage1=packed)
+        model = build_model(cfg.model, 2, device=dev,
+                            **dict(cfg.model_kwargs, dropout_rate=0.0,
+                                   packed_stage1=packed))
         init_params(model, torch.Generator(device=dev).manual_seed(7))
         opt = make_optimizer("adam", model.parameters(), 1e-4)
         return create_train_state(model, opt, make_lr_schedule(1e-4), seed=0)
@@ -1089,18 +1141,21 @@ def check_train_step(torch) -> None:
     cm_k, cm_p = out_k["cm"].cpu(), out_p["cm"].cpu()
     total = cm_p.sum().item()
     agree = 1 - (cm_k - cm_p).abs().sum().item() / (2 * total)
-    log(f"train step fcn8s_kitti, kernels vs plain: loss {lk:.6f} vs {lp:.6f} "
+    log(f"train step {preset} (batch {cfg.train.batch_size}), kernels vs plain: "
+        f"loss {lk:.6f} vs {lp:.6f} "
         f"(rel {abs(lk - lp) / abs(lp):.3g}, bound 1e-3); worst gradient "
         f"|dg|/|g| {worst:.4g} ({worst_name}, bound 5e-2); confusion matrices "
         f"{cm_k.tolist()} vs {cm_p.tolist()} (>= {100 * agree:.4f} % of labels "
         "agree, bound 99.5 %)")
     if not (abs(lk - lp) <= 1e-3 * abs(lp) and worst <= 5e-2 and agree >= 0.995):
-        raise AssertionError("train step: kernels vs plain outside the bound")
+        raise AssertionError(f"train step {preset}: kernels vs plain outside the bound")
     del plain
+    if not fixed:
+        return
 
-    fixed = aug_k(torch.Generator().manual_seed(3), batch)  # one fixed crop
+    one = aug_k(torch.Generator().manual_seed(3), batch)  # one fixed crop
     step = make_train_step(2, with_metrics=False)
-    losses = [step(kern, fixed)["loss"].item() for _ in range(10)]
+    losses = [step(kern, one)["loss"].item() for _ in range(10)]
     log(f"ten steps on one fixed batch: loss {losses[0]:.5f} -> {losses[-1]:.5f} "
         f"({['%.4f' % v for v in losses]})")
     if not losses[-1] < losses[0]:
@@ -1254,10 +1309,70 @@ def drive_segnet_eval(torch, tmp: str, data: str) -> dict:
         "--road-metrics", "--device", "cuda"]))
 
 
-def check_eval_against_plain(torch, data: str, ck: str, cli: dict) -> dict:
-    """The eval step on the card over the eval CLI's batches (40 images, batch
-    4, the same loader) with the trained FCN checkpoint, kernels against
-    plain PyTorch (stage1 as cuDNN convs and a max pool), same weights, bf16.
+DEEPLAB_N = 64          # 48 train (3 steps of 16) + 16 held out for validation
+
+
+def drive_deeplab_training(torch, tmp: str) -> dict:
+    """DeepLab's training path at deeplab_kitti_dp (batch 16, 320x1152
+    crops, dropout from the step's generator) through drive_training, on
+    64 generated images with 16 held out for validation (--val-frac 0.25
+    --keep-best) and EMA: 3 steps, --resume, infer_image on the checkpoint.
+    Returns its timings, data and checkpoint."""
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
+        checkpoint_steps,
+    )
+
+    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=DEEPLAB_N,
+                                    n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=5)
+    r = drive_training(torch, tmp, "deeplab_kitti_dp", data=data, extra=(
+        "--val-frac", "0.25", "--keep-best", "--ema-decay", "0.99"))
+    if checkpoint_steps(os.path.join(r["ckpt"], "best")) != [3]:
+        raise AssertionError("deeplab: no best/ checkpoint at step 3")
+    return r
+
+
+def drive_deeplab_eval(torch, data: str, ck: str) -> dict:
+    """scripts/eval.py --road-metrics at deeplab_kitti_dp on the trained
+    checkpoint, raw and --ema, over the 64 images of ``data`` (batch 4)."""
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+
+    common = ["--preset", "deeplab_kitti_dp", "--data-dir", data, "--checkpoint-dir",
+              ck, "--road-metrics", "--device", "cuda"]
+    raw = parse_eval(run_cli(eval_cli.main, common))
+    ema = parse_eval(run_cli(eval_cli.main, common + ["--ema"]))
+    if raw["images"] != DEEPLAB_N or ema["images"] != DEEPLAB_N:
+        raise AssertionError(f"eval counted {raw['images']} / {ema['images']} images")
+    return {"eval": raw, "eval_ema": ema}
+
+
+def time_deeplab(torch, smi: str, workload: str) -> dict:
+    """time_train at a DeepLab workload, and the step's conv device time by
+    kernel size and dilation (``profile_train.conv_ms_by_dilation``)."""
+    from profile_train import WORKLOADS, conv_ms_by_dilation, train_workload
+
+    r = time_train(torch, smi, workload)
+    torch.cuda.empty_cache()
+    step = train_workload(torch, WORKLOADS[workload])
+    dil = conv_ms_by_dilation(torch, step)
+    del step
+    torch.cuda.empty_cache()
+    share = dil["dilated_ms"] / r["device_ms"] if r["device_ms"] else float("nan")
+    log(f"{workload}: convs by kind (device ms per step) "
+        + json.dumps({k: round(v, 3) for k, v in dil["by_kind"].items()})
+        + f"; dilated {dil['dilated_ms']:.3f} ms ({100 * share:.1f} % of the step's "
+        f"device {r['device_ms']:.2f} ms), undilated {dil['undilated_ms']:.3f} | {smi}")
+    return dict(r, conv_ms_by_dilation=dil, dilated_share=share)
+
+
+def check_eval_against_plain(torch, data: str, ck: str, cli: dict,
+                             preset: str = "fcn8s_kitti") -> dict:
+    """The eval step on the card over the eval CLI's batches (every image of
+    ``data``, batch 4, the same loader) with the checkpoint trained at
+    ``preset`` (FCN's, or DeepLab's at 376x1248), kernels against plain
+    PyTorch (stage1 as cuDNN convs and a max pool), same weights, bf16.
 
     Tolerance: the two differ only where a stage1 conv value rounds to the
     neighbouring bf16 value, a few bf16 ulps in the logits after 13 more
@@ -1266,6 +1381,7 @@ def check_eval_against_plain(torch, data: str, ck: str, cli: dict) -> dict:
     check's bound). Exact: the road histogram's total and each confusion
     matrix's total equal the valid-pixel count; the kernel build's mIoU
     equals the CLI's printed one (4 decimals)."""
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
     from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import normalize_images
     from semanticsegmentation_tensorflow_tpu_torch.data.pipeline import BatchLoader
@@ -1275,17 +1391,21 @@ def check_eval_against_plain(torch, data: str, ck: str, cli: dict) -> dict:
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_eval_step
 
     dev = torch.device("cuda")
+    cfg = get_preset(preset)
     weights = load_weights(ck, map_location=dev)
-    kern = build_model("fcn8s", 2, device=dev)
-    plain = build_model("fcn8s", 2, device=dev, packed_stage1=False)
+    kern = build_model(cfg.model, 2, device=dev, **cfg.model_kwargs)
+    plain = build_model(cfg.model, 2, device=dev,
+                        **dict(cfg.model_kwargs, packed_stage1=False))
     kern.load_state_dict(weights)
     plain.load_state_dict(weights)
-    loader = BatchLoader(build_dataset("kitti_road", data, IMAGE_HW), 4, device=dev,
+    loader = BatchLoader(build_dataset("kitti_road", data, IMAGE_HW), 4,
+                         pad_multiple=getattr(kern, "total_stride", 32), device=dev,
                          drop_remainder=False)
     step = make_eval_step(2, road_hist=True)
     cm_k = cm_p = 0
-    moved = valid = hist = 0
+    moved = valid = hist = images = 0
     for b in loader.epoch():
+        images += b["image"].shape[0]
         b = dict(b, image=normalize_images(b["image"], MEAN, STD))
         ok, op = step(kern, b), step(plain, b)
         moved += ((ok["pred"] != op["pred"]) & b["valid"]).sum().item()
@@ -1294,12 +1414,13 @@ def check_eval_against_plain(torch, data: str, ck: str, cli: dict) -> dict:
         cm_k, cm_p = cm_k + ok["cm"], cm_p + op["cm"]
     share = moved / valid
     miou = iou_from_confusion(cm_k)[1].item()
-    log(f"eval kernels vs plain, fcn8s_kitti trained checkpoint, 40 images: "
+    log(f"eval kernels vs plain, {preset} trained checkpoint, {images} images "
+        f"{list(b['image'].shape[1:3])}: "
         f"{moved} of {valid} valid pixels change class ({100 * share:.4f} %, "
         f"bound 0.5 %); confusion matrices {cm_k.tolist()} vs {cm_p.tolist()}; "
         f"road histogram total {hist}; mIoU {miou:.4f} (CLI {cli['miou']:.4f})")
     if not (share <= 0.005 and hist == valid == cm_k.sum().item() == cm_p.sum().item()
-            and abs(miou - cli["miou"]) <= 1e-4):
+            and abs(miou - cli["miou"]) <= 1e-4 and images == cli["images"]):
         raise AssertionError("eval: kernels vs plain outside the bound")
     return {"moved_share": share, "valid_pixels": valid}
 
@@ -2010,9 +2131,10 @@ def _halo_bwd(torch, fn, g, out, codes, z1, k2, b1, parts):
 
 def check_stage1_halo(torch, gen) -> dict:
     """Kernel 1c (the halo mode of kernels 1/1b and 3: z1 without b1, rows
-    -1 and H from halo rows) on the card, at the training shape
-    [8,320,1152,64] and the inference shape [1,384,1248,64], over the whole
-    image (-inf halo rows) and as two halves with real halo rows.
+    -1 and H from halo rows) on the card, at the training shapes
+    [8,320,1152,64] and [16,320,1152,64] (deeplab_kitti_os16 --spatial, codes
+    only) and the inference shape [1,384,1248,64], over the whole image
+    (-inf halo rows) and as two halves with real halo rows.
 
     Forward, all three epilogues: bit-equal to the single-device kernel on
     z1 + b1 (the same bf16 add), codes included; against the plain version
@@ -2044,6 +2166,7 @@ def check_stage1_halo(torch, gen) -> dict:
 
     result = {}
     for (n, h, w, c), modes in ((TRAIN_SHAPE, ("codes", "segnet")),
+                                (DEEPLAB_TRAIN_SHAPE, ("codes",)),
                                 ((1, *PADDED_HW, 64), ("infer", "codes", "segnet"))):
         z1, b1 = rand((n, h, w, c), 1.0), rand((c,), 0.5)
         k2 = rand((c, c, 3, 3), (1.0 / (9 * c)) ** 0.5).contiguous(
@@ -2183,11 +2306,13 @@ def check_stage1_halo(torch, gen) -> dict:
     return result
 
 
-def drive_spatial_training(torch, tmp: str, preset: str) -> dict:
+def drive_spatial_training(torch, tmp: str, preset: str, data: str | None = None,
+                           steps: int = 3) -> dict:
     """``train.main --spatial 2`` at one rank, through the entry point: the
     SPMD-safe kwargs merge in and the step runs unsharded through kernel 1c
-    (3 steps at ``preset``, its crops kept as the JAX script keeps them on
-    one device, --pallas-preprocess, then --resume)."""
+    (``steps`` steps at ``preset`` over 24 generated images or ``data``, its
+    crops kept as the JAX script keeps them on one device,
+    --pallas-preprocess, then --resume)."""
     import math
 
     from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
@@ -2195,8 +2320,9 @@ def drive_spatial_training(torch, tmp: str, preset: str) -> dict:
     )
     from semanticsegmentation_tensorflow_tpu_torch.scripts import train
 
-    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
-                                    n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=0)
+    if data is None:
+        data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
+                                        n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=0)
     ck = os.path.join(tmp, "ckpt")
     argv = ["--preset", preset, "--data-dir", data, "--epochs", "1", "--spatial", "2",
             "--pallas-preprocess", "--checkpoint-dir", ck, "--device", "cuda"]
@@ -2208,11 +2334,11 @@ def drive_spatial_training(torch, tmp: str, preset: str) -> dict:
     with open(os.path.join(ck, "logs", "train.jsonl")) as f:
         epoch = [json.loads(line) for line in f][-1]
     loss = epoch.get("epoch/loss", float("nan"))
-    if not math.isfinite(loss) or epoch.get("step") != 3:
+    if not math.isfinite(loss) or epoch.get("step") != steps:
         raise AssertionError(f"train --spatial 2: loss {loss} at {epoch.get('step')}")
     if train.main(argv[:5] + ["0"] + argv[6:] + ["--resume"]) != 0:
         raise AssertionError(f"train.main --spatial 2 {preset} --resume failed")
-    log(f"train.main --spatial 2 {preset} at one rank: 3 steps, loss {loss:.4f}, then "
+    log(f"train.main --spatial 2 {preset} at one rank: {steps} steps, loss {loss:.4f}, then "
         f"--resume; {wall:.1f} s wall")
     return {"spatial_cli_wall_s": wall, "spatial_cli_loss": loss}
 
@@ -2421,6 +2547,85 @@ def time_train(torch, smi: str, workload: str) -> dict:
     if not math.isfinite(r["loss"]):
         raise AssertionError(f"train timing {workload}: loss {r['loss']}")
     return r
+
+
+def deeplab_phase(torch, smi: str, drive) -> list[dict]:
+    """DeepLab-ASPP through the user's entry points, each path run by
+    ``drive`` (the launch counters at 0 just before, read just after):
+    both presets through infer_image, serve and the Predictor, then the
+    os8 forward with the kernels against plain PyTorch; deeplab_kitti_dp's
+    training (batch 16, validation, EMA, --resume, infer_image), its train
+    step with the kernels against plain PyTorch, and eval.py on its
+    checkpoint, whose eval step is then held against plain PyTorch;
+    deeplab_kitti_os16 --spatial 2 at one rank (kernel
+    1c; os8's 376 rows do not split at 1/8); the preset steps timed with the
+    dilated convs' share. Returns each path's launches."""
+    single_stage1 = ("stage1_tail", "stage1_tail_train", "stage1_tail_bwd",
+                     "stage1_tail_segnet")
+    t_phase = time.perf_counter()
+    dl_runs, dl = [], {}
+    for dl_preset in ("deeplab_kitti_dp", "deeplab_kitti_os16"):
+        with tempfile.TemporaryDirectory() as tmp:
+            dl[dl_preset], launches = drive(f"{dl_preset} inference", drive_slice,
+                                            torch, tmp, dl_preset)
+        dl_runs.append(launches)
+        missing = [k for k in ("stage1_tail", "overlay") if not launches[k]]
+        if missing:
+            raise AssertionError(f"not launched on the {dl_preset} inference path: "
+                                 f"{missing}")
+        torch.cuda.empty_cache()
+    check_end_to_end(torch, "deeplab", DEEPLAB_OS8_HW)
+    with tempfile.TemporaryDirectory() as tmp:
+        dl_train, launches = drive("deeplab_kitti_dp training", drive_deeplab_training,
+                                   torch, tmp)
+        dl_runs.append(launches)
+        missing = [k for k in ("stage1_tail_train", "stage1_tail_bwd",
+                               "preprocess_normalize") if not launches[k]]
+        if missing:
+            raise AssertionError(f"not launched on the deeplab training path: {missing}")
+        torch.cuda.empty_cache()
+        check_train_step(torch, "deeplab_kitti_dp", fixed=False)
+        torch.cuda.empty_cache()
+        dl_eval, launches = drive("deeplab_kitti_dp eval", drive_deeplab_eval, torch,
+                                  dl_train["data"], dl_train["ckpt"])
+        dl_runs.append(launches)
+        if not launches["stage1_tail"]:
+            raise AssertionError(f"not launched on the deeplab eval path: {launches}")
+        dl_eval["plain"] = check_eval_against_plain(
+            torch, dl_train["data"], dl_train["ckpt"], dl_eval["eval"], "deeplab_kitti_dp")
+        torch.cuda.empty_cache()
+        sp_tmp = os.path.join(tmp, "spatial")
+        os.makedirs(sp_tmp)
+        dl_sp, launches = drive("deeplab_kitti_os16 --spatial 2 training",
+                                drive_spatial_training, torch, sp_tmp,
+                                "deeplab_kitti_os16", dl_train["data"], DEEPLAB_N // 16)
+        dl_runs.append(launches)
+        missing = [k for k in ("stage1_tail_halo", "stage1_tail_halo_bwd",
+                               "preprocess_normalize") if not launches[k]]
+        if missing or any(launches[k] for k in single_stage1):
+            raise AssertionError(f"deeplab_kitti_os16 --spatial 2: launches {launches}")
+    torch.cuda.empty_cache()
+    dl_steps = {w: time_deeplab(torch, smi, w) for w in ("deeplab", "deeplab_os16")}
+    log(f"DeepLab: Predictor overlay ms/image os8 "
+        f"{dl['deeplab_kitti_dp']['predictor_overlay_ms']:.3f}, os16 "
+        f"{dl['deeplab_kitti_os16']['predictor_overlay_ms']:.3f}; preset step os8 "
+        f"{dl_steps['deeplab']['images_per_s']:.2f} images/s "
+        f"({dl_steps['deeplab']['host_ms']:.2f} ms/step, peak "
+        f"{dl_steps['deeplab']['peak_gib']:.2f} GiB), os16 "
+        f"{dl_steps['deeplab_os16']['images_per_s']:.2f} images/s "
+        f"({dl_steps['deeplab_os16']['host_ms']:.2f} ms/step, peak "
+        f"{dl_steps['deeplab_os16']['peak_gib']:.2f} GiB); train.main peak "
+        f"{dl_train['train_cli_peak_gib']:.2f} GiB; eval "
+        f"{dl_eval['eval']['img_per_s']:.2f} img/s, --ema "
+        f"{dl_eval['eval_ema']['img_per_s']:.2f} | {smi}")
+    log(f"DeepLab phase: {time.perf_counter() - t_phase:.1f} s")
+    log("deeplab timings: " + json.dumps(dict(
+        dl, train={k: v for k, v in dl_train.items() if k not in ("data", "ckpt")},
+        eval=dl_eval, spatial=dl_sp,
+        steps={w: {k: v for k, v in r.items() if k != "by_op"}
+               for w, r in dl_steps.items()})))
+    torch.cuda.empty_cache()
+    return dl_runs
 
 
 def main() -> int:
@@ -2664,13 +2869,15 @@ def main() -> int:
         raise AssertionError(f"not launched on the segnet winograd=f4 path: {missing}")
     torch.cuda.empty_cache()
 
+    dl_runs = deeplab_phase(torch, smi, drive)
+
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, sweep_launches,
                                         train_launches, val_launches,
                                         seg_eval_launches,
                                         seg_infer_launches, seg_train_launches,
                                         w_infer_launches, w_train_launches,
-                                        w_seg_launches, *spatial_runs)
+                                        w_seg_launches, *spatial_runs, *dl_runs)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

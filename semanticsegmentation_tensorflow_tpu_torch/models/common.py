@@ -52,17 +52,65 @@ def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, *, dtype: torch.dtype,
     the ``padding`` rows above and below are the neighbouring ranks' rows
     (``parallel.halo.exchange_rows``; zero at the image's edge) instead of
     zeros, so each rank computes its rows of the whole image's conv; the
-    columns keep their zero padding. Raises when a rank holds fewer rows
-    than the halo (fc6's 7x7 needs 3 at stride 32)."""
+    columns keep their zero padding. A halo taller than a rank's rows (a
+    dilated conv on a fine grid) takes rows from the ranks beyond. Some
+    dilated convs run as :func:`conv_by_phases` (:func:`by_phases`)."""
     x = x.to(dtype)
+    rows = x.shape[1]
     grid = spatial_grid()
-    pad = padding
+    pad_h = padding
     if grid is not None and padding:
         x = exchange_rows(x, padding, padding, grid)
-        pad = (0, padding)
-    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(dtype), padding=pad,
+        pad_h = 0
+    kernel = kernel.to(dtype)
+    grad = torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad)
+    if by_phases(x.shape[0], rows, kernel.shape, dilation, grad):
+        return conv_by_phases(x, kernel, pad_h, padding, dilation)
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel, padding=(pad_h, padding),
                  dilation=dilation)
     return y.permute(0, 2, 3, 1)
+
+
+def by_phases(batch: int, rows: int, kernel_shape, dilation: int, grad: bool) -> bool:
+    """Whether :func:`conv_nhwc` runs a dilated conv as :func:`conv_by_phases`
+    (``rows``: the input rows this rank convolves; ``grad``: a backward will
+    follow). Only where cuDNN 9.2's dilated bf16 conv was measured 10-1000x
+    slower on an H100 (``tools/dilated_convs.py``, DeepLab at KITTI's shapes):
+    a kernel wider than 3x3 at a batch of up to three, or four with a
+    backward (conv6: 88-942 ms forward, 68-1013 forward and backward, against
+    2.7-41 by phases); and a 3x3 at a dilation above 6 at a batch of one whose
+    dilated window fits in the rows (the os8 ASPP's rates 12 and 18: 19-29 ms
+    against 0.11-0.62). Elsewhere the direct conv was faster or within a few
+    ms of the phases (PERF.md lists those measured cases)."""
+    if dilation == 1:
+        return False
+    k = kernel_shape[-1]
+    if k > 3:
+        return batch <= (4 if grad else 3)
+    return batch == 1 and dilation > 6 and dilation * (k - 1) + 1 <= rows
+
+
+def conv_by_phases(x: torch.Tensor, kernel: torch.Tensor, pad_h: int, pad_w: int,
+                   dilation: int) -> torch.Tensor:
+    """A stride-1 conv of NHWC ``x`` with OIHW ``kernel`` at ``dilation`` d,
+    zero-padded by ``pad_h`` rows and ``pad_w`` columns on each side, as d x d
+    undilated convs, one for each phase (i mod d, j mod d) of the output:
+    TensorFlow's ``atrous_conv2d`` form (space to batch, conv, batch to
+    space). The same products as the dilated conv; NHWC out, in ``x``'s
+    dtype."""
+    d = dilation
+    n, h, w, c = x.shape
+    kh, kw = kernel.shape[2:]
+    ho, wo = h + 2 * pad_h - d * (kh - 1), w + 2 * pad_w - d * (kw - 1)
+    hp, wp = -(-(h + 2 * pad_h) // d) * d, -(-(w + 2 * pad_w) // d) * d
+    x = F.pad(x, (0, 0, pad_w, wp - w - pad_w, pad_h, hp - h - pad_h))
+    x = (x.reshape(n, hp // d, d, wp // d, d, c).permute(0, 2, 4, 1, 3, 5)
+         .reshape(n * d * d, hp // d, wp // d, c))
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel)
+    co, hq, wq = y.shape[1:]
+    y = (y.permute(0, 2, 3, 1).reshape(n, d, d, hq, wq, co).permute(0, 3, 1, 4, 2, 5)
+         .reshape(n, hq * d, wq * d, co))
+    return y[:, :ho, :wo]
 
 
 class Conv(nn.Module):
@@ -238,6 +286,31 @@ def dropout(x: torch.Tensor, rate: float, *, training: bool,
                 [grid.images(shape[0]), grid.rows(shape[1])] < keep)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+def upsample_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """NHWC ``x`` resized by ``factor`` in H and W, bilinear with half-pixel
+    centres and edge clamping: the JAX package's ``upsample_bilinear``
+    (``jax.image.resize(..., "bilinear")``, ``models/common.py:140-144``),
+    in ``x``'s dtype.
+
+    Under an active grid that splits rows, each rank resizes its rows with
+    one row of each neighbour around them (the image's own edge row at the
+    image's edge, where the resize clamps), so its output rows are its share
+    of the whole image's."""
+    n, h, w, c = x.shape
+    grid = spatial_grid()
+    pad = 0
+    if grid is not None:
+        x = exchange_rows(x, 1, 1, grid)
+        if grid.spatial_index == 0:
+            x = torch.cat([x[:, 1:2], x[:, 1:]], 1)
+        if grid.spatial_index == grid.spatial - 1:
+            x = torch.cat([x[:, :-1], x[:, -2:-1]], 1)
+        pad = factor          # one input row on each side: factor output rows
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(x.shape[1] * factor, w * factor),
+                      mode="bilinear", align_corners=False)
+    return y[:, :, pad:pad + h * factor].permute(0, 2, 3, 1)
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:

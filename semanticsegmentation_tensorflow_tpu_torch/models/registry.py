@@ -1,5 +1,6 @@
 """Name -> model constructor registry (counterpart of the JAX package's
-``models/registry.py``). The FCN family and SegNet are ported so far."""
+``models/registry.py``). The FCN family, SegNet and DeepLab-ASPP are
+ported so far."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ from typing import Any, Callable
 
 import torch.nn as nn
 
+from semanticsegmentation_tensorflow_tpu_torch.models.deeplab import DeepLabASPP
 from semanticsegmentation_tensorflow_tpu_torch.models.fcn8s import FCN8s
 from semanticsegmentation_tensorflow_tpu_torch.models.segnet import SegNet
 from semanticsegmentation_tensorflow_tpu_torch.ops.shape import round_up
@@ -16,8 +18,9 @@ MODELS: dict[str, Callable[..., nn.Module]] = {
     "fcn16s": lambda **kw: FCN8s(variant=16, **kw),
     "fcn32s": lambda **kw: FCN8s(variant=32, **kw),
     "segnet": SegNet,
+    "deeplab": DeepLabASPP,
 }
-_NOT_YET = ("unet", "deeplab")
+_NOT_YET = ("unet",)
 
 
 def build_model(name: str, num_classes: int, *, device,

@@ -1,6 +1,7 @@
 """VGG16 feature extractor (counterpart of the JAX package's
-``models/vgg16.py``): stages 1-5 with 2x2 pools, then fc6 (7x7 SAME) and
-fc7 (1x1) as convs with dropout. NHWC in, dict of NHWC endpoints out.
+``models/vgg16.py``): stages 1-5 with 2x2 pools (or, for DeepLab, the last
+stages dilated instead of pooled), then fc6 (7x7 SAME) and fc7 (1x1) as
+convs with dropout. NHWC in, dict of NHWC endpoints out.
 Dropout draws its masks from the generator passed to ``forward`` (flax's
 semantics, ``models.common.dropout``). :func:`load_npz_weights` imports
 pretrained VGG16 weights from the JAX package's ``.npz`` archives."""
@@ -73,6 +74,14 @@ class VGG16(nn.Module):
     ``dropout_rate`` applies to fc6 and fc7 in ``train()`` mode, with masks
     from the ``generator`` given to :meth:`forward`. ``pallas_spmd`` goes to
     :class:`Stage1` (its halo mode, kernel 1c).
+
+    ``dilated_last_stages`` (DeepLab; the JAX package's
+    ``models/vgg16.py:93-138``): stage ``dilate_from`` and every stage after
+    it run as a :class:`ConvBlock` (bias and relu per conv, no pool) at the
+    running dilation, which starts at 1 and doubles after each such stage;
+    fc6 takes the final one. ``dilate_from=4`` gives output stride 8 (stage
+    4 at dilation 1, stage 5 at 2, fc6 at 4), ``5`` stride 16 (stage 5 at 1,
+    fc6 at 2). ``winograd_fc6`` applies only where fc6 is undilated.
     """
 
     def __init__(self, fc_features: int = 1024, width_mult: float = 1.0, *,
@@ -80,28 +89,35 @@ class VGG16(nn.Module):
                  dropout_rate: float = 0.5, dtype: torch.dtype = DEFAULT_DTYPE,
                  use_bn: bool = False, dilated_last_stages: bool = False,
                  winograd: str | None = None, winograd_fc6: bool | None = None,
-                 packed_stage2_entry: bool = False, pallas_spmd: bool = False,
-                 pallas_pool: bool | None = None, device=None):
+                 dilate_from: int = 4, packed_stage2_entry: bool = False,
+                 pallas_spmd: bool = False, pallas_pool: bool | None = None,
+                 device=None):
         super().__init__()
-        reject_unported(use_bn=use_bn, dilated_last_stages=dilated_last_stages)
+        reject_unported(use_bn=use_bn)
         cin = 3
+        dilation = 1
         for i, (n_convs, feats) in enumerate(VGG16_STAGES, start=1):
             feats = max(8, int(feats * width_mult))
             if i == 1 and packed_stage1 and pallas_pool is not False:
                 block = Stage1(cin, feats, winograd=winograd,
                                pallas_spmd=pallas_spmd, dtype=dtype,
                                device=device)
+            elif dilated_last_stages and i >= dilate_from:
+                block = ConvBlock(cin, feats, n_convs, dilation=dilation,
+                                  winograd=winograd, dtype=dtype, device=device)
+                dilation *= 2      # the stride folded into the dilation
             else:
                 kind = PooledConvBlock if deferred_pool_bias else ConvPoolBlock
                 block = kind(cin, feats, n_convs, winograd=winograd,
                              dtype=dtype, device=device)
             self.add_module(f"stage{i}", block)
             cin = feats
-        self.conv6 = Conv(cin, fc_features, 7, dtype=dtype, device=device)
+        self.conv6 = Conv(cin, fc_features, 7, dilation=dilation, dtype=dtype,
+                          device=device)
         self.conv7 = Conv(fc_features, fc_features, 1, dtype=dtype,
                           device=device)
         self.dropout_rate = dropout_rate
-        self.winograd_fc6 = bool(winograd_fc6)
+        self.winograd_fc6 = bool(winograd_fc6) and dilation == 1
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None

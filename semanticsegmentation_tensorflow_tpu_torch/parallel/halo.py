@@ -3,18 +3,24 @@ the TPU, XLA's SPMD partitioner inserted these exchanges itself).
 
 Each rank of a grid's spatial group holds a band of rows of the same images
 (``parallel/mesh.py``). A conv with a k-row window needs (k-1)/2 rows of
-each neighbour. Every exchange here is one ``all_reduce(SUM)`` over the
-spatial group: each rank writes its boundary rows into its own slot of a
-zeroed byte buffer, and since a value plus zeros is itself, the sum moves
-the bits exactly, for any dtype (``-inf`` and u8 codes included). The byte
-view keeps the reduction an integer one on every backend (NCCL, and gloo
-on CPU or CUDA tensors, which takes ``broadcast`` and ``all_reduce`` only).
+its neighbours, dilation included. Every exchange here is one
+``all_reduce(SUM)`` over the spatial group: each rank writes its boundary
+rows into its own slot of a zeroed byte buffer, and since a value plus
+zeros is itself, the sum moves the bits exactly, for any dtype (``-inf``
+and u8 codes included), and leaves every rank's rows in every rank's
+buffer. The byte view keeps the reduction an integer one on every backend
+(NCCL, and gloo on CPU or CUDA tensors, which takes ``broadcast`` and
+``all_reduce`` only).
 
 * :func:`boundary_rows`: the one row above and below this rank's rows of
   several tensors, no gradient (the fused stage1's halos);
 * :func:`exchange_rows`: ``above`` rows on top and ``below`` rows under a
-  tensor, differentiable (the convs); its backward sends the halo rows'
-  gradients back to their owners, where they are added.
+  tensor, differentiable (the convs); a halo taller than one rank's rows
+  takes rows from every rank within reach (DeepLab's dilated convs on a
+  grid). Its backward sends the halo rows' gradients back to their owners,
+  where they are added;
+* :func:`spatial_sum`: a tensor summed over the spatial group, forward and
+  backward (the image-level mean of DeepLab's ASPP).
 
 Rows beyond the image's edge get ``fill`` (zero for the convs: their SAME
 padding).
@@ -26,13 +32,11 @@ import torch
 import torch.distributed as dist
 
 
-def _exchange(firsts: list[torch.Tensor], lasts: list[torch.Tensor], grid
-              ) -> tuple[list, list]:
-    """Each rank i sends ``firsts`` to rank i-1 and ``lasts`` to rank i+1 of
-    its spatial group. Returns (the ``lasts`` of rank i-1, the ``firsts``
-    of rank i+1), each entry None at the image's edge."""
+def _all_slots(tensors: list[torch.Tensor], grid) -> list[list[torch.Tensor]]:
+    """Every rank of the spatial group writes ``tensors`` (the same shapes
+    on every rank) into its slot of one buffer; one SUM gives each rank all
+    slots. Returns ``parts[k][j]``, tensor k of rank j."""
     s, i = grid.spatial, grid.spatial_index
-    tensors = firsts + lasts
     # byte offsets of the parts in a slot, 16-aligned so that each part
     # views back as its dtype
     offsets, total = [], 0
@@ -45,16 +49,21 @@ def _exchange(firsts: list[torch.Tensor], lasts: list[torch.Tensor], grid
             part = t.contiguous().reshape(-1).view(torch.uint8)
             buf[i, lo:lo + part.numel()] = part
         dist.all_reduce(buf, group=grid.spatial_group)
+    return [[buf[j, lo:lo + t.numel() * t.element_size()].view(t.dtype)
+             .reshape(t.shape) for j in range(s)]
+            for t, lo in zip(tensors, offsets)]
+
+
+def _exchange(firsts: list[torch.Tensor], lasts: list[torch.Tensor], grid
+              ) -> tuple[list, list]:
+    """Each rank i sends ``firsts`` to rank i-1 and ``lasts`` to rank i+1 of
+    its spatial group. Returns (the ``lasts`` of rank i-1, the ``firsts``
+    of rank i+1), each entry None at the image's edge."""
+    s, i = grid.spatial, grid.spatial_index
+    parts = _all_slots(firsts + lasts, grid)
     nf = len(firsts)
-    out_above, out_below = [], []
-    for k, (t, lo) in enumerate(zip(tensors, offsets)):
-        j = i + 1 if k < nf else i - 1
-        got = None
-        if 0 <= j < s:
-            nbytes = t.numel() * t.element_size()
-            got = buf[j, lo:lo + nbytes].view(t.dtype).reshape(t.shape)
-        (out_below if k < nf else out_above).append(got)
-    return out_above, out_below
+    return ([p[i - 1] if i > 0 else None for p in parts[nf:]],
+            [p[i + 1] if i < s - 1 else None for p in parts[:nf]])
 
 
 def _filled(like: torch.Tensor, rows: int, fill) -> torch.Tensor:
@@ -76,42 +85,89 @@ def boundary_rows(xs: list[torch.Tensor], fills: list, grid
             for x, f, a, b in zip(xs, fills, above, below)]
 
 
+def _halo(parts: list[torch.Tensor], i: int, rows: int, up: bool) -> torch.Tensor:
+    """The ``rows`` rows just above (``up``) or below rank ``i``'s rows, from
+    ``parts[j]``: the last (up) or first rows of rank j that it sent (all of
+    its rows when the halo is taller than a rank's rows); zeros beyond the
+    image's edge."""
+    k = -(-rows // parts[0].shape[1])        # ranks within reach
+    js = range(i - k, i) if up else range(i + 1, i + 1 + k)
+    pieces = [parts[j] if 0 <= j < len(parts) else torch.zeros_like(parts[0])
+              for j in js]
+    cat = torch.cat(pieces, 1)
+    return cat[:, cat.shape[1] - rows:] if up else cat[:, :rows]
+
+
 class _ExchangeRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, above, below, grid):
-        h = x.shape[1]
+        h, i = x.shape[1], grid.spatial_index
         ctx.above, ctx.below, ctx.grid = above, below, grid
-        [a], [b] = _exchange([x[:, :below]], [x[:, h - above:]], grid)
-        top = _filled(x, above, 0) if a is None else a
-        bot = _filled(x, below, 0) if b is None else b
-        return torch.cat([top, x, bot], 1)
+        lasts, firsts = _all_slots([x[:, h - min(above, h):],
+                                    x[:, :min(below, h)]], grid)
+        pieces = [x]
+        if above:
+            pieces.insert(0, _halo(lasts, i, above, up=True))
+        if below:
+            pieces.append(_halo(firsts, i, below, up=False))
+        return torch.cat(pieces, 1)
 
     @staticmethod
     def backward(ctx, dy):
-        above, below = ctx.above, ctx.below
+        above, below, grid = ctx.above, ctx.below, ctx.grid
         h = dy.shape[1] - above - below
+        i = grid.spatial_index
         dx = dy[:, above:above + h].clone()
-        # the halo rows' gradients go back to the ranks that own those rows
-        [from_above], [from_below] = _exchange(
-            [dy[:, :above]], [dy[:, above + h:]], ctx.grid)
-        if from_above is not None:
-            dx[:, :below] += from_above
-        if from_below is not None:
-            dx[:, h - above:] += from_below
+        # the halo rows' gradients go back to the ranks that own those rows:
+        # rank j's top halo holds global rows [j*h - above, j*h), its bottom
+        # halo [(j+1)*h, (j+1)*h + below); this rank owns [i*h, (i+1)*h)
+        tops, bots = _all_slots([dy[:, :above], dy[:, above + h:]], grid)
+        for j in range(grid.spatial):
+            if j == i:
+                continue
+            for part, start in ((tops[j], j * h - above), (bots[j], (j + 1) * h)):
+                lo = max(start, i * h)
+                hi = min(start + part.shape[1], (i + 1) * h)
+                if lo < hi:
+                    dx[:, lo - i * h:hi - i * h] += part[:, lo - start:hi - start]
         return dx, None, None, None
 
 
 def exchange_rows(x: torch.Tensor, above: int, below: int, grid) -> torch.Tensor:
-    """[N,H,...] -> [N,above+H+below,...]: the ``above`` last rows of the
-    rank above and the ``below`` first rows of the rank below around this
-    rank's rows (zeros beyond the image's edge). Differentiable: the
-    gradient of a halo row is added to the row it came from. Raises when a
-    rank holds fewer rows than a neighbour needs."""
-    h = x.shape[1]
-    if h < max(above, below):
-        raise ValueError(f"a rank holds {h} rows of this tensor, fewer than its "
-                         f"halo of {max(above, below)} rows: use fewer spatial "
-                         "ranks or a taller image")
+    """[N,H,...] -> [N,above+H+below,...]: the ``above`` rows of the image
+    just above this rank's rows and the ``below`` rows just under them, from
+    the ranks that hold them (a halo taller than H reaches past the next
+    rank), zeros beyond the image's edge. Differentiable: the gradient of a
+    halo row is added to the row it came from."""
     if grid is None or grid.spatial == 1:
         return torch.cat([_filled(x, above, 0), x, _filled(x, below, 0)], 1)
     return _ExchangeRows.apply(x, above, below, grid)
+
+
+class _SpatialSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        y = x.clone()
+        with torch.profiler.record_function("spatial_sum"):
+            dist.all_reduce(y, group=grid.spatial_group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        # every rank's loss reads the sum: each rank's input gets the sum of
+        # the ranks' gradients of it
+        g = dy.clone()
+        with torch.profiler.record_function("spatial_sum"):
+            dist.all_reduce(g, group=ctx.grid.spatial_group)
+        return g, None
+
+
+def spatial_sum(x: torch.Tensor, grid) -> torch.Tensor:
+    """``x`` summed over the ranks of ``grid``'s spatial group (the same
+    images, the other rows), on every rank; differentiable (the backward
+    sums the gradients the same way). ``x`` itself with no grid or one
+    spatial rank."""
+    if grid is None or grid.spatial == 1:
+        return x
+    return _SpatialSum.apply(x, grid)

@@ -167,6 +167,7 @@ def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
     from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import load_npz_weights
+    from semanticsegmentation_tensorflow_tpu_torch.ops.shape import round_up
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
         resolve_device,
     )
@@ -234,6 +235,16 @@ def main(argv=None) -> int:
         dc = dataclasses.replace(dc, image_size=tuple(args.image_size),
                                  crop_size=None)
 
+    model_kwargs = dict(cfg.model_kwargs, **parse_model_kw(args.model_kw))
+    if args.spatial > 1:
+        from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+            merge_spmd_safe_kwargs,
+        )
+        model_kwargs = merge_spmd_safe_kwargs(cfg.model, model_kwargs)
+    # the model's total stride, from a build without storage
+    stride = getattr(build_model(cfg.model, num_classes=dc.num_classes,
+                                 device="meta", **model_kwargs),
+                     "total_stride", 32)
     grid = None
     if world > 1 and not args.no_mesh:
         grid = make_grid(world // args.spatial, args.spatial)
@@ -242,7 +253,7 @@ def main(argv=None) -> int:
             dc = dataclasses.replace(dc, crop_size=None)
             print("note: --spatial disables random crop (full-size training)")
     if args.spatial > 1:   # before any work, at any world size
-        check_rows(-(-dc.image_size[0] // 32) * 32, args.spatial)
+        check_rows(round_up(dc.image_size[0], stride), args.spatial, stride)
 
     data_dir = args.data_dir or dc.data_dir
     if args.synthetic:
@@ -266,12 +277,6 @@ def main(argv=None) -> int:
             print(f"val split: {k} images held out, {len(paths) - k} train")
     n_train = len(ds.train_images)
 
-    model_kwargs = dict(cfg.model_kwargs, **parse_model_kw(args.model_kw))
-    if args.spatial > 1:
-        from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
-            merge_spmd_safe_kwargs,
-        )
-        model_kwargs = merge_spmd_safe_kwargs(cfg.model, model_kwargs)
     model = build_model(cfg.model, num_classes=dc.num_classes, device=device,
                         **model_kwargs)
     init_params(model, torch.Generator(device=device).manual_seed(tr.seed))
@@ -285,7 +290,6 @@ def main(argv=None) -> int:
                   f"{args.vgg_weights}"
                   + (f"; unmatched backbone params: {report['unmatched_params']}"
                      if report["unmatched_params"] else ""))
-    stride = getattr(model, "total_stride", 32)
     mesh_kind = ("none" if grid is None else f"1d-data{grid.data}"
                  if grid.spatial == 1 else f"data{grid.data}xspatial{grid.spatial}")
     if primary:

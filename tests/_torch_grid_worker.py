@@ -64,7 +64,8 @@ def run_ops(sc: dict) -> dict:
         if op["kind"] == "conv":
             w = op["w"].clone().requires_grad_()
             with use_grid(grid):
-                y = conv_nhwc(xl, w, dtype=torch.float32, padding=op["padding"])
+                y = conv_nhwc(xl, w, dtype=torch.float32, padding=op["padding"],
+                              dilation=op.get("dilation", 1))
         else:
             mod = ConvTranspose(x.shape[-1], op["w"].shape[1], op["stride"],
                                 dtype=torch.float32)

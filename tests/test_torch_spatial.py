@@ -87,6 +87,11 @@ FCN_KW = dict(fc_features=16, width_mult=1.0, pallas_spmd=True, dropout_rate=0.0
 SEG_KW = dict(width_mult=1.0, pallas_spmd=True)
 JAX_KW = dict(packed_stage1=True, pallas_pool=True)
 DROP_KW = dict(fc_features=16, width_mult=0.25, pallas_spmd=True, dropout_rate=0.5)
+# DeepLab os8 on 64 rows: 8 rows at 1/8, so 4 (1x2) or 2 (1x4) a rank against
+# conv6's 12-row halo (7x7 at dilation 4) and the rate-4 branch's 4 rows
+DL_HW = (64, 32)
+DL_KW = dict(width_mult=0.25, aspp_features=16, rates=(2, 4), pallas_spmd=True,
+             dropout_rate=0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +268,10 @@ def _ops_job():
     f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
     x = f(2, 16, 12, 8)
     ops = {"conv3": dict(kind="conv", w=f(6, 8, 3, 3), padding=1, cot=f(2, 16, 12, 6)),
-           "conv7": dict(kind="conv", w=f(6, 8, 7, 7), padding=3, cot=f(2, 16, 12, 6))}
+           "conv7": dict(kind="conv", w=f(6, 8, 7, 7), padding=3, cot=f(2, 16, 12, 6)),
+           # a halo of 10 rows against 8 rows a rank (DeepLab's dilated convs)
+           "conv3_d10": dict(kind="conv", w=f(6, 8, 3, 3), padding=10, dilation=10,
+                             cot=f(2, 16, 12, 6))}
     for s in (2, 8):
         ops[f"convT{s}"] = dict(kind="convT", w=f(8, 5, 2 * s, 2 * s), b=f(5),
                                 stride=s, cot=f(2, 16 * s, 12 * s, 5))
@@ -341,6 +349,10 @@ def grid_runs(tmp_path_factory):
     init_params(drop_model, torch.Generator().manual_seed(3))
     drop_sd = {k: v.clone() for k, v in drop_model.state_dict().items()}
     drop_batch = _u8_batch(4, FCN_HW, 2)
+    dl_model = build_model("deeplab", 2, device="cpu", dtype=torch.float32, **DL_KW)
+    init_params(dl_model, torch.Generator().manual_seed(4))
+    dl_sd = {k: v.clone() for k, v in dl_model.state_dict().items()}
+    dl_batch = _batch(4, DL_HW, 6)
     eval_batch = _batch(4, FCN_HW, 5)
     eval_batch["valid"][-1] = False          # the loader's wrap-padded row
 
@@ -356,11 +368,13 @@ def grid_runs(tmp_path_factory):
         step_sc("segnet_1x2", "segnet", 1, 2, sds["segnet"], batches["segnet"], sk),
         step_sc("dropout_1x2", "fcn8s", 1, 2, drop_sd, drop_batch, DROP_KW,
                 augment=True),
+        step_sc("deeplab_1x2", "deeplab", 1, 2, dl_sd, dl_batch, DL_KW),
         dict(name="eval_2x1", kind="eval", model="fcn8s", state_dict=sds["fcn8s"],
              batch=eval_batch, kw=fk)])
     four = _launch(tmp, "w4", 4, [
         step_sc("fcn8s_2x2", "fcn8s", 2, 2, sds["fcn8s"], batches["fcn8s"], fk),
-        step_sc("segnet_2x2", "segnet", 2, 2, sds["segnet"], batches["segnet"], sk)])
+        step_sc("segnet_2x2", "segnet", 2, 2, sds["segnet"], batches["segnet"], sk),
+        step_sc("deeplab_1x4", "deeplab", 1, 4, dl_sd, dl_batch, DL_KW)])
     try:
         jax_out = {}
         for name, st in js.items():
@@ -384,6 +398,8 @@ def grid_runs(tmp_path_factory):
         aug = make_augment_fn((123.68, 116.779, 103.939), (58.393, 57.12, 57.375))
         single["dropout"] = _single_steps(_port_state("fcn8s", drop_sd, **DROP_KW),
                                           drop_batch, augment=aug)
+        single["deeplab"] = _single_steps(_port_state("deeplab", dl_sd, **DL_KW),
+                                          dl_batch)
         single["eval"] = make_eval_step(2, road_hist=True)(
             _port_state("fcn8s", sds["fcn8s"], **fk), eval_batch)
     finally:
@@ -406,10 +422,11 @@ def test_boundary_rows_on_two_ranks_match_jax_halo_rows(grid_runs):
                                       np.asarray(bots[p:p + 1]).transpose(2, 0, 1, 3))
 
 
-@pytest.mark.parametrize("op", ["conv3", "conv7", "convT2", "convT8"])
+@pytest.mark.parametrize("op", ["conv3", "conv7", "conv3_d10", "convT2", "convT8"])
 def test_row_split_ops_match_whole_image(grid_runs, op):
-    """``conv_nhwc`` (k = 3 and 7) and ``ConvTranspose`` (s = 2 and 8) on two
-    gloo ranks, each holding half the rows: the joined outputs and input
+    """``conv_nhwc`` (k = 3 and 7, and k = 3 at dilation 10, whose 10-row
+    halo is taller than a rank's 8 rows) and ``ConvTranspose`` (s = 2 and 8)
+    on two gloo ranks, each holding half the rows: the joined outputs and input
     gradients and the summed weight gradients equal the whole-image op's.
     f32, another summation order: within 1e-5 of the value plus 1e-6 of the
     tensor's largest element."""
@@ -418,7 +435,8 @@ def test_row_split_ops_match_whole_image(grid_runs, op):
     x = job["x"].clone().requires_grad_()
     if spec["kind"] == "conv":
         w = spec["w"].clone().requires_grad_()
-        y = conv_nhwc(x, w, dtype=torch.float32, padding=spec["padding"])
+        y = conv_nhwc(x, w, dtype=torch.float32, padding=spec["padding"],
+                      dilation=spec.get("dilation", 1))
     else:
         mod = ConvTranspose(8, 5, spec["stride"], dtype=torch.float32)
         with torch.no_grad():
@@ -437,7 +455,7 @@ def test_row_split_ops_match_whole_image(grid_runs, op):
 
 
 def _ranks(grid_runs, name):
-    world = "w4" if name.endswith("2x2") else "w2"
+    world = "w4" if name.endswith(("2x2", "1x4")) else "w2"
     return [r[name] for r in grid_runs[world]]
 
 
@@ -499,6 +517,30 @@ def test_grid_dropout_step_matches_single_process(grid_runs):
     got = ranks[0]
     assert ranks[1]["checksum"] == got["checksum"]
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5)
+    for k, g in want["grads"].items():
+        err = (got["grads"][k] - g).norm() / g.norm().clamp(min=1e-30)
+        assert err <= 1e-4, (k, err.item())
+    for k, p in want["params"].items():
+        torch.testing.assert_close(got["params"][k], p, rtol=0, atol=3e-6, msg=k)
+
+
+@pytest.mark.parametrize("name", ["deeplab_1x2", "deeplab_1x4"])
+def test_grid_deeplab_step_matches_single_process(grid_runs, name):
+    """DeepLab at output stride 8 (dropout 0.5) on a 1x2 and a 1x4 grid:
+    conv6's 12-row halo and the ASPP's rate-4 halo reach past the next rank
+    (at 1x4 two ranks away, past the image's edge beyond), the image-level
+    mean sums over the ranks (``spatial_sum``) and the bilinear upsample
+    takes one row of each neighbour. Two grid steps against two
+    single-process steps: the losses within rtol 2e-5, every leaf's first
+    gradient within 1e-4 of its norm, the params after two steps within
+    atol 3e-6, every rank the same."""
+    want = grid_runs["single"]["deeplab"]
+    ranks = _ranks(grid_runs, name)
+    got = ranks[0]
+    assert all(r["checksum"] == got["checksum"] for r in ranks)
+    assert all(r["losses"] == got["losses"] for r in ranks)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5)
+    assert set(got["grads"]) == set(want["grads"])
     for k, g in want["grads"].items():
         err = (got["grads"][k] - g).norm() / g.norm().clamp(min=1e-30)
         assert err <= 1e-4, (k, err.item())

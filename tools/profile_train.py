@@ -4,20 +4,24 @@
     python tools/profile_train.py [--iters 5] [--top 15] [--workloads a,b] \
         [--out chiprun_out/profile_train.json]
 
-Three workloads, each with seeded random weights and a uint8 batch
-resident on the card, Adam 1e-4 (FCN-8s with dropout 0.5):
+Five workloads, each with seeded random weights and a uint8 batch
+resident on the card, Adam 1e-4 (FCN-8s and DeepLab with dropout 0.5):
 
 - ``preset``: fcn8s_kitti (fc 1024), batch 8 of 384x1248, 320x1152 crops,
   train-time confusion matrix on (what ``scripts/train.py`` runs);
 - ``bench``: bench.py's workload (fc 4096, batch 16, 384x1248, flip only,
   loss only);
 - ``segnet``: segnet_kitti (SegNet, full width), batch 8 of 384x1248,
-  320x1152 crops, metrics on.
+  320x1152 crops, metrics on;
+- ``deeplab`` and ``deeplab_os16``: deeplab_kitti_dp (DeepLab-ASPP at output
+  stride 8) and deeplab_kitti_os16, batch 16 of 384x1248, 320x1152 crops,
+  metrics on; for these the device time of the convs also goes by kernel
+  size and dilation (``conv_ms_by_dilation``: the dilated convs' share).
 
 and four Winograd forms of them: ``preset_f2`` (``winograd="f2"``),
 ``segnet_f2``, ``segnet_f4`` and ``bench_fc6`` (``winograd_fc6=True``).
 
-For each of the first three, two builds of the same weights in turns
+For each of the five workloads, two builds of the same weights in turns
 kernel, plain, plain, kernel: "kernel" (the stage1 training forward and
 backward kernels, for SegNet the SegNet stage1 forward and the argmax
 pool/unpool kernels, and the preprocess kernel) and "plain" (stage1 as cuDNN convs and a max pool, for
@@ -67,6 +71,13 @@ WORKLOADS = {
                    what="segnet_kitti preset (SegNet, batch 8, 384x1248 -> "
                         "320x1152 crops, metrics on)"),
 }
+WORKLOADS["deeplab"] = dict(model="deeplab", n=16, crop=(320, 1152), metrics=True,
+                           what="deeplab_kitti_dp preset (DeepLab-ASPP os8, batch 16, "
+                                "384x1248 -> 320x1152 crops, metrics on)")
+WORKLOADS["deeplab_os16"] = dict(WORKLOADS["deeplab"], base_kw={"output_stride": 16},
+                                 what="deeplab_kitti_os16 preset (DeepLab-ASPP os16, "
+                                      "batch 16, 384x1248 -> 320x1152 crops, "
+                                      "metrics on)")
 # the Winograd forms: the workload named by "base" with these model flags,
 # timed against the same workload without them
 WINOGRAD_FORMS = {
@@ -195,14 +206,14 @@ def show_idle(share: float | None) -> str:
 def train_workload(torch, wl: dict, packed: bool = True, weights=None,
                    model_kw: dict | None = None):
     """A train step of no arguments for workload ``wl`` (a ``WORKLOADS``
-    entry) on the card: FCN-8s at fc width ``wl["fc"]`` (or SegNet where
-    ``wl["model"]`` says so) with the model flags ``model_kw`` (default
-    ``wl["model_kw"]``, if any), seeded random weights (or ``weights``, a
-    state dict), Adam 1e-4, dropout 0.5, a batch of ``wl["n"]`` 384x1248
-    uint8 images resident on the card, flip and ``wl["crop"]`` by the
-    preprocess kernel (``packed``) or its plain version (stage1 then as cuDNN
-    convs and a max pool, SegNet's pools and unpools their plain
-    versions)."""
+    entry) on the card: FCN-8s at fc width ``wl["fc"]`` (or the model
+    ``wl["model"]`` names, with ``wl["base_kw"]``) with the model flags
+    ``model_kw`` (default ``wl["model_kw"]``, if any), seeded random
+    weights (or ``weights``, a state dict), Adam 1e-4, dropout 0.5, a batch
+    of ``wl["n"]`` 384x1248 uint8 images resident on the card, flip and
+    ``wl["crop"]`` by the preprocess kernel (``packed``) or its plain
+    version (stage1 then as cuDNN convs and a max pool, SegNet's pools and
+    unpools their plain versions)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
@@ -219,6 +230,7 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None,
     dev = torch.device("cuda")
     name = wl.get("model", "fcn8s")
     kw = {"fc_features": wl["fc"]} if name == "fcn8s" else {}
+    kw.update(wl.get("base_kw", {}))
     kw.update(wl.get("model_kw", {}) if model_kw is None else model_kw)
     model = build_model(name, 2, device=dev, packed_stage1=packed, **kw)
     if weights is None:
@@ -305,6 +317,41 @@ def conv_kernels_by_shape(torch, fn) -> dict[str, float]:
     return dict(sorted(rows.items(), key=lambda kv: -kv[1]))
 
 
+def conv_ms_by_dilation(torch, fn) -> dict:
+    """Device ms of one ``fn()`` in its convolutions, forward and backward
+    (each ``aten::convolution`` / ``aten::convolution_backward`` op with its
+    children's kernels), keyed ``"fwd 3x3 d2"`` by pass, kernel size and
+    dilation, largest first; ``dilated_ms`` and ``undilated_ms`` sum them."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            record_shapes=True) as prof:
+        warnings.simplefilter("ignore")
+        fn()
+        torch.cuda.synchronize()
+    rows: dict[str, float] = defaultdict(float)
+    split = {"dilated_ms": 0.0, "undilated_ms": 0.0}
+    for e in prof.events():
+        # the op's arguments: the weight's shape, then its dilation
+        at = {"aten::convolution": ("fwd", 1, 5),
+              "aten::convolution_backward": ("bwd", 2, 6)}.get(e.name)
+        if at is None:
+            continue
+        what, wi, di = at
+        kh, kw = e.input_shapes[wi][2:4]
+        dil = max(e.concrete_inputs[di])
+        ms = getattr(e, "device_time_total", None)
+        ms = (e.cuda_time_total if ms is None else ms) / 1e3
+        rows[f"{what} {kh}x{kw} d{dil}"] += ms
+        split["dilated_ms" if dil > 1 else "undilated_ms"] += ms
+    return dict(split, by_kind=dict(sorted(rows.items(), key=lambda kv: -kv[1])))
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--iters", type=int, default=5)
@@ -357,6 +404,13 @@ def main(argv=None) -> int:
         result[wname] = {"runs": runs, f"{first}_by_op_ms": top,
                          f"{first}_by_group_ms": dict(groups),
                          f"{first}_conv_ms_by_shape": convs}
+        if wl.get("model") == "deeplab":
+            dil = conv_ms_by_dilation(torch, steps[first])
+            result[wname][f"{first}_conv_ms_by_dilation"] = dil
+            print(f"{wname}, {first} build, conv ms per step by kind: "
+                  + json.dumps({k: round(v, 3) for k, v in dil["by_kind"].items()})
+                  + f"; dilated {dil['dilated_ms']:.3f}, undilated "
+                  f"{dil['undilated_ms']:.3f}")
         print(f"{wname}, {first} build, device ms per step by group: "
               + json.dumps({k: round(v, 3) for k, v in groups.items()}))
         for name, ms in top.items():
