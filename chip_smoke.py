@@ -66,6 +66,18 @@ with the kernels against plain PyTorch, ``eval.py --road-metrics`` (raw and
 ``deeplab_kitti_os16 --spatial 2`` at one rank, and both preset steps timed
 with the dilated convs' device time.
 
+Then U-Net on Cityscapes (``unet_phase``, ``unet_cityscapes``: 19 classes,
+512x1024, full width): kernels 2, 4 and 6 held against their plain versions
+at U-Net's shapes (the overlay at [1,512,1024] C=19, the preprocess kernel
+at [8,512,1024,3] -> 256x512, kernel 6 at its 13 full-lane convs, f2);
+infer_image, serve and the Predictor; ``scripts/test.py`` over 16 generated
+val images; ``train.py --synthetic``, then validated training (3 steps of 8,
+``--pallas-preprocess``, ``--resume``, infer_image) and ``eval.py`` on the
+checkpoint; a train step with the kernels against plain PyTorch; the
+``winograd=f2`` Predictor and train step; ``--spatial 2`` at one rank; the
+preset step timed, direct and f2 in turns; and the 2-rank grid on 496 rows,
+split unevenly (256 + 240) at U-Net's stride 16.
+
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
 version, device times of the kernel, its plain version and the one PyTorch
@@ -558,13 +570,13 @@ def check_preprocess(torch, gen) -> dict:
             **bound(px + 4 * px, 2 * px, F32_FLOP_PER_S), "library_ms": None}
 
 
-def kitti_like(seed: int):
-    """A [375, 1242, 3] u8 image: smooth structure plus noise, so the labels
-    are not all one class."""
+def kitti_like(seed: int, hw=IMAGE_HW):
+    """A [375, 1242, 3] (or ``hw``) u8 image: smooth structure plus noise,
+    so the labels are not all one class."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    h, w = IMAGE_HW
+    h, w = hw
     yy, xx = np.mgrid[0:h, 0:w]
     base = np.stack([(xx * 255 // w), (yy * 255 // h),
                      ((xx + yy) * 255 // (h + w))], -1)
@@ -572,10 +584,10 @@ def kitti_like(seed: int):
     return np.clip(base + noise, 0, 255).astype(np.uint8)
 
 
-def write_png(path: str, seed: int) -> None:
+def write_png(path: str, seed: int, hw=IMAGE_HW) -> None:
     from PIL import Image
 
-    Image.fromarray(kitti_like(seed)).save(path)
+    Image.fromarray(kitti_like(seed, hw)).save(path)
 
 
 HOST_ITERS = 20
@@ -816,21 +828,23 @@ def drive_sweep(torch, tmp: str, counters: dict) -> dict:
 
 def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None) -> dict:
     """The inference path through the user's entry points at ``preset``
-    (random weights; ``model_kw`` as ``--model-kw`` takes it): infer_image,
-    the server answering requests, the Predictor's steady state. Returns
-    timings."""
+    (random weights; ``model_kw`` as ``--model-kw`` takes it) on a
+    generated image of the preset's size: infer_image, the server answering
+    requests, the Predictor's steady state. Returns timings."""
     import http.client
 
     import numpy as np
     from PIL import Image
 
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
     from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
     from semanticsegmentation_tensorflow_tpu_torch.scripts import infer_image, serve
 
     times = {}
+    hw = get_preset(preset).data.image_size
     png = os.path.join(tmp, "kitti_like.png")
     out = os.path.join(tmp, "overlay.png")
-    write_png(png, seed=0)
+    write_png(png, seed=0, hw=hw)
     kw = ["--model-kw", model_kw] if model_kw else []
     what = f"{preset} {model_kw}" if model_kw else preset
 
@@ -843,7 +857,7 @@ def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None) -> di
     if rc != 0:
         raise AssertionError(f"infer_image returned {rc}")
     ov = np.asarray(Image.open(out))
-    if ov.shape != (*IMAGE_HW, 3) or ov.dtype != np.uint8:
+    if ov.shape != (*hw, 3) or ov.dtype != np.uint8:
         raise AssertionError(f"infer_image wrote {ov.shape} {ov.dtype}")
     log(f"infer_image: wrote {ov.shape} overlay in "
         f"{times['infer_image_main_s']:.3f} s (model build, random init, "
@@ -905,7 +919,7 @@ def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None) -> di
             times[name] = float(np.median(ts))
         dev, ops = device_ms(lambda: pred(img), iters=10)
         times["predictor_overlay_device_ms"] = dev
-        log(f"Predictor {what}, 1x{IMAGE_HW[0]}x{IMAGE_HW[1]}: overlay "
+        log(f"Predictor {what}, 1x{hw[0]}x{hw[1]}: overlay "
             f"{times['predictor_overlay_ms']:.3f} ms/image, packed labels "
             f"{times['predictor_labels_ms']:.3f} ms/image (host clock, median "
             f"of 10); overlay call on the device {dev:.3f} ms in {ops} ops, "
@@ -1007,11 +1021,12 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
                    extra: tuple = ()) -> dict:
     """The training path through the user's entry points: the port's
     scripts/train.py on a generated synthetic KITTI set at 375x1242 (24
-    images, or ``data``: as many as 3 steps take after any ``extra`` flags'
-    validation split) at ``preset`` (its batch, 320x1152 crops, full width, 3
-    steps; ``model_kw`` as ``--model-kw`` takes it) with
-    --pallas-preprocess, then --resume, then infer_image on the checkpoint
-    it wrote. Returns timings, and the data and checkpoint directories."""
+    images, or ``data``, the preset's dataset: as many as 3 steps take after
+    any ``extra`` flags' validation split) at ``preset`` (its batch and
+    crops, full width, 3 steps; ``model_kw`` as ``--model-kw`` takes it)
+    with --pallas-preprocess, then --resume, then infer_image on the
+    checkpoint it wrote (on the dataset's first test image). Returns
+    timings, and the data and checkpoint directories."""
     import contextlib
     import math
 
@@ -1019,6 +1034,7 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
     from PIL import Image
 
     from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+    from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
     from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
         generate_synthetic_kitti,
     )
@@ -1028,7 +1044,8 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
         data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=24,
                                         n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1],
                                         seed=0)
-    batch = get_preset(preset).train.batch_size
+    dc = get_preset(preset).data
+    batch, hw = get_preset(preset).train.batch_size, dc.image_size
     ck = os.path.join(tmp, "ckpt")
     kw = ["--model-kw", model_kw] if model_kw else []
     what = f"{preset} {model_kw}" if model_kw else preset
@@ -1049,7 +1066,8 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
         raise AssertionError(f"train: loss {loss} at step {epoch.get('step')}")
     if not os.path.exists(os.path.join(ck, "ckpt_3.pt")):
         raise AssertionError(f"train wrote no checkpoint: {os.listdir(ck)}")
-    log(f"train.main {what} {' '.join(extra)}, batch {batch}, 320x1152 crops: 3 steps, "
+    log(f"train.main {what} {' '.join(extra)}, batch {batch}, "
+        f"{'x'.join(map(str, dc.crop_size))} crops: 3 steps, "
         f"loss {loss:.4f}, miou {epoch.get('epoch/miou', float('nan')):.4f}, "
         f"{wall:.1f} s wall (data decode, model build, cuDNN setup included), "
         f"peak device memory {peak:.2f} GiB")
@@ -1060,18 +1078,40 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
     if rc != 0 or "resumed at step 3" not in buf.getvalue():
         raise AssertionError("train --resume did not restore step 3")
     out = os.path.join(tmp, "trained_overlay.png")
-    src = os.path.join(data, "testing", "image_2",
-                       sorted(os.listdir(os.path.join(data, "testing", "image_2")))[0])
+    src = build_dataset(dc.dataset, data, hw).test_images[0]
     if infer_image.main(["--preset", preset, "--checkpoint-dir", ck, "--image",
                          src, "--out", out, "--device", "cuda", *kw]) != 0:
         raise AssertionError("infer_image on the trained checkpoint failed")
     ov = np.asarray(Image.open(out))
-    if ov.shape != (*IMAGE_HW, 3):
+    if ov.shape != (*hw, 3):
         raise AssertionError(f"infer_image wrote {ov.shape}")
     log(f"train --resume: restored step 3; infer_image --checkpoint-dir wrote a "
         f"{ov.shape} overlay from the trained weights")
     return {"train_cli_wall_s": wall, "train_cli_peak_gib": peak,
             "train_cli_loss": loss, "data": data, "ckpt": ck}
+
+
+def hold_train_steps(what: str, kern, out_k: dict, plain, out_p: dict) -> None:
+    """Hold one train step with the kernels (state ``kern``, output
+    ``out_k``) against the same step on plain PyTorch: the loss within 1e-3
+    relative, each parameter's gradient within 5e-2 of its L2 norm, and
+    the confusion matrices nearly equal (labels agree on >= 99.5 % of the
+    valid pixels). Logs the numbers; raises outside the bounds."""
+    lk, lp = out_k["loss"].item(), out_p["loss"].item()
+    worst, worst_name = 0.0, ""
+    for (name, pk), pp in zip(kern.model.named_parameters(),
+                              plain.model.parameters()):
+        rel = ((pk.grad - pp.grad).norm() / pp.grad.norm().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    cm_k, cm_p = out_k["cm"].cpu(), out_p["cm"].cpu()
+    agree = 1 - (cm_k - cm_p).abs().sum().item() / (2 * cm_p.sum().item())
+    log(f"train step {what}, kernels vs plain: loss {lk:.6f} vs {lp:.6f} (rel "
+        f"{abs(lk - lp) / abs(lp):.3g}, bound 1e-3); worst gradient |dg|/|g| "
+        f"{worst:.4g} ({worst_name}, bound 5e-2); labels agree >= "
+        f"{100 * agree:.4f} % (bound 99.5 %)")
+    if not (abs(lk - lp) <= 1e-3 * abs(lp) and worst <= 5e-2 and agree >= 0.995):
+        raise AssertionError(f"train step {what}: kernels vs plain outside the bound")
 
 
 def check_train_step(torch, preset: str = "fcn8s_kitti", fixed: bool = True) -> None:
@@ -1087,9 +1127,7 @@ def check_train_step(torch, preset: str = "fcn8s_kitti", fixed: bool = True) -> 
     neighbouring bf16 value (and a near-tied window routes the other way);
     that moves a few gradient elements of stage1 and, through 13 more bf16
     layers (FCN; DeepLab's encoder, ASPP and head are as deep), the rest by a
-    few bf16 ulps. Loss within 1e-3 relative; each parameter's gradient
-    within 5e-2 of its L2 norm; the confusion matrices nearly equal (labels
-    agree on >= 99.5 % of the valid pixels)."""
+    few bf16 ulps: ``hold_train_steps``'s bounds."""
     from functools import partial
 
     import numpy as np
@@ -1131,24 +1169,8 @@ def check_train_step(torch, preset: str = "fcn8s_kitti", fixed: bool = True) -> 
                             std=STD), crop, True)
     out_k = make_train_step(2, augment_fn=aug_k)(kern, batch)
     out_p = make_train_step(2, augment_fn=aug_p)(plain, batch)
-    lk, lp = out_k["loss"].item(), out_p["loss"].item()
-    worst, worst_name = 0.0, ""
-    for (name, pk), pp in zip(kern.model.named_parameters(),
-                              plain.model.parameters()):
-        rel = ((pk.grad - pp.grad).norm() / pp.grad.norm().clamp(min=1e-30)).item()
-        if rel > worst:
-            worst, worst_name = rel, name
-    cm_k, cm_p = out_k["cm"].cpu(), out_p["cm"].cpu()
-    total = cm_p.sum().item()
-    agree = 1 - (cm_k - cm_p).abs().sum().item() / (2 * total)
-    log(f"train step {preset} (batch {cfg.train.batch_size}), kernels vs plain: "
-        f"loss {lk:.6f} vs {lp:.6f} "
-        f"(rel {abs(lk - lp) / abs(lp):.3g}, bound 1e-3); worst gradient "
-        f"|dg|/|g| {worst:.4g} ({worst_name}, bound 5e-2); confusion matrices "
-        f"{cm_k.tolist()} vs {cm_p.tolist()} (>= {100 * agree:.4f} % of labels "
-        "agree, bound 99.5 %)")
-    if not (abs(lk - lp) <= 1e-3 * abs(lp) and worst <= 5e-2 and agree >= 0.995):
-        raise AssertionError(f"train step {preset}: kernels vs plain outside the bound")
+    hold_train_steps(f"{preset} (batch {cfg.train.batch_size})", kern, out_k,
+                     plain, out_p)
     del plain
     if not fixed:
         return
@@ -1203,18 +1225,20 @@ def run_cli(main, argv: list[str]) -> str:
     return buf.getvalue()
 
 
-def parse_eval(out: str) -> dict:
-    """The numbers of scripts/eval.py's lines (the JAX CLI's format)."""
+def parse_eval(out: str, road: bool = True) -> dict:
+    """The numbers of scripts/eval.py's lines (the JAX CLI's format); the
+    KITTI road line only with ``road``."""
     import re
 
     m = re.search(r"^loss=(\S+) miou=(\S+) pixel_acc=(\S+) iou=", out, re.M)
     r = re.search(r"^kitti-road: MaxF=(\S+) AP=(\S+) .*@tau=(\S+)$", out, re.M)
     t = re.search(r"^(\d+) images in (\S+)s \((\S+) img/s\)$", out, re.M)
-    if not (m and r and t):
+    if not (m and t and (r or not road)):
         raise AssertionError(f"eval printed no metrics: {out!r}")
     vals = dict(loss=float(m[1]), miou=float(m[2]), pixel_acc=float(m[3]),
-                maxf=float(r[1]), ap=float(r[2]), tau=float(r[3]),
                 images=int(t[1]), seconds=float(t[2]), img_per_s=float(t[3]))
+    if road:
+        vals.update(maxf=float(r[1]), ap=float(r[2]), tau=float(r[3]))
     if not all(v == v and abs(v) != float("inf") for v in vals.values()):
         raise AssertionError(f"eval printed a non-finite number: {vals}")
     return vals
@@ -1854,6 +1878,53 @@ def winograd_work(variant: str, shape, co: int, op: str) -> tuple[float, float]:
     return nbytes, 2.0 * a2 * tiles * c * co
 
 
+def winograd_held(got, want, rel: float, near0: float, what: str) -> float:
+    """Raise unless every element of kernel 6's ``got`` lies within ``rel``
+    of its plain ``want`` plus ``near0`` of max |want| (and is finite);
+    returns the largest error."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = int((err > rel * want.abs() + near0 * want.abs().max()).sum())
+    if bad or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"winograd {what}: {bad} elements outside the bound")
+    return err.max().item()
+
+
+def winograd_ops(torch, x, wt, b, g, o, variant: str) -> dict:
+    """Kernel 6's three train-step ops on one conv (input ``x``, OIHW
+    weight ``wt``, bias ``b``, cotangent ``g``, relu output ``o``), each as
+    (plain, kernel, library) calls: the bias_relu forward beside cuDNN's
+    ``F.conv2d`` with the bias; the masked forward that is the input
+    gradient, and the weight gradient, beside ``aten.convolution_backward``."""
+    import torch.nn.functional as F
+
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
+    from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import rot180_swap
+
+    u = cw.u_for(wt, variant, torch.bfloat16)
+    u2 = cw.u_for(rot180_swap(wt), variant, torch.bfloat16)
+    xc, gc = x.permute(0, 3, 1, 2), (g * (o > 0)).permute(0, 3, 1, 2)
+    wc = wt.bfloat16().contiguous(memory_format=torch.channels_last)
+
+    def conv_bwd(mask):
+        return lambda: torch.ops.aten.convolution_backward(
+            gc, xc, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, mask)
+
+    return {
+        "fwd": (lambda: cw.winograd_fwd_plain(x, u, b, None, variant, "bias_relu"),
+                lambda: cw.winograd_fwd(x, u, b, None, variant, "bias_relu"),
+                lambda: F.conv2d(xc, wc, b, padding=1)),
+        "dgrad": (lambda: cw.winograd_fwd_plain(g, u2, None, o, variant, "none"),
+                  lambda: cw.winograd_fwd(g, u2, None, o, variant, "none"),
+                  conv_bwd([True, False, False])),
+        "wgrad": (lambda: cw.winograd_wgrad_plain(x, g, o, variant),
+                  lambda: cw.winograd_wgrad(x, g, o, variant),
+                  conv_bwd([False, True, True])),
+    }
+
+
 def check_winograd(torch, gen) -> dict:
     """Kernel 6 against its plain version at every eligible conv shape of
     the FCN-8s and SegNet train steps (WINOGRAD_TRAIN) for f2 and f4: the
@@ -1876,8 +1947,6 @@ def check_winograd(torch, gen) -> dict:
     2^-12 max |plain|; dU and db are float32 sums over up to 184320 tiles
     in another order: 1e-4 of max |plain|, as kernel 1b's wgrad. A rerun of
     the wgrad gives the same bits."""
-    import torch.nn.functional as F
-
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
     from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
         VARIANTS, rot180_swap,
@@ -1889,14 +1958,7 @@ def check_winograd(torch, gen) -> dict:
     def events(fn):
         return cuda_ms(fn, iters=5, warmup=1)
 
-    def held(got, want, rel, near0, what):
-        got, want = got.float(), want.float()
-        err = (got - want).abs()
-        bad = int((err > rel * want.abs() + near0 * want.abs().max()).sum())
-        if bad or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"winograd {what}: {bad} elements outside the bound")
-        return err.max().item()
-
+    held = winograd_held
     worst = 0.0
     for variant in ("f2", "f4"):
         m = VARIANTS[variant].m
@@ -1954,25 +2016,7 @@ def check_winograd(torch, gen) -> dict:
             wt = rand((co, c, 3, 3), (1.0 / (9 * c)) ** 0.5)
             b = rand((co,), 0.1).bfloat16()
             g, o = rand((n, h, w, co)).bfloat16(), rand((n, h, w, co)).bfloat16()
-            u = cw.u_for(wt, variant, torch.bfloat16)
-            u2 = cw.u_for(rot180_swap(wt), variant, torch.bfloat16)
-            xc, gc = x.permute(0, 3, 1, 2), (g * (o > 0)).permute(0, 3, 1, 2)
-            wc = wt.bfloat16().contiguous(memory_format=torch.channels_last)
-            ops = {
-                "fwd": (lambda: cw.winograd_fwd_plain(x, u, b, None, variant, "bias_relu"),
-                        lambda: cw.winograd_fwd(x, u, b, None, variant, "bias_relu"),
-                        lambda: F.conv2d(xc, wc, b, padding=1)),
-                "dgrad": (lambda: cw.winograd_fwd_plain(g, u2, None, o, variant, "none"),
-                          lambda: cw.winograd_fwd(g, u2, None, o, variant, "none"),
-                          lambda: torch.ops.aten.convolution_backward(
-                              gc, xc, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
-                              1, [True, False, False])),
-                "wgrad": (lambda: cw.winograd_wgrad_plain(x, g, o, variant),
-                          lambda: cw.winograd_wgrad(x, g, o, variant),
-                          lambda: torch.ops.aten.convolution_backward(
-                              gc, xc, wc, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
-                              1, [False, True, True])),
-            }
+            ops = winograd_ops(torch, x, wt, b, g, o, variant)
             line = []
             for op, (plain, kernel, library) in ops.items():
                 nbytes, flops = winograd_work(variant, shape, co, op)
@@ -1989,7 +2033,7 @@ def check_winograd(torch, gen) -> dict:
                     acc["bytes"] += count * nbytes
                     acc["flops"] += count * flops
             log(f"  {variant} {list(shape)}->{co}: " + "; ".join(line))
-            del x, g, o, u, u2, xc, gc, wc, ops
+            del x, g, o, ops
         torch.cuda.empty_cache()
     for (model, variant), acc in step.items():
         log(f"winograd per {model} train step at {variant} (fwd + dgrad + wgrad over "
@@ -2343,12 +2387,19 @@ def drive_spatial_training(torch, tmp: str, preset: str, data: str | None = None
     return {"spatial_cli_wall_s": wall, "spatial_cli_loss": loss}
 
 
-GRID_N = 8              # fcn8s_kitti's batch, full 384x1248 images (no crop)
+# the grid phase's workloads: fcn8s_kitti at full width on 8 full 384x1248
+# images (192 + 192 rows at stride 32), and unet_cityscapes at full width on
+# 4 images of 496x1024: 31 blocks of 16 rows, which split unevenly, 256 + 240
+GRID = {"fcn8s_kitti": dict(model="fcn8s", classes=2, n=8, hw=PADDED_HW, stride=32,
+                            seed=11, kernels=("stage1_tail_halo", "stage1_tail_halo_bwd")),
+        "unet_cityscapes": dict(model="unet", classes=19, n=4, hw=(496, 1024),
+                                stride=16, seed=12, kernels=("preprocess_normalize",))}
 
 
-def _grid_state(torch, dev, weights=None):
-    """fcn8s_kitti at full width with the SPMD-safe kwargs (pallas_spmd,
-    no Winograd), dropout 0, Adam 1e-4, seeded (or given) weights."""
+def _grid_state(torch, dev, workload, weights=None):
+    """The grid workload's preset model at full width with the SPMD-safe
+    kwargs (for FCN pallas_spmd; no Winograd), dropout 0, Adam 1e-4, seeded
+    (or given) weights."""
     from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
     from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
@@ -2358,33 +2409,45 @@ def _grid_state(torch, dev, weights=None):
         create_train_state, make_lr_schedule, make_optimizer,
     )
 
-    kw = merge_spmd_safe_kwargs("fcn8s", dict(get_preset("fcn8s_kitti").model_kwargs,
-                                              dropout_rate=0.0))
-    model = build_model("fcn8s", 2, device=dev, **kw)
+    g = GRID[workload]
+    kw = merge_spmd_safe_kwargs(g["model"], dict(get_preset(workload).model_kwargs))
+    if g["model"] == "fcn8s":
+        kw["dropout_rate"] = 0.0
+    model = build_model(g["model"], g["classes"], device=dev, **kw)
     if weights is None:
-        init_params(model, torch.Generator(device=dev).manual_seed(11))
+        init_params(model, torch.Generator(device=dev).manual_seed(g["seed"]))
     else:
         model.load_state_dict(weights)
     return create_train_state(model, make_optimizer("adam", model.parameters(), 1e-4),
                               make_lr_schedule(1e-4), seed=0)
 
 
-def _grid_batch(torch, dev):
+def _grid_batch(torch, dev, workload):
+    """FCN: generated road scenes; U-Net: random images and 19-class
+    labels (seeded)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
 
+    g = GRID[workload]
     rng = np.random.default_rng(4)
-    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW) for _ in range(GRID_N)))
-    return {"image": torch.from_numpy(np.stack(imgs)).to(dev),
-            "label": torch.from_numpy(np.stack(lbls)).to(dev)}
+    if g["model"] == "fcn8s":
+        imgs, lbls = zip(*(_road_scene(rng, *g["hw"]) for _ in range(g["n"])))
+        imgs, lbls = np.stack(imgs), np.stack(lbls)
+    else:
+        imgs = rng.integers(0, 256, (g["n"], *g["hw"], 3), np.uint8)
+        lbls = rng.integers(0, g["classes"], (g["n"], *g["hw"])).astype(np.int32)
+    return {"image": torch.from_numpy(imgs).to(dev),
+            "label": torch.from_numpy(lbls).to(dev)}
 
 
 def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     """One rank of the grid phase (``chip_smoke.py --grid-rank``): gloo on
-    cuda:0, a data 1 x spatial 2 grid, two train steps of fcn8s_kitti on
-    this rank's rows of the job's batch from the job's weights, then timed
-    steps and one profiled step; rank 0 saves the first step's gradients."""
+    cuda:0, a data 1 x spatial 2 grid with the rows split at the model's
+    stride (``Grid.at_height``: unevenly where the blocks do not divide),
+    two train steps of the job's workload on this rank's rows of its batch
+    from the job's weights, then timed steps and one profiled step; rank 0
+    saves the first step's gradients."""
     import datetime
 
     import torch
@@ -2392,11 +2455,8 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     sys.path[:0] = [REPO]
-    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
-        make_preprocess_augment_fn,
-    )
-    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-        stage1_tail_halo, stage1_tail_halo_bwd,
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import (
+        preprocess as cuda_preprocess, stage1 as cuda_stage1,
     )
     from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import make_grid
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
@@ -2406,13 +2466,20 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=300))
     dev = torch.device("cuda", 0)
-    grid = make_grid(1, world)
-    state = _grid_state(torch, dev, torch.load(job, map_location=dev))
-    batch = {k: v[:, grid.rows(v.shape[1])].contiguous()
-             for k, v in _grid_batch(torch, dev).items()}
-    step = make_train_step(2, mesh=grid,
-                           augment_fn=make_preprocess_augment_fn(MEAN, STD, None))
-    stage1_tail_halo.launches = stage1_tail_halo_bwd.launches = 0
+    spec = torch.load(job, map_location=dev)
+    g = GRID[spec["workload"]]
+    grid = make_grid(1, world).at_height(g["hw"][0], g["stride"])
+    state = _grid_state(torch, dev, spec["workload"], spec["weights"])
+    rows = grid.rows(g["hw"][0], g["stride"])
+    batch = {k: v[:, rows].contiguous()
+             for k, v in _grid_batch(torch, dev, spec["workload"]).items()}
+    step = make_train_step(g["classes"], mesh=grid,
+                           augment_fn=cuda_preprocess.make_preprocess_augment_fn(
+                               MEAN, STD, None))
+    wrappers = [getattr(cuda_preprocess if k.startswith("preprocess") else cuda_stage1, k)
+                for k in g["kernels"]]
+    for w in wrappers:
+        w.launches = 0
     losses, cms = [], []
     for i in range(2):
         o = step(state, batch)
@@ -2421,7 +2488,7 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
         if i == 0 and rank == 0:
             torch.save({k: p.grad.float().cpu() for k, p in
                         state.model.named_parameters()}, out + ".grads")
-    launches = (stage1_tail_halo.launches, stage1_tail_halo_bwd.launches)
+    launches = tuple(w.launches for w in wrappers)
     ms = cuda_ms(lambda: step(state, batch), iters=4, warmup=1)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
@@ -2433,41 +2500,46 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
         if e.key in spans:
             spans[e.key] = e.cpu_time_total / 1e3
     torch.save({"losses": losses, "cms": cms, "launches": launches, "ms": ms,
-                "profiled_wall_ms": wall, "spans_ms": spans,
+                "rows": rows.stop - rows.start, "profiled_wall_ms": wall,
+                "spans_ms": spans,
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}, out)
     dist.barrier()
     dist.destroy_process_group()
     return 0
 
 
-def check_grid(torch, tmp: str, smi: str) -> dict:
+def check_grid(torch, tmp: str, smi: str, workload: str = "fcn8s_kitti") -> dict:
     """The 2-rank grid (data 1 x spatial 2) with gloo on cuda:0: two ranks
-    sharing one GPU, each holding 192 of the 384 rows of an fcn8s_kitti
-    batch (8 full 384x1248 images, flips by the preprocess kernel), two
-    Adam steps through the halo exchange and kernel 1c, held against the
-    single-process run of the same step (pallas_spmd at one rank) with
-    check_train_step's bounds: both losses within 1e-3 relative, each
-    parameter's first gradient within 5e-2 of its L2 norm, the confusion
-    matrices on >= 99.5 % of the labels. Then ms per step (4 steps, CUDA
-    events) and the exchange's and the gradient all-reduce's share of one
-    profiled step. Two ranks on one card over gloo: not a multi-GPU number."""
+    sharing one GPU, each holding its rows of the workload's batch (``GRID``:
+    fcn8s_kitti's 8 full 384x1248 images, 192 rows each; unet_cityscapes' 4
+    images of 496x1024, 256 and 240 rows), flips by the preprocess kernel,
+    two Adam steps through the halo exchange (and kernel 1c for FCN), held
+    against the single-process run of the same step (pallas_spmd at one
+    rank for FCN) with check_train_step's bounds: both losses within 1e-3
+    relative, each parameter's first gradient within 5e-2 of its L2 norm,
+    the confusion matrices on >= 99.5 % of the labels. Then ms per step (4
+    steps, CUDA events) and the exchange's and the gradient all-reduce's
+    share of one profiled step. Two ranks on one card over gloo: not a
+    multi-GPU number."""
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
         make_preprocess_augment_fn,
     )
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
 
+    g = GRID[workload]
     dev = torch.device("cuda")
-    ref = _grid_state(torch, dev)
-    job = os.path.join(tmp, "grid_weights.pt")
-    torch.save(ref.model.state_dict(), job)
-    store = os.path.join(tmp, "grid_store")
-    outs = [os.path.join(tmp, f"grid_rank{r}.pt") for r in range(2)]
+    ref = _grid_state(torch, dev, workload)
+    job = os.path.join(tmp, f"grid_{workload}.pt")
+    torch.save({"workload": workload, "weights": ref.model.state_dict()}, job)
+    store = os.path.join(tmp, f"grid_store_{workload}")
+    outs = [os.path.join(tmp, f"grid_{workload}_rank{r}.pt") for r in range(2)]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--grid-rank",
                                str(r), "2", store, job, outs[r]]) for r in range(2)]
     try:
         # the single-process reference runs while the ranks start
-        batch = _grid_batch(torch, dev)
-        step = make_train_step(2, augment_fn=make_preprocess_augment_fn(MEAN, STD, None))
+        batch = _grid_batch(torch, dev, workload)
+        step = make_train_step(g["classes"],
+                               augment_fn=make_preprocess_augment_fn(MEAN, STD, None))
         ref_losses, ref_cms = [], []
         for i in range(2):
             o = step(ref, batch)
@@ -2489,8 +2561,8 @@ def check_grid(torch, tmp: str, smi: str) -> dict:
     ranks = [torch.load(o) for o in outs]
     grads = torch.load(outs[0] + ".grads")
     worst, worst_name = 0.0, ""
-    for k, g in ref_grads.items():
-        rel = ((grads[k] - g).norm() / g.norm().clamp(min=1e-30)).item()
+    for k, gr in ref_grads.items():
+        rel = ((grads[k] - gr).norm() / gr.norm().clamp(min=1e-30)).item()
         if rel > worst:
             worst, worst_name = rel, k
     agree = min(1 - (a - b).abs().sum().item() / (2 * b.sum().item())
@@ -2498,15 +2570,16 @@ def check_grid(torch, tmp: str, smi: str) -> dict:
     rel_loss = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref_losses))
     same = ranks[0]["losses"] == ranks[1]["losses"]
     r0 = ranks[0]
+    n, (h, w) = g["n"], g["hw"]
     share = {k: v / r0["profiled_wall_ms"] for k, v in r0["spans_ms"].items()}
-    log(f"grid data1 x spatial2 (2 gloo ranks sharing cuda:0), fcn8s_kitti, {GRID_N} x "
-        f"384x1248: losses {r0['losses']} vs single-process {ref_losses} (max rel "
-        f"{rel_loss:.3g}, bound 1e-3); worst first gradient |dg|/|g| {worst:.4g} "
-        f"({worst_name}, bound 5e-2); labels agree >= {100 * agree:.4f} % (bound "
-        f"99.5 %); both ranks' losses equal: {same}; launches on rank 0 (halo fwd, bwd)"
-        f" {r0['launches']}")
-    log(f"grid step: {r0['ms']:.2f} ms/step, {GRID_N / r0['ms'] * 1e3:.2f} images/s "
-        f"(two ranks sharing one GPU over gloo, not a multi-GPU number; the "
+    log(f"grid data1 x spatial2 (2 gloo ranks sharing cuda:0), {workload}, {n} x "
+        f"{h}x{w}, rows {[r['rows'] for r in ranks]}: losses {r0['losses']} vs "
+        f"single-process {ref_losses} (max rel {rel_loss:.3g}, bound 1e-3); worst first "
+        f"gradient |dg|/|g| {worst:.4g} ({worst_name}, bound 5e-2); labels agree >= "
+        f"{100 * agree:.4f} % (bound 99.5 %); both ranks' losses equal: {same}; "
+        f"launches on rank 0 {dict(zip(g['kernels'], r0['launches']))}")
+    log(f"grid step {workload}: {r0['ms']:.2f} ms/step, {n / r0['ms'] * 1e3:.2f} "
+        f"images/s (two ranks sharing one GPU over gloo, not a multi-GPU number; the "
         f"single-process step of the same model {single_ms:.2f} ms); one profiled "
         f"step {r0['profiled_wall_ms']:.2f} ms: halo exchange "
         f"{r0['spans_ms']['halo_exchange']:.2f} ms ({100 * share['halo_exchange']:.1f} %)"
@@ -2514,11 +2587,13 @@ def check_grid(torch, tmp: str, smi: str) -> dict:
         f"({100 * share['grid_all_reduce']:.1f} %); peak memory per rank "
         f"{r0['peak_gib']:.2f} GiB | {smi}")
     if not (rel_loss <= 1e-3 and worst <= 5e-2 and agree >= 0.995 and same
-            and all(r0["launches"])):
-        raise AssertionError("the grid step is outside the bounds")
-    return {"grid_ms": r0["ms"], "grid_images_per_s": GRID_N / r0["ms"] * 1e3,
+            and all(r0["launches"])
+            and sum(r["rows"] for r in ranks) == h):
+        raise AssertionError(f"the {workload} grid step is outside the bounds")
+    return {"grid_ms": r0["ms"], "grid_images_per_s": n / r0["ms"] * 1e3,
             "grid_single_ms": single_ms, "grid_exchange_share": share["halo_exchange"],
             "grid_all_reduce_share": share["grid_all_reduce"],
+            "grid_rows": [r["rows"] for r in ranks],
             "grid_launches": list(r0["launches"])}
 
 
@@ -2626,6 +2701,392 @@ def deeplab_phase(torch, smi: str, drive) -> list[dict]:
                for w, r in dl_steps.items()})))
     torch.cuda.empty_cache()
     return dl_runs
+
+
+# --- U-Net on Cityscapes (unet_cityscapes): kernels 2, 4 and 6 at its shapes --
+
+UNET_HW, UNET_CROP = (512, 1024), (256, 512)   # stride 16 divides the images
+UNET_TRAIN, UNET_VAL = 32, 16   # generated Cityscapes-layout images
+# kernel 6 (winograd=f2) on U-Net's train step (batch 8, 256x512 crops): each
+# eligible 3x3 conv's input shape (both widths multiples of 128), its output
+# channels and how many of the step's 13 routed convs have it
+UNET_WINOGRAD_TRAIN = (
+    ((8, 128, 256, 128), 128, 2), ((8, 64, 128, 128), 256, 1),
+    ((8, 64, 128, 256), 256, 2), ((8, 32, 64, 256), 512, 1),
+    ((8, 32, 64, 512), 512, 2), ((8, 16, 32, 512), 1024, 1),
+    ((8, 16, 32, 1024), 1024, 1), ((8, 32, 64, 1024), 512, 1),
+    ((8, 64, 128, 512), 256, 1), ((8, 128, 256, 256), 128, 1))
+
+
+def check_unet_kernels(torch, gen) -> dict:
+    """Kernels 2, 4 and 6 against their plain versions at the shapes U-Net's
+    paths give them: the overlay at [1,512,1024] C=19 (the Predictor's call,
+    logits unpadded at stride 16; bytes and labels exact, timed beside the
+    plain version and its bound), the preprocess kernel at [8,512,1024,3] ->
+    256x512 crops (bytes exact, timed), and kernel 6 (F(2,3)) at every
+    eligible conv of the train step (UNET_WINOGRAD_TRAIN: the bias_relu
+    forward, the masked dgrad and the masked wgrad, with check_winograd's
+    bounds) and of the 512x1024 Predictor forward (the bias_relu forward),
+    then each train shape's three ops timed by CUDA events (kernel, plain,
+    cuDNN) and summed over one U-Net f2 step."""
+    from overlay_ab import work
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.palette import CITYSCAPES_PALETTE
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
+        argmax_colormap_overlay_cuda, argmax_colormap_overlay_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        preprocess_normalize, preprocess_normalize_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import rot180_swap
+
+    res = {}
+    (h, w), c = UNET_HW, 19
+    img = torch.randint(0, 256, (1, h, w, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    logits = torch.randn((1, h, w, c), generator=gen, device="cuda")
+    pal = torch.as_tensor(CITYSCAPES_PALETTE, device="cuda")
+    ov_k, lab_k = argmax_colormap_overlay_cuda(img, logits, pal, 0.5)
+    ov_p, lab_p = argmax_colormap_overlay_plain(img, logits, pal, 0.5)
+    if not (torch.equal(lab_k, lab_p) and torch.equal(ov_k, ov_p)):
+        raise AssertionError("overlay at U-Net's [1,512,1024] C=19: not exact")
+    t = ab_ms(lambda: argmax_colormap_overlay_plain(img, logits, pal, 0.5),
+              lambda: argmax_colormap_overlay_cuda(img, logits, pal, 0.5))
+    b = bound(work(1, h, w, c))
+    show_ab("overlay at U-Net's [1,512,1024], C=19 (labels and bytes exact)", t)
+    res["overlay"] = dict(t, **b)
+    log(f"overlay [1,512,1024] C=19: {100 * b['bound_ms'] / t['ms']:.1f} % of its "
+        f"bound {b['bound_ms']:.4f} ms")
+
+    n = 8
+    x8 = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
+                       dtype=torch.uint8)
+    args = (x8, torch.tensor([True, False] * 4), torch.tensor([0, 256, 13, 37, 256, 1, 50, 0]),
+            torch.tensor([512, 0, 5, 71, 96, 511, 33, 60]), UNET_CROP, MEAN, STD)
+    if not torch.equal(preprocess_normalize(*args), preprocess_normalize_plain(*args)):
+        raise AssertionError("preprocess at U-Net's [8,512,1024,3] -> 256x512: "
+                             "kernel bytes differ from plain")
+    t = ab_ms(lambda: preprocess_normalize_plain(*args), lambda: preprocess_normalize(*args))
+    px = n * UNET_CROP[0] * UNET_CROP[1] * 3
+    b = bound(px + 4 * px, 2 * px, F32_FLOP_PER_S)
+    show_ab("preprocess at U-Net's [8,512,1024,3] -> 256x512 (bytes exact)", t)
+    res["preprocess"] = dict(t, **b)
+    del x8, args
+
+    def rand(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    held = winograd_held
+    worst, acc = 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    infer = [((1, 2 * s[1], 2 * s[2], s[3]), co) for s, co, _ in UNET_WINOGRAD_TRAIN]
+    for shape, co in infer:
+        xi = rand(shape).bfloat16()
+        u = cw.u_for(rand((co, shape[3], 3, 3), (1.0 / (9 * shape[3])) ** 0.5), "f2",
+                     torch.bfloat16)
+        bi = rand((co,), 0.1).bfloat16()
+        worst = max(worst, held(cw.winograd_fwd(xi, u, bi, None, "f2", "bias_relu"),
+                                cw.winograd_fwd_plain(xi, u, bi, None, "f2", "bias_relu"),
+                                2 ** -7, 2 ** -12, f"f2 {list(shape)}->{co}"))
+        del xi, u
+    log(f"winograd f2 at U-Net's {len(infer)} Predictor shapes ([1,512,1024] input): "
+        "bias_relu forward within the bound")
+    for shape, co, count in UNET_WINOGRAD_TRAIN:
+        nn_, hh, ww, cc = shape
+        x = rand(shape).bfloat16()
+        wt = rand((co, cc, 3, 3), (1.0 / (9 * cc)) ** 0.5)
+        bb = rand((co,), 0.1).bfloat16()
+        g, o = rand((nn_, hh, ww, co)).bfloat16(), rand((nn_, hh, ww, co)).bfloat16()
+        u = cw.u_for(wt, "f2", torch.bfloat16)
+        u2 = cw.u_for(rot180_swap(wt), "f2", torch.bfloat16)
+        what = f"f2 {list(shape)}->{co}"
+        worst = max(worst, held(cw.winograd_fwd(x, u, bb, None, "f2", "bias_relu"),
+                                cw.winograd_fwd_plain(x, u, bb, None, "f2", "bias_relu"),
+                                2 ** -7, 2 ** -12, what + " bias_relu"))
+        held(cw.winograd_fwd(g, u2, None, o, "f2", "none"),
+             cw.winograd_fwd_plain(g, u2, None, o, "f2", "none"),
+             2 ** -7, 2 ** -12, what + " masked dgrad")
+        du, db = cw.winograd_wgrad(x, g, o, "f2")
+        du_p, db_p = cw.winograd_wgrad_plain(x, g, o, "f2")
+        held(du, du_p, 0.0, 1e-4, what + " dU")
+        held(db, db_p, 0.0, 1e-4, what + " db")
+        del du, db, du_p, db_p
+        ops = winograd_ops(torch, x, wt, bb, g, o, "f2")
+        line = []
+        for op, (plain, kernel, library) in ops.items():
+            nbytes, flops = winograd_work("f2", shape, co, op)
+            k, pl, lib = time3(plain, kernel, library,
+                               timer=lambda f: cuda_ms(f, iters=5, warmup=1))
+            acc["ms"] += count * k
+            acc["plain_ms"] += count * pl
+            acc["library_ms"] += count * lib
+            acc["bytes"] += count * nbytes
+            acc["flops"] += count * flops
+            line.append(f"{op} {k:.4f} / {pl:.4f} / {lib:.4f}")
+        log(f"  winograd {what} x{count} (held to plain; ms kernel / plain / cuDNN): "
+            + "; ".join(line))
+        del x, g, o, u, u2, ops
+    torch.cuda.empty_cache()
+    bd = bound(acc["bytes"], acc["flops"])
+    log(f"winograd per U-Net f2 train step (13 routed convs, fwd + dgrad + wgrad): "
+        f"kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f}, cuDNN "
+        f"{acc['library_ms']:.4f}, bound {bd['bound_ms']:.4f} ({bd['bound_by']})")
+    res["winograd"] = dict(acc, max_abs_err=worst, **bd)
+    return res
+
+
+def drive_unet_sweep(torch, tmp: str, data: str) -> dict:
+    """The sweep through ``scripts/test.py`` at unet_cityscapes over the
+    fixture's val images (Cityscapes' test images) at --batch 1 and 8: one
+    file of the source's name per image, each equal to ``host_overlay`` of
+    its image with the Predictor's labels (Cityscapes' palette). Returns
+    img/s by the CLI's own count."""
+    import contextlib
+
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+    from semanticsegmentation_tensorflow_tpu_torch.data.kitti import load_image
+    from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import test as test_cli
+
+    srcs = build_dataset("cityscapes", data, UNET_HW).test_images
+    pr = _sweep_predictor("unet_cityscapes")
+    res = {}
+    for batch in (1, 8):
+        out = io.StringIO()
+        runs = os.path.join(tmp, f"unet_runs_b{batch}")
+        with contextlib.redirect_stdout(out):
+            rc = test_cli.main(["--preset", "unet_cityscapes", "--device", "cuda",
+                                "--data-dir", data, "--runs-dir", runs,
+                                "--batch", str(batch)])
+        last = out.getvalue().strip().splitlines()[-1]
+        if rc != 0 or not last.startswith(f"{len(srcs)} images in "):
+            raise AssertionError(f"unet sweep --batch {batch}: rc {rc}, {last!r}")
+        (run_dir,) = os.listdir(runs)
+        names = [os.path.basename(q) for q in srcs]
+        if sorted(os.listdir(os.path.join(runs, run_dir))) != sorted(names):
+            raise AssertionError(f"unet sweep --batch {batch}: wrong files")
+        imgs = np.stack([load_image(q, UNET_HW) for q in srcs])
+        for i in range(0, len(srcs), batch):   # the labels at the sweep's batch
+            labels = pr._fetch_labels(imgs[i:i + batch])
+            for j, name in enumerate(names[i:i + batch]):
+                got = np.asarray(Image.open(os.path.join(runs, run_dir, name)))
+                if not np.array_equal(got, host_overlay(imgs[i + j], labels[j],
+                                                        pr._palette, pr._alpha)):
+                    raise AssertionError(f"unet sweep --batch {batch}: {name} differs")
+        res[f"b{batch}_img_per_s"] = float(last.split("(")[1].split()[0])
+        log(f"sweep unet_cityscapes --batch {batch}: {len(srcs)} val images, every "
+            f"file equal to host_overlay of the Predictor's labels; "
+            f"{res[f'b{batch}_img_per_s']:.2f} img/s (the CLI's count)")
+    del pr
+    torch.cuda.empty_cache()
+    return res
+
+
+def drive_unet_training(torch, tmp: str, data: str) -> dict:
+    """U-Net's training path: ``train.py --preset unet_cityscapes
+    --synthetic`` (the Cityscapes fixture it writes: 8 images, one step of
+    8), then drive_training on ``data`` (32 train images, 8 held out by
+    --val-frac 0.25 --keep-best: 3 steps of 8 at 256x512 crops of 512x1024,
+    --pallas-preprocess, --resume, infer_image), then eval.py on its
+    checkpoint (the val split by default, 16 images at batch 4)."""
+    import math
+
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import train
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
+        checkpoint_steps,
+    )
+
+    ck0 = os.path.join(tmp, "ckpt_synthetic")
+    out = run_cli(train.main, ["--preset", "unet_cityscapes", "--synthetic", "--epochs",
+                               "1", "--pallas-preprocess", "--checkpoint-dir", ck0,
+                               "--device", "cuda"])
+    with open(os.path.join(ck0, "logs", "train.jsonl")) as f:
+        epoch = [json.loads(line) for line in f][-1]
+    if "train_images=8" not in out or epoch.get("step") != 1 or \
+            not math.isfinite(epoch.get("epoch/loss", float("nan"))):
+        raise AssertionError(f"train --synthetic unet_cityscapes: {epoch}")
+    log(f"train.main unet_cityscapes --synthetic: 1 step of 8, loss "
+        f"{epoch['epoch/loss']:.4f}")
+    r = drive_training(torch, tmp, "unet_cityscapes", data=data,
+                       extra=("--val-frac", "0.25", "--keep-best"))
+    if checkpoint_steps(os.path.join(r["ckpt"], "best")) != [3]:
+        raise AssertionError("unet: no best/ checkpoint at step 3")
+    text = run_cli(eval_cli.main, ["--preset", "unet_cityscapes", "--data-dir", data,
+                                   "--checkpoint-dir", r["ckpt"], "--device", "cuda"])
+    ev = parse_eval(text, road=False)
+    iou = text.split("iou=")[-1].split("]")[0].split(",")
+    if ev["images"] != UNET_VAL or "split='val'" not in text or len(iou) != 19:
+        raise AssertionError(f"eval unet_cityscapes: {ev}, {len(iou)} IoUs")
+    r["eval"] = ev
+    return r
+
+
+def check_unet_train_step(torch) -> None:
+    """One unet_cityscapes train step (batch 8 of random 512x1024 images and
+    19-class labels, 256x512 crops, Adam 1e-4) with the preprocess kernel
+    against the same step with its plain version, same weights, bf16 on the
+    card, with ``hold_train_steps``'s bounds. (Kernel 4 is bit-exact, so the
+    two differ only by cuDNN's own run-to-run order.)"""
+    from functools import partial
+
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn, preprocess_normalize_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    batch = {"image": torch.from_numpy(rng.integers(0, 256, (8, *UNET_HW, 3),
+                                                    np.uint8)).to(dev),
+             "label": torch.from_numpy(rng.integers(0, 19, (8, *UNET_HW))
+                                       .astype(np.int32)).to(dev)}
+    states = []
+    for _ in range(2):
+        model = build_model("unet", 19, device=dev)
+        init_params(model, torch.Generator(device=dev).manual_seed(7))
+        states.append(create_train_state(model, make_optimizer(
+            "adam", model.parameters(), 1e-4), make_lr_schedule(1e-4), seed=0))
+    aug_p = Augment(partial(preprocess_normalize_plain, crop_hw=UNET_CROP, mean=MEAN,
+                            std=STD), UNET_CROP, True)
+    out_k = make_train_step(19, augment_fn=make_preprocess_augment_fn(
+        MEAN, STD, UNET_CROP))(states[0], batch)
+    out_p = make_train_step(19, augment_fn=aug_p)(states[1], batch)
+    hold_train_steps("unet_cityscapes (batch 8, 256x512)", states[0], out_k,
+                     states[1], out_p)
+
+
+def drive_unet_winograd(torch, tmp: str) -> dict:
+    """U-Net with ``--model-kw winograd=f2`` (kernel 6 on its 13 full-lane
+    convs): a Predictor built as the serving CLIs build it, called on a
+    generated 512x1024 image, and one train step of the preset's workload
+    (tools/profile_train.py's ``unet``)."""
+    import math
+    from argparse import ArgumentParser
+
+    from profile_train import WORKLOADS, train_workload
+    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
+        add_model_args, build_predictor,
+    )
+
+    p = ArgumentParser()
+    add_model_args(p)
+    pred = build_predictor(p.parse_args(["--preset", "unet_cityscapes", "--model-kw",
+                                         "winograd=f2", "--device", "cuda"]),
+                           torch.device("cuda"))
+    overlay, labels = pred(kitti_like(1, UNET_HW))
+    if overlay.shape != (*UNET_HW, 3) or labels.shape != UNET_HW:
+        raise AssertionError("unet f2 Predictor: bad output shapes")
+    del pred
+    step = train_workload(torch, WORKLOADS["unet"], model_kw={"winograd": "f2"})
+    loss = step()["loss"].item()
+    torch.cuda.synchronize()
+    if not math.isfinite(loss):
+        raise AssertionError(f"unet f2 train step: loss {loss}")
+    log(f"unet_cityscapes winograd=f2: Predictor overlay {overlay.shape}, "
+        f"{len(set(labels.ravel().tolist()))} classes present; one train step "
+        f"(batch 8, 256x512), loss {loss:.5f}")
+    return {"unet_f2_loss": loss}
+
+
+def unet_phase(torch, smi: str, drive, gen) -> tuple[list[dict], dict]:
+    """U-Net on Cityscapes (unet_cityscapes, 19 classes, full width) through
+    the user's entry points, each path run by ``drive`` (the launch counters
+    at 0 just before, read just after), after kernels 2, 4 and 6 are held
+    against their plain versions at U-Net's shapes (check_unet_kernels):
+    infer_image, serve (/segment, /labels) and the Predictor at 512x1024;
+    the sweep (scripts/test.py) over 16 generated val images; train.py
+    --synthetic, then validated training (3 steps of 8, 256x512 crops,
+    --pallas-preprocess, --resume, infer_image) and eval.py on its
+    checkpoint; a train step with the kernels against plain PyTorch; the
+    winograd=f2 Predictor and train step; --spatial 2 at one rank; the
+    preset step timed, direct and f2 in turns; the 2-rank grid on 496 rows
+    (256 + 240). Returns each path's launches and the phase's numbers."""
+    from profile_train import show_idle
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.cityscapes import (
+        generate_synthetic_cityscapes,
+    )
+
+    t_phase = time.perf_counter()
+    kernels = check_unet_kernels(torch, gen)
+    torch.cuda.empty_cache()
+    runs, res = [], {"kernels": kernels}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["inference"], launches = drive("unet_cityscapes inference", drive_slice,
+                                           torch, tmp, "unet_cityscapes")
+        runs.append(launches)
+        if not launches["overlay"]:
+            raise AssertionError(f"not launched on the unet inference path: {launches}")
+        data = generate_synthetic_cityscapes(os.path.join(tmp, "cityscapes"),
+                                             n_train=UNET_TRAIN, n_val=UNET_VAL,
+                                             h=UNET_HW[0], w=UNET_HW[1], seed=6)
+        res["sweep"], launches = drive("unet_cityscapes sweep", drive_unet_sweep,
+                                       torch, tmp, data)
+        runs.append(launches)
+        train_tmp = os.path.join(tmp, "train")
+        os.makedirs(train_tmp)
+        tr, launches = drive("unet_cityscapes training", drive_unet_training, torch,
+                             train_tmp, data)
+        runs.append(launches)
+        if not launches["preprocess_normalize"]:
+            raise AssertionError(f"not launched on the unet training path: {launches}")
+        res["train"] = {k: v for k, v in tr.items() if k not in ("data", "ckpt")}
+        torch.cuda.empty_cache()
+        check_unet_train_step(torch)
+        torch.cuda.empty_cache()
+        res["winograd"], launches = drive("unet_cityscapes winograd=f2",
+                                          drive_unet_winograd, torch, tmp)
+        runs.append(launches)
+        missing = [k for k in ("winograd_fwd", "winograd_wgrad", "overlay",
+                               "preprocess_normalize") if not launches[k]]
+        if missing:
+            raise AssertionError(f"not launched on the unet winograd=f2 path: {missing}")
+        torch.cuda.empty_cache()
+        sp_tmp = os.path.join(tmp, "spatial")
+        os.makedirs(sp_tmp)
+        res["spatial"], launches = drive("unet_cityscapes --spatial 2 training",
+                                         drive_spatial_training, torch, sp_tmp,
+                                         "unet_cityscapes", data, UNET_TRAIN // 8)
+        runs.append(launches)
+        if not launches["preprocess_normalize"] or launches["winograd_fwd"]:
+            raise AssertionError(f"unet_cityscapes --spatial 2: launches {launches}")
+    torch.cuda.empty_cache()
+    steps = {}
+    for w in ("unet", "unet_f2", "unet_f2", "unet"):
+        steps.setdefault(w, []).append(time_train(torch, smi, w))
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res["grid"] = check_grid(torch, tmp, smi, "unet_cityscapes")
+    torch.cuda.empty_cache()
+    res["steps"] = steps
+    direct, f2 = steps["unet"][0], steps["unet_f2"][0]
+    log(f"U-Net: preset step (batch 8, 256x512) {direct['images_per_s']:.2f} images/s, "
+        f"{direct['host_ms']:.2f} ms/step host, device {direct['device_ms']:.2f} ms, idle "
+        f"share {show_idle(direct['idle_share'])}, peak {direct['peak_gib']:.2f} GiB; "
+        f"winograd=f2 in turns {[round(r['host_ms'], 2) for r in steps['unet_f2']]} vs "
+        f"direct {[round(r['host_ms'], 2) for r in steps['unet']]} ms/step; Predictor "
+        f"{res['inference']['predictor_overlay_ms']:.3f} ms/image (device "
+        f"{res['inference']['predictor_overlay_device_ms']:.3f}); /segment "
+        f"{res['inference']['segment_ms']:.2f} ms, /labels "
+        f"{res['inference']['labels_ms']:.2f}; sweep {res['sweep']['b8_img_per_s']:.2f} "
+        f"img/s at --batch 8; eval {res['train']['eval']['img_per_s']:.2f} img/s; "
+        f"train.main peak {res['train']['train_cli_peak_gib']:.2f} GiB | {smi}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"U-Net phase: {res['phase_s']:.1f} s")
+    log("unet timings: " + json.dumps(res))
+    return runs, res
 
 
 def main() -> int:
@@ -2870,6 +3331,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     dl_runs = deeplab_phase(torch, smi, drive)
+    unet_runs, unet = unet_phase(torch, smi, drive, gen)
 
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, sweep_launches,
@@ -2877,7 +3339,8 @@ def main() -> int:
                                         seg_eval_launches,
                                         seg_infer_launches, seg_train_launches,
                                         w_infer_launches, w_train_launches,
-                                        w_seg_launches, *spatial_runs, *dl_runs)
+                                        w_seg_launches, *spatial_runs, *dl_runs,
+                                        *unet_runs)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2898,7 +3361,8 @@ def main() -> int:
         dict(name="preprocess_normalize", route="cuda",
              source=f"{PKG}/csrc/preprocess.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/preprocess.py:40",
-             launches=total("preprocess_normalize"), **preprocess),
+             launches=total("preprocess_normalize")
+             + sum(unet["grid"]["grid_launches"]), **preprocess),
         dict(name="argmax_colormap_overlay", route="cuda",
              source=f"{PKG}/csrc/overlay.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/overlay.py:29",

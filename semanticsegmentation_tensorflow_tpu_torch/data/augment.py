@@ -169,7 +169,7 @@ def color_jitter(images: torch.Tensor, brightness: torch.Tensor,
         grid = spatial_grid()
         if grid is not None:
             dist.all_reduce(total, group=grid.spatial_group)
-            count *= grid.spatial
+            count = sum(r for _, r in grid.level_splits(x.shape[1])) * x.shape[2]
         m = (total / count).view(per_image)
         x = m + (x - m) * contrast.to(dev).view(per_image)
     if b:
@@ -236,8 +236,9 @@ class Augment:
                  if self.scales else None)
         color = (tuple(t[mine] for t in sample_color_params(
             generator, n * data, self.color)) if self.color else None)
-        flip, oy, ox = sample_augment_params(generator, n * data, h * spatial,
-                                             w, self.crop_size)
+        h_all = h if spatial == 1 else sum(r for _, r in grid.level_splits(h))
+        flip, oy, ox = sample_augment_params(generator, n * data, h_all, w,
+                                             self.crop_size)
         return self.apply(batch, flip[mine], oy[mine], ox[mine], scale, color)
 
     def apply(self, batch: dict, flip: torch.Tensor, oy: torch.Tensor,

@@ -41,6 +41,13 @@ CITYSCAPES_PALETTE = np.array(
 )
 
 
+def overlay_palette(dataset: str) -> np.ndarray:
+    """The overlay palette of a dataset's label space: the 19 Cityscapes
+    train-id colours, or KITTI's green road mask (class 0 is never
+    painted)."""
+    return CITYSCAPES_PALETTE if dataset == "cityscapes" else KITTI_OVERLAY_PALETTE
+
+
 def encode_labels(gt_rgb: np.ndarray, palette: np.ndarray = KITTI_ROAD_PALETTE
                   ) -> tuple[np.ndarray, np.ndarray]:
     """RGB GT image -> (class ids [H, W] int32, valid mask [H, W] bool).

@@ -24,9 +24,6 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import check_rows
-
-
 class BatchLoader:
     """Shuffled, padded, prefetched uint8 batches from a KITTI-style dataset
     on an explicit ``device``.
@@ -36,8 +33,10 @@ class BatchLoader:
     False`` wrap-pads the last batch and marks the repeated examples
     entirely invalid. ``mesh``: a ``parallel.mesh.Grid``; this rank's images
     and rows of every batch (``batch_size`` is global and must divide over
-    the grid's data ranks; the padded height over ``pad_multiple`` times
-    its spatial ranks, else a batch raises). ``workers``: decode each
+    the grid's data ranks; the padded height splits at ``pad_multiple``
+    over its spatial ranks, unevenly where the blocks do not divide
+    (``Grid.row_splits``), and a batch with fewer blocks than ranks
+    raises). ``workers``: decode each
     batch's examples on a pool of this many threads (0: inline); PNG
     decode releases the GIL, and the batches are bit-identical to
     ``workers=0``.
@@ -119,9 +118,7 @@ class BatchLoader:
         batch = {"image": np.stack(imgs), "label": np.stack(lbls),
                  "valid": np.stack(vals)}
         if self.mesh is not None and self.mesh.spatial > 1:
-            h = batch["label"].shape[1]
-            check_rows(h, self.mesh.spatial, self.pad_multiple)
-            rows = self.mesh.rows(h)
+            rows = self.mesh.rows(batch["label"].shape[1], self.pad_multiple)
             batch = {k: v[:, rows] for k, v in batch.items()}
         return batch
 

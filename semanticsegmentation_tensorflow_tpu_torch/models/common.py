@@ -268,8 +268,9 @@ def dropout(x: torch.Tensor, rate: float, *, training: bool,
     identity in eval or at rate 0; in training with rate > 0 it needs a
     generator (it never draws from the global one). Under an active grid of
     several ranks the mask is drawn at the global batch's shape (every rank
-    holds the same generator state) and each rank keeps its images and
-    rows, so the grid step equals the single-process step."""
+    holds the same generator state; the height is the sum of the ranks'
+    rows) and each rank keeps its images and rows, so the grid step equals
+    the single-process step."""
     if not training or rate == 0:
         return x
     if generator is None:
@@ -281,9 +282,11 @@ def dropout(x: torch.Tensor, rate: float, *, training: bool,
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     else:
         n, h = x.shape[:2]
-        shape = (n * grid.data, h * grid.spatial, *x.shape[2:])
+        splits = grid.level_splits(h)
+        start = splits[grid.spatial_index][0]
+        shape = (n * grid.data, sum(r for _, r in splits), *x.shape[2:])
         mask = (torch.rand(shape, generator=generator, device=x.device)
-                [grid.images(shape[0]), grid.rows(shape[1])] < keep)
+                [grid.images(shape[0]), start:start + h] < keep)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

@@ -34,13 +34,14 @@ def image_mean(x: torch.Tensor) -> torch.Tensor:
     """[N,H,W,C] -> [N,1,1,C]: the mean over H and W summed in float32 and
     rounded once to ``x``'s dtype, as ``jnp.mean`` does for bf16. Under an
     active grid that splits rows, the ranks' sums are added
-    (``parallel.halo.spatial_sum``) and divided by the whole image's H x W."""
+    (``parallel.halo.spatial_sum``) and divided by the whole image's H x W
+    (H the sum of the ranks' rows)."""
     grid = spatial_grid()
     total = x.float().sum((1, 2), keepdim=True)
     count = x.shape[1] * x.shape[2]
     if grid is not None:
         total = spatial_sum(total, grid)
-        count *= grid.spatial
+        count = sum(r for _, r in grid.level_splits(x.shape[1])) * x.shape[2]
     return (total / count).to(x.dtype)
 
 

@@ -1,6 +1,5 @@
 """Name -> model constructor registry (counterpart of the JAX package's
-``models/registry.py``). The FCN family, SegNet and DeepLab-ASPP are
-ported so far."""
+``models/registry.py``): the FCN family, SegNet, DeepLab-ASPP and U-Net."""
 
 from __future__ import annotations
 
@@ -11,6 +10,7 @@ import torch.nn as nn
 from semanticsegmentation_tensorflow_tpu_torch.models.deeplab import DeepLabASPP
 from semanticsegmentation_tensorflow_tpu_torch.models.fcn8s import FCN8s
 from semanticsegmentation_tensorflow_tpu_torch.models.segnet import SegNet
+from semanticsegmentation_tensorflow_tpu_torch.models.unet import UNet
 from semanticsegmentation_tensorflow_tpu_torch.ops.shape import round_up
 
 MODELS: dict[str, Callable[..., nn.Module]] = {
@@ -19,17 +19,14 @@ MODELS: dict[str, Callable[..., nn.Module]] = {
     "fcn32s": lambda **kw: FCN8s(variant=32, **kw),
     "segnet": SegNet,
     "deeplab": DeepLabASPP,
+    "unet": UNet,
 }
-_NOT_YET = ("unet",)
 
 
 def build_model(name: str, num_classes: int, *, device,
                 **kwargs: Any) -> nn.Module:
     """Build a model with uninitialized params on ``device`` (load a state
     dict or call ``models.common.init_params`` next)."""
-    if name in _NOT_YET:
-        raise NotImplementedError(f"model {name!r} is not yet ported; "
-                                  f"available: {sorted(MODELS)}")
     try:
         cls = MODELS[name]
     except KeyError:

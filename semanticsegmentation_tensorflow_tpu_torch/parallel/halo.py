@@ -23,35 +23,46 @@ buffer. The byte view keeps the reduction an integer one on every backend
   backward (the image-level mean of DeepLab's ASPP).
 
 Rows beyond the image's edge get ``fill`` (zero for the convs: their SAME
-padding).
+padding). The ranks may hold different numbers of rows (``Grid.at_height``
+records the uneven split of a height, ``Grid.level_splits`` gives every
+rank's rows at any resolution); the exchange sizes each slot for the
+largest rank's part and walks the ranks by their own rows.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
 
-def _all_slots(tensors: list[torch.Tensor], grid) -> list[list[torch.Tensor]]:
-    """Every rank of the spatial group writes ``tensors`` (the same shapes
-    on every rank) into its slot of one buffer; one SUM gives each rank all
-    slots. Returns ``parts[k][j]``, tensor k of rank j."""
+def _all_slots(tensors: list[torch.Tensor], grid, shapes=None
+               ) -> list[list[torch.Tensor]]:
+    """Every rank of the spatial group writes ``tensors`` into its slot of
+    one buffer; one SUM gives each rank all slots. ``shapes[k][j]``: the
+    shape of tensor k on rank j (default: this rank's shape on every rank);
+    each slot is sized for the largest rank's parts. Returns ``parts[k][j]``,
+    tensor k of rank j at its own shape."""
     s, i = grid.spatial, grid.spatial_index
+    if shapes is None:
+        shapes = [[t.shape] * s for t in tensors]
     # byte offsets of the parts in a slot, 16-aligned so that each part
     # views back as its dtype
-    offsets, total = [], 0
-    for t in tensors:
+    offsets, sizes, total = [], [], 0
+    for t, shs in zip(tensors, shapes):
+        nbytes = [math.prod(sh) * t.element_size() for sh in shs]
         offsets.append(total)
-        total += -(-t.numel() * t.element_size() // 16) * 16
+        sizes.append(nbytes)
+        total += -(-max(nbytes) // 16) * 16
     with torch.profiler.record_function("halo_exchange"):
         buf = torch.zeros((s, total), dtype=torch.uint8, device=tensors[0].device)
         for t, lo in zip(tensors, offsets):
             part = t.contiguous().reshape(-1).view(torch.uint8)
             buf[i, lo:lo + part.numel()] = part
         dist.all_reduce(buf, group=grid.spatial_group)
-    return [[buf[j, lo:lo + t.numel() * t.element_size()].view(t.dtype)
-             .reshape(t.shape) for j in range(s)]
-            for t, lo in zip(tensors, offsets)]
+    return [[buf[j, lo:lo + n[j]].view(t.dtype).reshape(shs[j]) for j in range(s)]
+            for t, lo, n, shs in zip(tensors, offsets, sizes, shapes)]
 
 
 def _exchange(firsts: list[torch.Tensor], lasts: list[torch.Tensor], grid
@@ -88,23 +99,35 @@ def boundary_rows(xs: list[torch.Tensor], fills: list, grid
 def _halo(parts: list[torch.Tensor], i: int, rows: int, up: bool) -> torch.Tensor:
     """The ``rows`` rows just above (``up``) or below rank ``i``'s rows, from
     ``parts[j]``: the last (up) or first rows of rank j that it sent (all of
-    its rows when the halo is taller than a rank's rows); zeros beyond the
-    image's edge."""
-    k = -(-rows // parts[0].shape[1])        # ranks within reach
-    js = range(i - k, i) if up else range(i + 1, i + 1 + k)
-    pieces = [parts[j] if 0 <= j < len(parts) else torch.zeros_like(parts[0])
-              for j in js]
-    cat = torch.cat(pieces, 1)
-    return cat[:, cat.shape[1] - rows:] if up else cat[:, :rows]
+    its rows when the halo is taller than a rank's rows), walking the ranks
+    outward by their own row counts; zeros beyond the image's edge."""
+    pieces, got, j = [], 0, i
+    while got < rows:
+        j += -1 if up else 1
+        if 0 <= j < len(parts):
+            p = parts[j]
+        else:
+            like = parts[i]
+            p = like.new_zeros((like.shape[0], rows - got, *like.shape[2:]))
+        pieces.append(p)
+        got += p.shape[1]
+    if up:
+        cat = torch.cat(pieces[::-1], 1)
+        return cat[:, cat.shape[1] - rows:]
+    return torch.cat(pieces, 1)[:, :rows]
 
 
 class _ExchangeRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, above, below, grid):
-        h, i = x.shape[1], grid.spatial_index
-        ctx.above, ctx.below, ctx.grid = above, below, grid
+        i = grid.spatial_index
+        splits = grid.level_splits(x.shape[1])
+        ctx.above, ctx.below, ctx.grid, ctx.splits = above, below, grid, splits
+        h = x.shape[1]
+        shapes = [[(x.shape[0], min(n, r), *x.shape[2:]) for _, r in splits]
+                  for n in (above, below)]
         lasts, firsts = _all_slots([x[:, h - min(above, h):],
-                                    x[:, :min(below, h)]], grid)
+                                    x[:, :min(below, h)]], grid, shapes)
         pieces = [x]
         if above:
             pieces.insert(0, _halo(lasts, i, above, up=True))
@@ -114,22 +137,22 @@ class _ExchangeRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        above, below, grid = ctx.above, ctx.below, ctx.grid
-        h = dy.shape[1] - above - below
+        above, below, grid, splits = ctx.above, ctx.below, ctx.grid, ctx.splits
         i = grid.spatial_index
+        lo_i, h = splits[i]
         dx = dy[:, above:above + h].clone()
         # the halo rows' gradients go back to the ranks that own those rows:
-        # rank j's top halo holds global rows [j*h - above, j*h), its bottom
-        # halo [(j+1)*h, (j+1)*h + below); this rank owns [i*h, (i+1)*h)
+        # rank j's top halo holds global rows [s_j - above, s_j), its bottom
+        # halo [s_j + h_j, s_j + h_j + below); this rank owns [s_i, s_i + h)
         tops, bots = _all_slots([dy[:, :above], dy[:, above + h:]], grid)
-        for j in range(grid.spatial):
+        for j, (s_j, h_j) in enumerate(splits):
             if j == i:
                 continue
-            for part, start in ((tops[j], j * h - above), (bots[j], (j + 1) * h)):
-                lo = max(start, i * h)
-                hi = min(start + part.shape[1], (i + 1) * h)
+            for part, start in ((tops[j], s_j - above), (bots[j], s_j + h_j)):
+                lo = max(start, lo_i)
+                hi = min(start + part.shape[1], lo_i + h)
                 if lo < hi:
-                    dx[:, lo - i * h:hi - i * h] += part[:, lo - start:hi - start]
+                    dx[:, lo - lo_i:hi - lo_i] += part[:, lo - start:hi - start]
         return dx, None, None, None
 
 

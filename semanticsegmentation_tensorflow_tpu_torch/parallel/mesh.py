@@ -35,6 +35,7 @@ class Grid:
     rank: int
     spatial_group: Any = None
     data_group: Any = None
+    blocks: tuple[int, ...] | None = None
 
     @property
     def world(self) -> int:
@@ -57,13 +58,50 @@ class Grid:
         k = n_global // self.data
         return slice(self.data_index * k, (self.data_index + 1) * k)
 
-    def rows(self, h_global: int) -> slice:
-        """This rank's rows of a global image height (``spatial`` axis)."""
-        if h_global % self.spatial:
-            raise ValueError(f"height {h_global} does not divide over "
-                             f"spatial={self.spatial} ranks")
-        k = h_global // self.spatial
-        return slice(self.spatial_index * k, (self.spatial_index + 1) * k)
+    def row_splits(self, h_global: int, stride: int = 1) -> list[tuple[int, int]]:
+        """Every spatial rank's ``(start, rows)`` of a global image height:
+        the height cut into blocks of ``stride`` rows (the model's total
+        stride), the first ``blocks % spatial`` ranks one block more than
+        the others (the split the JAX partitioner makes of a height that
+        does not divide). Rank boundaries fall on stride multiples, so no
+        pool window straddles two ranks. Raises as :func:`check_rows`."""
+        check_rows(h_global, self.spatial, stride)
+        q, r = divmod(h_global // stride, self.spatial)
+        out, start = [], 0
+        for j in range(self.spatial):
+            rows = (q + (j < r)) * stride
+            out.append((start, rows))
+            start += rows
+        return out
+
+    def rows(self, h_global: int, stride: int = 1) -> slice:
+        """This rank's rows of a global image height (``spatial`` axis), as
+        :meth:`row_splits` deals them."""
+        start, rows = self.row_splits(h_global, stride)[self.spatial_index]
+        return slice(start, start + rows)
+
+    def at_height(self, h_global: int, stride: int) -> Grid:
+        """This grid with the row split of ``h_global`` at ``stride``
+        (:meth:`row_splits`) recorded, so that the halo exchange, dropout
+        and the image-wide sums of a step know every rank's rows at any
+        resolution without a message. A grid without it splits evenly."""
+        blocks = tuple(rows // stride for _, rows in self.row_splits(h_global, stride))
+        return dataclasses.replace(self, blocks=blocks)
+
+    def level_splits(self, rows: int) -> list[tuple[int, int]]:
+        """Every spatial rank's ``(start, rows)`` at the resolution where
+        this rank holds ``rows`` rows: each rank's share of the recorded
+        blocks (:meth:`at_height`), or ``rows`` each without them."""
+        if self.blocks is None:
+            counts = [rows] * self.spatial
+        else:
+            mine = self.blocks[self.spatial_index]
+            if rows % mine:
+                raise ValueError(f"{rows} rows do not split into this rank's "
+                                 f"{mine} stride blocks")
+            counts = [b * (rows // mine) for b in self.blocks]
+        starts = [sum(counts[:j]) for j in range(self.spatial)]
+        return list(zip(starts, counts))
 
 
 def make_grid(data: int, spatial: int = 1) -> Grid:
@@ -89,12 +127,15 @@ def make_grid(data: int, spatial: int = 1) -> Grid:
 
 
 def check_rows(h: int, spatial: int, stride: int = 32) -> None:
-    """Raise unless a padded image height ``h`` splits over ``spatial``
-    ranks into whole rows at the model's total ``stride``."""
-    if spatial < 1 or h % (stride * spatial):
+    """Raise unless a padded image height ``h`` divides into blocks of the
+    model's total ``stride``, at least one for each of ``spatial`` ranks
+    (:meth:`Grid.row_splits` deals them out, unevenly where they do not
+    divide)."""
+    if spatial < 1 or h % stride or h // stride < spatial:
         raise ValueError(f"--spatial {spatial}: the padded height {h} must divide "
-                         f"by {stride} x {spatial} (the model's stride times the "
-                         "spatial ranks)")
+                         f"by the model's stride {stride} into at least {spatial} "
+                         f"blocks of rows, one for each spatial rank (it holds "
+                         f"{h / stride:g})")
 
 
 _ACTIVE: list[Grid] = []

@@ -86,9 +86,14 @@ def load_checkpoint_weights(directory: str, use_ema: bool,
 def build_predictor(args: argparse.Namespace, device: torch.device):
     """Preset + ``--model-kw`` -> model on ``device`` with ``--weights`` or
     ``--checkpoint-dir`` (or seeded random init, with a warning) ->
-    Predictor."""
+    Predictor, painting with the preset dataset's palette (Cityscapes' 19
+    colours for ``unet_cityscapes``; the JAX CLIs pass KITTI's two-colour
+    palette whatever the model, which paints every class above 0 green)."""
     from semanticsegmentation_tensorflow_tpu_torch.config import (
         get_preset, parse_model_kw,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
+        overlay_palette,
     )
     from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
@@ -113,4 +118,5 @@ def build_predictor(args: argparse.Namespace, device: torch.device):
               file=sys.stderr)
         init_params(model, torch.Generator(device=device).manual_seed(0))
     return Predictor(model, dc.image_size, device=device, mean=dc.mean,
-                     std=dc.std, alpha=args.alpha)
+                     std=dc.std, overlay_palette=overlay_palette(dc.dataset),
+                     alpha=args.alpha)

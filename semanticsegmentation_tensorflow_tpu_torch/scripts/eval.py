@@ -6,6 +6,8 @@ format).
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.eval \
         --preset fcn8s_kitti --data-dir data_road --checkpoint-dir ckpts \
         [--ema] [--road-metrics]
+    python -m semanticsegmentation_tensorflow_tpu_torch.scripts.eval \
+        --preset unet_cityscapes --data-dir cityscapes --checkpoint-dir ckpts
 
 Reads the port's training checkpoints (``<checkpoint-dir>/ckpt_<step>.pt``,
 the latest); an orbax checkpoint of the JAX package converts with
@@ -46,8 +48,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--split", default=None,
-                   help="labeled split to evaluate (default: 'train' for "
-                        "kitti_road, which has no public val GT)")
+                   help="labeled split to evaluate (default: 'val' for "
+                        "cityscapes, 'train' for kitti_road, which has no "
+                        "public val GT)")
     p.add_argument("--ema", action="store_true",
                    help="evaluate the EMA params (trained with --ema-decay)")
     p.add_argument("--road-metrics", action="store_true",

@@ -1,7 +1,8 @@
-"""Test-set sweep of the PyTorch port: an overlay PNG for every
-testing/image_2 image into runs/<timestamp>/, or with --confidence the KITTI
-road devkit's confidence maps into runs/<timestamp>_conf/. Same flags as the
-JAX package's scripts/test.py.
+"""Test-set sweep of the PyTorch port: an overlay PNG for every test image
+(KITTI's testing/image_2, or Cityscapes' val split for a Cityscapes preset)
+into runs/<timestamp>/, or with --confidence (binary models) the KITTI road
+devkit's confidence maps into runs/<timestamp>_conf/. Same flags as the JAX
+package's scripts/test.py, which reads KITTI's layout for every preset.
 
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.test \
         --preset fcn8s_kitti --data-dir data_road --weights fcn8s.pt --batch 8
@@ -55,15 +56,15 @@ def main(argv=None) -> int:
     from PIL import Image
 
     from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
-    from semanticsegmentation_tensorflow_tpu_torch.data.kitti import (
-        KittiRoadDataset, load_image,
-    )
+    from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+    from semanticsegmentation_tensorflow_tpu_torch.data.kitti import load_image
     from semanticsegmentation_tensorflow_tpu_torch.infer import (
         save_inference_samples,
     )
 
     dc = get_preset(args.preset).data
-    ds = KittiRoadDataset(args.data_dir or dc.data_dir, image_size=dc.image_size)
+    # the dataset's test images: KITTI's testing/image_2, Cityscapes' val split
+    ds = build_dataset(dc.dataset, args.data_dir or dc.data_dir, dc.image_size)
     predictor = build_predictor(args, device)
     t0, n = time.perf_counter(), 0
     if args.confidence:

@@ -57,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated k=v model kwargs overriding the preset")
     p.add_argument("--data-dir", default=None)
     p.add_argument("--synthetic", action="store_true",
-                   help="train on generated synthetic KITTI fixtures")
+                   help="train on generated synthetic fixtures of the "
+                        "preset's dataset (KITTI road or Cityscapes)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--image-size", type=int, nargs=2, default=None,
                    metavar=("H", "W"),
@@ -253,16 +254,26 @@ def main(argv=None) -> int:
             dc = dataclasses.replace(dc, crop_size=None)
             print("note: --spatial disables random crop (full-size training)")
     if args.spatial > 1:   # before any work, at any world size
-        check_rows(round_up(dc.image_size[0], stride), args.spatial, stride)
+        rows = round_up(dc.image_size[0], stride)
+        check_rows(rows, args.spatial, stride)
+        if grid is not None:   # uneven where the stride blocks do not divide
+            grid = grid.at_height(rows, stride)
 
     data_dir = args.data_dir or dc.data_dir
     if args.synthetic:
         if dc.dataset == "cityscapes":
-            raise NotImplementedError("the cityscapes dataset is not ported yet")
-        data_dir = generate_synthetic_kitti(
-            tempfile.mkdtemp(prefix="synth_kitti_"),
-            n_train=max(8, tr.batch_size), h=dc.image_size[0],
-            w=dc.image_size[1])
+            from semanticsegmentation_tensorflow_tpu_torch.data.cityscapes import (
+                generate_synthetic_cityscapes,
+            )
+            data_dir = generate_synthetic_cityscapes(
+                tempfile.mkdtemp(prefix="synth_cs_"),
+                n_train=max(8, tr.batch_size), h=dc.image_size[0],
+                w=dc.image_size[1])
+        else:
+            data_dir = generate_synthetic_kitti(
+                tempfile.mkdtemp(prefix="synth_kitti_"),
+                n_train=max(8, tr.batch_size), h=dc.image_size[0],
+                w=dc.image_size[1])
     # a bad --data-dir fails here, before any device work
     ds = build_dataset(dc.dataset, data_dir, dc.image_size)
     val_ds = None

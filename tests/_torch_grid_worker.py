@@ -26,7 +26,7 @@ from semanticsegmentation_tensorflow_tpu_torch.data.augment import (  # noqa: E4
     make_augment_fn,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (  # noqa: E402
-    conv_nhwc,
+    conv_nhwc, dropout, upsample_bilinear,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.registry import (  # noqa: E402
     build_model,
@@ -52,52 +52,69 @@ MEAN, STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
 
 def run_ops(sc: dict) -> dict:
     """The row-split ops on a 1 x world grid: this rank's output rows and
-    input-gradient rows, and its share of the weight gradient."""
+    input-gradient rows, and its share of the weight gradient (None for an
+    op without one). With ``stride``, the rows split at that stride,
+    unevenly where its blocks do not divide (``Grid.at_height``)."""
     grid = make_grid(1, dist.get_world_size())
-    out = {}
     x = sc["x"]
-    rows = grid.rows(x.shape[1])
+    h, stride = x.shape[1], sc.get("stride", 1)
+    if "stride" in sc:
+        grid = grid.at_height(h, stride)
+    out = {}
+    rows = grid.rows(h, stride)
     [(top, bot)] = boundary_rows([x[:, rows]], [sc["fill"]], grid)
     out["boundary"] = (top, bot)
     for name, op in sc["ops"].items():
         xl = x[:, rows].clone().requires_grad_()
-        if op["kind"] == "conv":
-            w = op["w"].clone().requires_grad_()
-            with use_grid(grid):
+        w = None
+        with use_grid(grid):
+            if op["kind"] == "conv":
+                w = op["w"].clone().requires_grad_()
                 y = conv_nhwc(xl, w, dtype=torch.float32, padding=op["padding"],
                               dilation=op.get("dilation", 1))
-        else:
-            mod = ConvTranspose(x.shape[-1], op["w"].shape[1], op["stride"],
-                                dtype=torch.float32)
-            with torch.no_grad():
-                mod.weight.copy_(op["w"])
-                mod.bias.copy_(op["b"])
-            w = mod.weight
-            with use_grid(grid):
+            elif op["kind"] == "convT":
+                mod = ConvTranspose(x.shape[-1], op["w"].shape[1], op["stride"],
+                                    kernel_size=op.get("kernel"), dtype=torch.float32)
+                with torch.no_grad():
+                    mod.weight.copy_(op["w"])
+                    mod.bias.copy_(op["b"])
+                w = mod.weight
                 y = mod(xl)
-        cot = op["cot"][:, grid.rows(op["cot"].shape[1])]
+            elif op["kind"] == "upsample":
+                y = upsample_bilinear(xl, op["factor"])
+            else:      # dropout, the mask drawn at the whole image's shape
+                y = dropout(xl, op["rate"], training=True,
+                            generator=torch.Generator().manual_seed(op["seed"]))
+        ch = op["cot"].shape[1]
+        cot = op["cot"][:, grid.rows(ch, stride * ch // h)]
         with use_grid(grid):
             y.backward(cot)
-        out[name] = (y.detach(), xl.grad, w.grad)
+        out[name] = (y.detach(), xl.grad, None if w is None else w.grad)
     return out
 
 
 def run_step(sc: dict) -> dict:
     """``steps`` train steps of a model on a ``data x spatial`` grid from the
-    given weights and global batch (SGD); the losses, the last confusion
+    given weights and global batch (SGD; ``classes`` classes, default 2;
+    with ``stride``, the rows split at it, unevenly where they must); the losses, the last confusion
     matrix, a checksum of the parameters on every rank, and on rank 0 the
     first step's gradients and the last parameters."""
+    classes = sc.get("classes", 2)
     grid = make_grid(sc["data"], sc["spatial"])
-    model = build_model(sc["model"], 2, device="cpu", dtype=torch.float32,
+    model = build_model(sc["model"], classes, device="cpu", dtype=torch.float32,
                         **sc["kw"])
     model.load_state_dict(sc["state_dict"])
     opt = make_optimizer("sgd", model.parameters(), sc["lr"])
     state = create_train_state(model, opt, make_lr_schedule(sc["lr"]), seed=0)
     aug = make_augment_fn(MEAN, STD) if sc.get("augment") else None
-    step = make_train_step(2, mesh=grid, augment_fn=aug)
     b = sc["batch"]
     n, h = b["label"].shape[:2]
-    local = {k: v[grid.images(n)][:, grid.rows(h)].contiguous() for k, v in b.items()}
+    stride = sc.get("stride", 1)
+    if "stride" in sc:              # the rows split at the model's stride
+        grid = grid.at_height(h, stride)
+    step = make_train_step(classes, mesh=grid, augment_fn=aug)
+    local = {k: v[grid.images(n)][:, grid.rows(h, stride)].contiguous()
+             for k, v in b.items()}
     losses, grads = [], None
     for i in range(sc["steps"]):
         out = step(state, local)

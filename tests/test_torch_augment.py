@@ -185,7 +185,9 @@ def test_label_codec_and_dataset_factory():
     gt = np.array([[[255, 0, 0], [255, 0, 255], [0, 0, 0]]], np.uint8)
     for a, b in zip(encode_labels(gt), jax_encode_labels(gt)):
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError):
-        build_dataset("cityscapes", "x", (8, 8))
+    cs = build_dataset("cityscapes", "x", (8, 8), split="val")   # ported since
+    assert (cs.split, cs.image_size, cs.test_images) == ("val", (8, 8), [])
+    with pytest.raises(FileNotFoundError, match="leftImg8bit/val"):
+        cs.train_images
     with pytest.raises(ValueError):
         build_dataset("kitti_road", "x", (8, 8), split="val")

@@ -447,27 +447,29 @@ def test_unported_and_bad_flags_raise(kw, err):
 
 
 def test_train_cli_spatial_checks_rows_at_the_models_stride(monkeypatch):
-    """``--spatial 2`` checks the padded height against DeepLab's own total
-    stride before any work: at os8 KITTI's 375 rows pad to 376, which does
-    not split into whole rows at 1/8 over two ranks (the JAX partitioner
-    shards it unevenly; the port refuses, naming the rows); os16 pads to
-    384, which does. FCN's check (stride 32) is unchanged."""
+    """``--spatial`` checks the padded height against DeepLab's own total
+    stride before any work, and accepts any height with at least one
+    stride block a rank: at os8 KITTI's 375 rows pad to 376, 47 blocks of 8,
+    which split over two ranks 24 + 23 (as the JAX partitioner shards it);
+    os16's 384 rows are 24 blocks. A height with fewer blocks than ranks is
+    refused, naming the rows: 64 rows at os16 over 5 ranks, and FCN's 64
+    rows (two blocks of 32) over 3."""
     from semanticsegmentation_tensorflow_tpu_torch.data import synthetic
     from semanticsegmentation_tensorflow_tpu_torch.scripts import train
 
     monkeypatch.setattr(synthetic, "generate_synthetic_kitti",
                         lambda *a, **k: pytest.fail("work began"))
-    with pytest.raises(ValueError, match="376 must divide by 8 x 2"):
-        train.main(["--preset", "deeplab_kitti_dp", "--synthetic", "--device",
-                    "cpu", "--spatial", "2"])
-    with pytest.raises(ValueError, match="384 must divide by 16 x 5"):
+    for preset in ("deeplab_kitti_dp", "deeplab_kitti_os16"):
+        with pytest.raises(pytest.fail.Exception, match="work began"):
+            train.main(["--preset", preset, "--synthetic", "--device", "cpu",
+                        "--spatial", "2"])
+    with pytest.raises(ValueError, match="height 64 must divide by the model's "
+                                         "stride 16 into at least 5 blocks"):
         train.main(["--preset", "deeplab_kitti_os16", "--synthetic", "--device",
-                    "cpu", "--spatial", "5"])
-    with pytest.raises(pytest.fail.Exception, match="work began"):
-        train.main(["--preset", "deeplab_kitti_os16", "--synthetic", "--device",
-                    "cpu", "--spatial", "2"])
-    with pytest.raises(ValueError, match="384 must divide by 32 x 5"):
-        train.main(["--synthetic", "--device", "cpu", "--spatial", "5"])
+                    "cpu", "--spatial", "5", "--image-size", "64", "96"])
+    with pytest.raises(ValueError, match="stride 32 into at least 3 blocks"):
+        train.main(["--synthetic", "--device", "cpu", "--spatial", "3",
+                    "--image-size", "64", "96"])
 
 
 def test_clis_train_eval_sweep_and_serve_a_deeplab_checkpoint(tmp_path, capsys):

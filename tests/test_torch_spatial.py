@@ -92,6 +92,15 @@ DROP_KW = dict(fc_features=16, width_mult=0.25, pallas_spmd=True, dropout_rate=0
 DL_HW = (64, 32)
 DL_KW = dict(width_mult=0.25, aspp_features=16, rates=(2, 4), pallas_spmd=True,
              dropout_rate=0.5)
+# uneven row shards (queue 3 fault 4), each height a stride multiple whose
+# blocks do not split evenly over 2 ranks: DeepLab os8 (dropout 0, so that
+# the JAX step is comparable) on 24 rows, three blocks of 8 -> 16 + 8; U-Net
+# (8 features, depth 2, stride 4, 19 classes) on 20 rows, five blocks ->
+# 12 + 8
+UNEVEN = {"deeplab_os8": dict(model="deeplab", hw=(24, 32), stride=8, classes=2,
+                              kw=dict(DL_KW, dropout_rate=0.0)),
+          "unet": dict(model="unet", hw=(20, 32), stride=4, classes=19,
+                       kw=dict(base_features=8, depth=2))}
 
 
 # ---------------------------------------------------------------------------
@@ -249,10 +258,11 @@ def test_pallas_spmd_on_one_process_matches_default():
 # gloo ranks in subprocesses
 # ---------------------------------------------------------------------------
 
-def _batch(n, hw, seed):
+def _batch(n, hw, seed, classes=2):
     rng = np.random.default_rng(seed)
     return {"image": torch.from_numpy(rng.normal(size=(n, *hw, 3)).astype(np.float32)),
-            "label": torch.from_numpy(rng.integers(0, 2, (n, *hw)).astype(np.int32)),
+            "label": torch.from_numpy(rng.integers(0, classes, (n, *hw))
+                                      .astype(np.int32)),
             "valid": torch.from_numpy(rng.random((n, *hw)) > 0.25)}
 
 
@@ -276,6 +286,27 @@ def _ops_job():
         ops[f"convT{s}"] = dict(kind="convT", w=f(8, 5, 2 * s, 2 * s), b=f(5),
                                 stride=s, cot=f(2, 16 * s, 12 * s, 5))
     return {"name": "ops", "kind": "ops", "x": x, "ops": ops, "fill": float("-inf")}
+
+
+def _uneven_ops_job():
+    """The row-split ops on 24 rows at stride 8: three blocks, so rank 0
+    holds 16 rows and rank 1 8. conv7_d4 is conv6's 7x7 at dilation 4 (a
+    12-row halo, taller than rank 1's rows); the U-Net 2x2/2 up-conv, the
+    bilinear upsample (stride 8 x 8 at the output), dropout."""
+    rng = np.random.default_rng(9)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    x = f(2, 24, 12, 8)
+    ops = {"conv3": dict(kind="conv", w=f(6, 8, 3, 3), padding=1, cot=f(2, 24, 12, 6)),
+           "conv7_d4": dict(kind="conv", w=f(6, 8, 7, 7), padding=12, dilation=4,
+                            cot=f(2, 24, 12, 6)),
+           "convT2": dict(kind="convT", w=f(8, 5, 4, 4), b=f(5), stride=2,
+                          cot=f(2, 48, 24, 5)),
+           "convT2x2": dict(kind="convT", w=f(8, 5, 2, 2), b=f(5), stride=2, kernel=2,
+                            cot=f(2, 48, 24, 5)),
+           "upsample8": dict(kind="upsample", factor=8, cot=f(2, 192, 96, 8)),
+           "dropout": dict(kind="dropout", rate=0.5, seed=3, cot=f(2, 24, 12, 8))}
+    return {"name": "ops_uneven", "kind": "ops", "x": x, "ops": ops, "stride": 8,
+            "fill": float("-inf")}
 
 
 def _launch(tmp, tag, world, scenarios):
@@ -313,15 +344,22 @@ def _jax_fcn_state(name, hw):
     return jax_state(model, jax.random.key(0), (4, *hw, 3), jax_optimizer("sgd", LR))
 
 
-def _port_state(name, state_dict, **kw):
-    model = build_model(name, 2, device="cpu", dtype=torch.float32, **kw)
+def _jax_uneven_state(name):
+    u = UNEVEN[name]      # the JAX defaults (its fused kernels need 64 features)
+    kw = {k: v for k, v in u["kw"].items() if k != "pallas_spmd"}
+    model = jax_build(u["model"], num_classes=u["classes"], dtype=jnp.float32, **kw)
+    return jax_state(model, jax.random.key(1), (2, *u["hw"], 3), jax_optimizer("sgd", LR))
+
+
+def _port_state(name, state_dict, classes=2, **kw):
+    model = build_model(name, classes, device="cpu", dtype=torch.float32, **kw)
     model.load_state_dict(state_dict)
     return create_train_state(model, make_optimizer("sgd", model.parameters(), LR),
                               make_lr_schedule(LR), seed=0)
 
 
-def _single_steps(state, batch, steps=2, augment=None):
-    step = make_train_step(2, augment_fn=augment)
+def _single_steps(state, batch, steps=2, augment=None, classes=2):
+    step = make_train_step(classes, augment_fn=augment)
     losses, grads = [], None
     for i in range(steps):
         out = step(state, batch)
@@ -355,6 +393,12 @@ def grid_runs(tmp_path_factory):
     dl_batch = _batch(4, DL_HW, 6)
     eval_batch = _batch(4, FCN_HW, 5)
     eval_batch["valid"][-1] = False          # the loader's wrap-padded row
+    ujs, usds, ubatches = {}, {}, {}
+    for i, (name, u) in enumerate(UNEVEN.items()):
+        ujs[name] = _jax_uneven_state(name)
+        meta = build_model(u["model"], u["classes"], device="meta", **u["kw"])
+        usds[name] = convert.to_state_dict(convert.flatten_params(ujs[name].params), meta)
+        ubatches[name] = _batch(4, u["hw"], 10 + i, u["classes"])
 
     def step_sc(name, model, data, spatial, sd, batch, kw, **extra):
         return dict(name=name, kind="step", model=model, data=data, spatial=spatial,
@@ -369,6 +413,10 @@ def grid_runs(tmp_path_factory):
         step_sc("dropout_1x2", "fcn8s", 1, 2, drop_sd, drop_batch, DROP_KW,
                 augment=True),
         step_sc("deeplab_1x2", "deeplab", 1, 2, dl_sd, dl_batch, DL_KW),
+        *(step_sc(f"{name}_1x2", u["model"], 1, 2, usds[name], ubatches[name], u["kw"],
+                  stride=u["stride"], classes=u["classes"])
+          for name, u in UNEVEN.items()),
+        _uneven_ops_job(),
         dict(name="eval_2x1", kind="eval", model="fcn8s", state_dict=sds["fcn8s"],
              batch=eval_batch, kw=fk)])
     four = _launch(tmp, "w4", 4, [
@@ -380,6 +428,13 @@ def grid_runs(tmp_path_factory):
         for name, st in js.items():
             step = jax_train_step(2)
             b = {k: jnp.asarray(v.numpy()) for k, v in batches[name].items()}
+            for _ in range(2):
+                st, out = step(st, b)
+            jax_out[name] = (float(out["loss"]), np.asarray(out["cm"]),
+                             convert.flatten_params(st.params))
+        for name, st in ujs.items():
+            step = jax_train_step(UNEVEN[name]["classes"])
+            b = {k: jnp.asarray(v.numpy()) for k, v in ubatches[name].items()}
             for _ in range(2):
                 st, out = step(st, b)
             jax_out[name] = (float(out["loss"]), np.asarray(out["cm"]),
@@ -400,11 +455,27 @@ def grid_runs(tmp_path_factory):
                                           drop_batch, augment=aug)
         single["deeplab"] = _single_steps(_port_state("deeplab", dl_sd, **DL_KW),
                                           dl_batch)
+        for name, u in UNEVEN.items():
+            single[name] = _single_steps(
+                _port_state(u["model"], usds[name], u["classes"], **u["kw"]),
+                ubatches[name], classes=u["classes"])
         single["eval"] = make_eval_step(2, road_hist=True)(
             _port_state("fcn8s", sds["fcn8s"], **fk), eval_batch)
     finally:
         ranks2, ranks4 = _collect(two), _collect(four)
     return {"jax": jax_out, "single": single, "w2": ranks2, "w4": ranks4}
+
+
+def test_boundary_rows_on_uneven_ranks_are_the_neighbours_rows(grid_runs):
+    """On 16 + 8 rows (24 at stride 8) each rank's halo rows are the rows
+    just outside its own, -inf beyond the image's edge, bit for bit."""
+    x = _uneven_ops_job()["x"]
+    fill = torch.full_like(x[:, :1], float("-inf"))
+    for (start, rows), rank in zip(((0, 16), (16, 8)), grid_runs["w2"]):
+        top, bot = rank["ops_uneven"]["boundary"]
+        assert torch.equal(top, x[:, start - 1:start] if start else fill)
+        end = start + rows
+        assert torch.equal(bot, x[:, end:end + 1] if end < 24 else fill)
 
 
 def test_boundary_rows_on_two_ranks_match_jax_halo_rows(grid_runs):
@@ -422,34 +493,56 @@ def test_boundary_rows_on_two_ranks_match_jax_halo_rows(grid_runs):
                                       np.asarray(bots[p:p + 1]).transpose(2, 0, 1, 3))
 
 
-@pytest.mark.parametrize("op", ["conv3", "conv7", "conv3_d10", "convT2", "convT8"])
+@pytest.mark.parametrize("op", [
+    "conv3", "conv7", "conv3_d10", "convT2", "convT8",
+    "uneven/conv3", "uneven/conv7_d4", "uneven/convT2", "uneven/convT2x2",
+    "uneven/upsample8", "uneven/dropout"])
 def test_row_split_ops_match_whole_image(grid_runs, op):
     """``conv_nhwc`` (k = 3 and 7, and k = 3 at dilation 10, whose 10-row
     halo is taller than a rank's 8 rows) and ``ConvTranspose`` (s = 2 and 8)
-    on two gloo ranks, each holding half the rows: the joined outputs and input
-    gradients and the summed weight gradients equal the whole-image op's.
-    f32, another summation order: within 1e-5 of the value plus 1e-6 of the
-    tensor's largest element."""
-    job = _ops_job()
-    spec = job["ops"][op]
+    on two gloo ranks, each holding half the rows; and ("uneven/") on 16 + 8
+    rows (24 at stride 8): conv6's 7x7 at dilation 4 (a 12-row halo), both
+    transposed convs (FCN's 4x4/2 with its halo row, U-Net's 2x2/2 without),
+    ``upsample_bilinear`` and ``dropout`` (its mask drawn at the whole
+    image's shape). The joined outputs and input gradients and the summed
+    weight gradients equal the whole-image op's. f32, another summation
+    order: within 1e-5 of the value plus 1e-6 of the tensor's largest
+    element."""
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import (
+        dropout, upsample_bilinear,
+    )
+
+    job = _uneven_ops_job() if op.startswith("uneven/") else _ops_job()
+    name = op.split("/")[-1]
+    spec = job["ops"][name]
     x = job["x"].clone().requires_grad_()
+    w = None
     if spec["kind"] == "conv":
         w = spec["w"].clone().requires_grad_()
         y = conv_nhwc(x, w, dtype=torch.float32, padding=spec["padding"],
                       dilation=spec.get("dilation", 1))
-    else:
-        mod = ConvTranspose(8, 5, spec["stride"], dtype=torch.float32)
+    elif spec["kind"] == "convT":
+        mod = ConvTranspose(8, 5, spec["stride"], kernel_size=spec.get("kernel"),
+                            dtype=torch.float32)
         with torch.no_grad():
             mod.weight.copy_(spec["w"])
             mod.bias.copy_(spec["b"])
         w = mod.weight
         y = mod(x)
+    elif spec["kind"] == "upsample":
+        y = upsample_bilinear(x, spec["factor"])
+    else:
+        y = dropout(x, spec["rate"], training=True,
+                    generator=torch.Generator().manual_seed(spec["seed"]))
     y.backward(spec["cot"])
-    parts = [rank["ops"][op] for rank in grid_runs["w2"]]
-    got_y = torch.cat([p[0] for p in parts], 1)
-    got_dx = torch.cat([p[1] for p in parts], 1)
-    got_dw = sum(p[2] for p in parts)
-    for got, want in ((got_y, y.detach()), (got_dx, x.grad), (got_dw, w.grad)):
+    parts = [rank[job["name"]][name] for rank in grid_runs["w2"]]
+    if "stride" in job:
+        assert [p[0].shape[1] * 24 // y.shape[1] for p in parts] == [16, 8]
+    pairs = [(torch.cat([p[0] for p in parts], 1), y.detach()),
+             (torch.cat([p[1] for p in parts], 1), x.grad)]
+    if w is not None:
+        pairs.append((sum(p[2] for p in parts), w.grad))
+    for got, want in pairs:
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-6 * want.abs().max().item())
 
@@ -546,6 +639,45 @@ def test_grid_deeplab_step_matches_single_process(grid_runs, name):
         assert err <= 1e-4, (k, err.item())
     for k, p in want["params"].items():
         torch.testing.assert_close(got["params"][k], p, rtol=0, atol=3e-6, msg=k)
+
+
+@pytest.mark.parametrize("name", list(UNEVEN))
+def test_grid_uneven_rows_step_matches_single_process_and_jax(grid_runs, name):
+    """Queue 3 fault 4: two SGD steps on a 1x2 grid whose rows split
+    unevenly at the model's stride (DeepLab os8 on 24 rows: 16 + 8, conv6's
+    12-row halo reaching past rank 1; U-Net on 20 rows at stride 4: 12 + 8,
+    19 classes). Against the port's single-process step: the losses within
+    rtol 2e-5, every leaf's first gradient within 1e-4 of its norm, the
+    params after two steps within atol 3e-6, every rank the same. Against
+    the JAX package's single-device step on the same weights: the loss
+    within rtol 2e-5 and the params within rtol 3e-4 / atol 3e-6 (FCN's
+    bounds, tests/test_train.py:395-399); the confusion matrix exact for
+    DeepLab, and for U-Net's 19 classes at most one labeled pixel in 1000
+    moved (a near-tied argmax may order either way)."""
+    u = UNEVEN[name]
+    want = grid_runs["single"][name]
+    ranks = _ranks(grid_runs, f"{name}_1x2")
+    got = ranks[0]
+    assert all(r["checksum"] == got["checksum"] for r in ranks)
+    assert all(r["losses"] == got["losses"] for r in ranks)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5)
+    assert set(got["grads"]) == set(want["grads"])
+    for k, g in want["grads"].items():
+        err = (got["grads"][k] - g).norm() / g.norm().clamp(min=1e-30)
+        assert err <= 1e-4, (k, err.item())
+    for k, p in want["params"].items():
+        torch.testing.assert_close(got["params"][k], p, rtol=0, atol=3e-6, msg=k)
+    loss, cm, params = grid_runs["jax"][name]
+    np.testing.assert_allclose(got["losses"][-1], loss, rtol=2e-5)
+    assert got["cm"].sum() == cm.sum()
+    moved = np.abs(got["cm"].numpy() - cm).sum() // 2
+    assert moved <= (0 if u["model"] == "deeplab" else cm.sum() // 1000), moved
+    meta = build_model(u["model"], u["classes"], device="meta", **u["kw"])
+    mine = convert.from_state_dict(got["params"], meta)
+    assert set(mine) == set(params)
+    for k, w in params.items():
+        np.testing.assert_allclose(mine[k], np.asarray(w), rtol=3e-4, atol=3e-6,
+                                   err_msg=k)
 
 
 def test_grid_eval_step_matches_single_process(grid_runs):

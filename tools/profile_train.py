@@ -4,7 +4,7 @@
     python tools/profile_train.py [--iters 5] [--top 15] [--workloads a,b] \
         [--out chiprun_out/profile_train.json]
 
-Five workloads, each with seeded random weights and a uint8 batch
+Six workloads, each with seeded random weights and a uint8 batch
 resident on the card, Adam 1e-4 (FCN-8s and DeepLab with dropout 0.5):
 
 - ``preset``: fcn8s_kitti (fc 1024), batch 8 of 384x1248, 320x1152 crops,
@@ -18,10 +18,14 @@ resident on the card, Adam 1e-4 (FCN-8s and DeepLab with dropout 0.5):
   metrics on; for these the device time of the convs also goes by kernel
   size and dilation (``conv_ms_by_dilation``: the dilated convs' share).
 
-and four Winograd forms of them: ``preset_f2`` (``winograd="f2"``),
-``segnet_f2``, ``segnet_f4`` and ``bench_fc6`` (``winograd_fc6=True``).
+- ``unet``: unet_cityscapes (U-Net, 19 classes), batch 8 of 512x1024,
+  256x512 crops, metrics on;
 
-For each of the five workloads, two builds of the same weights in turns
+and five Winograd forms of them: ``preset_f2`` (``winograd="f2"``),
+``segnet_f2``, ``segnet_f4``, ``bench_fc6`` (``winograd_fc6=True``) and
+``unet_f2``.
+
+For each of the six workloads, two builds of the same weights in turns
 kernel, plain, plain, kernel: "kernel" (the stage1 training forward and
 backward kernels, for SegNet the SegNet stage1 forward and the argmax
 pool/unpool kernels, and the preprocess kernel) and "plain" (stage1 as cuDNN convs and a max pool, for
@@ -78,6 +82,12 @@ WORKLOADS["deeplab_os16"] = dict(WORKLOADS["deeplab"], base_kw={"output_stride":
                                  what="deeplab_kitti_os16 preset (DeepLab-ASPP os16, "
                                       "batch 16, 384x1248 -> 320x1152 crops, "
                                       "metrics on)")
+# U-Net on Cityscapes (unet_cityscapes): 19 classes, batch 8 of 512x1024,
+# 256x512 crops
+WORKLOADS["unet"] = dict(model="unet", n=8, hw=(512, 1024), classes=19,
+                         crop=(256, 512), metrics=True,
+                         what="unet_cityscapes preset (U-Net, 19 classes, batch 8, "
+                              "512x1024 -> 256x512 crops, metrics on)")
 # the Winograd forms: the workload named by "base" with these model flags,
 # timed against the same workload without them
 WINOGRAD_FORMS = {
@@ -85,6 +95,7 @@ WINOGRAD_FORMS = {
     "segnet_f2": ("segnet", {"winograd": "f2"}),
     "segnet_f4": ("segnet", {"winograd": "f4"}),
     "bench_fc6": ("bench", {"winograd_fc6": True}),
+    "unet_f2": ("unet", {"winograd": "f2"}),
 }
 WORKLOADS.update({name: dict(WORKLOADS[base], model_kw=kw,
                              what=f"{WORKLOADS[base]['what']}, {kw}")
@@ -210,10 +221,11 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None,
     ``wl["model"]`` names, with ``wl["base_kw"]``) with the model flags
     ``model_kw`` (default ``wl["model_kw"]``, if any), seeded random
     weights (or ``weights``, a state dict), Adam 1e-4, dropout 0.5, a batch
-    of ``wl["n"]`` 384x1248 uint8 images resident on the card, flip and
+    of ``wl["n"]`` uint8 images of ``wl["hw"]`` (default 384x1248) with
+    labels of ``wl["classes"]`` (default 2) resident on the card, flip and
     ``wl["crop"]`` by the preprocess kernel (``packed``) or its plain
     version (stage1 then as cuDNN convs and a max pool, SegNet's pools and
-    unpools their plain versions)."""
+    unpools their plain versions; U-Net has neither)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
@@ -229,10 +241,13 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None,
 
     dev = torch.device("cuda")
     name = wl.get("model", "fcn8s")
+    classes, (h, w) = wl.get("classes", 2), wl.get("hw", (384, 1248))
     kw = {"fc_features": wl["fc"]} if name == "fcn8s" else {}
+    if name != "unet":          # the models with a fused stage1
+        kw["packed_stage1"] = packed
     kw.update(wl.get("base_kw", {}))
     kw.update(wl.get("model_kw", {}) if model_kw is None else model_kw)
-    model = build_model(name, 2, device=dev, packed_stage1=packed, **kw)
+    model = build_model(name, classes, device=dev, **kw)
     if weights is None:
         init_params(model, torch.Generator(device=dev).manual_seed(0))
     else:
@@ -244,10 +259,11 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None,
                                 mean=MEAN, std=STD), wl["crop"], True))
     rng = np.random.default_rng(0)
     batch = {"image": torch.from_numpy(rng.integers(
-                 0, 256, (wl["n"], 384, 1248, 3), np.uint8)).to(dev),
+                 0, 256, (wl["n"], h, w, 3), np.uint8)).to(dev),
              "label": torch.from_numpy(rng.integers(
-                 0, 2, (wl["n"], 384, 1248)).astype(np.int32)).to(dev)}
-    step = partial(make_train_step(2, augment_fn=aug, with_metrics=wl["metrics"],
+                 0, classes, (wl["n"], h, w)).astype(np.int32)).to(dev)}
+    step = partial(make_train_step(classes, augment_fn=aug,
+                                   with_metrics=wl["metrics"],
                                    remat=wl.get("remat", False)),
                    state, batch)
     return in_plain_pools(step) if name == "segnet" and not packed else step
