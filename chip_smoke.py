@@ -78,6 +78,17 @@ checkpoint; a train step with the kernels against plain PyTorch; the
 preset step timed, direct and f2 in turns; and the 2-rank grid on 496 rows,
 split unevenly (256 + 240) at U-Net's stride 16.
 
+Then BatchNorm (``bn_phase``, ``segnet_kitti`` with ``use_bn=True`` at full
+width): its train step with kernels 4 and 5 against plain PyTorch;
+``train.py`` (3 steps, ``--resume``, infer_image), infer_image, serve and the
+Predictor from that checkpoint, ``eval.py --tta --tta-scales
+0.75,1.0,1.25`` on it; the 2-rank grid on 352 rows (192 + 160); the preset
+step timed. Then TTA and tiles (``tta_tiled_phase``): ``infer_image
+--tiled`` on a 1024x2048 frame at ``unet_cityscapes`` and a 750x2484 image at
+``fcn8s_kitti``, ``eval.py --tta`` at ``fcn8s_kitti``, the TTA step at one
+scale without flip against the eval step and one tile against the
+Predictor.
+
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
 version, device times of the kernel, its plain version and the one PyTorch
@@ -103,6 +114,9 @@ PKG = "semanticsegmentation_tensorflow_tpu_torch"
 IMAGE_HW = (375, 1242)      # KITTI road; the model sees it padded to 384x1248
 PADDED_HW = (384, 1248)
 DEEPLAB_OS8_HW = (376, 1248)  # KITTI padded to DeepLab's output stride 8
+# PADDED_HW at TTA scales 0.75 and 1.25, rounded to stride 32 (infer/tta.py
+# _scale_hw): the variants that eval.py --tta --tta-scales 0.75,1.0,1.25 runs
+TTA_VARIANT_HW = ((288, 928), (480, 1568))
 
 
 def log(msg: str) -> None:
@@ -235,6 +249,11 @@ def check_stage1(torch, gen) -> dict:
                                  "DeepLab os8 Predictor")
     # and eval.py's batches of 4 at that height
     dl_err = max(dl_err, compare(4, *DEEPLAB_OS8_HW, 64, "DeepLab os8 eval")[3])
+    # fcn8s_kitti's TTA eval (batches of 4 at 384x1248, scaled by 0.75 and
+    # 1.25 to the stride) and its tiled path (3x3 tiles of 384x1248 in one
+    # batch)
+    for n, (h, w) in ((4, TTA_VARIANT_HW[0]), (4, TTA_VARIANT_HW[1]), (9, PADDED_HW)):
+        main_err = max(main_err, compare(n, h, w, 64, "TTA / tiled")[3])
     compare(3, 12, 40, 64, "odd batch, partial tiles")
     compare(1, 6, 34, 16, "C=16")
     compare(1, 8, 64, 32, "C=32")
@@ -539,13 +558,30 @@ def backward_by_launch(torch, fn, g, out, codes, z1, k2, what: str = "1b") -> di
 
 
 def check_preprocess(torch, gen) -> dict:
-    """Kernel 4 against its plain version: [8,384,1248,3] and DeepLab's
-    [16,384,1248,3] u8 batches, mixed flips and crop offsets, 320x1152
-    crops; the f32 bytes must be equal. Timed at batch 8."""
+    """Kernel 4 against its plain version: the grids' uncropped row shards,
+    then [8,384,1248,3] and DeepLab's [16,384,1248,3] u8 batches, mixed
+    flips and crop offsets, 320x1152 crops; the f32 bytes must be equal.
+    Timed at batch 8."""
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
         preprocess_normalize, preprocess_normalize_plain,
     )
 
+    # the grids' uncropped row shards: fcn8s_kitti's 192 + 192 rows of 8
+    # images, unet_cityscapes' 256 + 240 of 4 at 1024, segnet_kitti use_bn's
+    # 192 + 160 of 4 at 1248
+    for n, h, w in ((8, 192, 1248), (4, 256, 1024), (4, 240, 1024), (4, 192, 1248),
+                    (4, 160, 1248)):
+        img = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+        flip = torch.tensor([True, False] * (n // 2))
+        zero = torch.zeros(n, dtype=torch.int64)
+        args = (img, flip, zero, zero, None, MEAN, STD)
+        got, want = preprocess_normalize(*args), preprocess_normalize_plain(*args)
+        torch.cuda.synchronize()
+        if got.shape != (n, h, w, 3) or not torch.equal(got, want):
+            raise AssertionError(f"preprocess at [{n},{h},{w},3] uncropped: kernel "
+                                 "bytes differ from plain")
+    log("preprocess at the grids' uncropped row shards, mixed flips: bytes exact")
     (h, w), crop = PADDED_HW, (320, 1152)
     for n in (16, 8):
         img = torch.randint(0, 256, (n, h, w, 3), generator=gen, device="cuda",
@@ -826,11 +862,13 @@ def drive_sweep(torch, tmp: str, counters: dict) -> dict:
     return res
 
 
-def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None) -> dict:
+def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None,
+                extra: tuple = ()) -> dict:
     """The inference path through the user's entry points at ``preset``
-    (random weights; ``model_kw`` as ``--model-kw`` takes it) on a
-    generated image of the preset's size: infer_image, the server answering
-    requests, the Predictor's steady state. Returns timings."""
+    (random weights, or ``extra``'s ``--checkpoint-dir``; ``model_kw`` as
+    ``--model-kw`` takes it) on a generated image of the preset's size:
+    infer_image, the server answering requests, the Predictor's steady
+    state. Returns timings."""
     import http.client
 
     import numpy as np
@@ -845,7 +883,7 @@ def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None) -> di
     png = os.path.join(tmp, "kitti_like.png")
     out = os.path.join(tmp, "overlay.png")
     write_png(png, seed=0, hw=hw)
-    kw = ["--model-kw", model_kw] if model_kw else []
+    kw = (["--model-kw", model_kw] if model_kw else []) + list(extra)
     what = f"{preset} {model_kw}" if model_kw else preset
 
     # 1. infer_image, as a user runs it (random weights)
@@ -1097,10 +1135,15 @@ def hold_train_steps(what: str, kern, out_k: dict, plain, out_p: dict) -> None:
     relative, each parameter's gradient within 5e-2 of its L2 norm, and
     the confusion matrices nearly equal (labels agree on >= 99.5 % of the
     valid pixels). Logs the numbers; raises outside the bounds."""
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import bn_fed_biases
+
     lk, lp = out_k["loss"].item(), out_p["loss"].item()
     worst, worst_name = 0.0, ""
+    fed = bn_fed_biases(kern.model)
     for (name, pk), pp in zip(kern.model.named_parameters(),
                               plain.model.parameters()):
+        if name in fed:
+            continue
         rel = ((pk.grad - pp.grad).norm() / pp.grad.norm().clamp(min=1e-30)).item()
         if rel > worst:
             worst, worst_name = rel, name
@@ -1467,6 +1510,10 @@ def segnet_unpools(n: int, h: int, w: int) -> tuple:
 SEGNET_UNPOOLS = segnet_unpools(*TRAIN_SHAPE[:3])
 SEGNET_POOLS = SEGNET_UNPOOLS[1:]
 SEGNET_INFER_UNPOOLS = segnet_unpools(1, *PADDED_HW)
+# SegNet with use_bn: eval.py --tta's batches of 4 at each scale, and the
+# grid's 4 images of 352 rows whole and as its two ranks' 192 + 160 rows
+SEGNET_BN_UNPOOLS = sum((segnet_unpools(4, *hw) for hw in (
+    *TTA_VARIANT_HW, PADDED_HW, (352, 1248), (192, 1248), (160, 1248))), ())
 
 
 def check_segnet_stage1(torch, gen) -> dict:
@@ -1606,7 +1653,8 @@ def check_pool(torch, gen) -> dict:
         total["elems"] += count * shape[0] * shape[1] * shape[2] * shape[3]
 
     integer = torch.randint(-2, 3, (2, 16, 24, 64), generator=gen, device="cuda")
-    for shape in ((2, 16, 24, 64),) + SEGNET_UNPOOLS + SEGNET_INFER_UNPOOLS:
+    for shape in ((2, 16, 24, 64),) + SEGNET_UNPOOLS + SEGNET_INFER_UNPOOLS \
+            + SEGNET_BN_UNPOOLS:
         x = (integer.bfloat16() if shape == integer.shape
              else torch.randn(shape, generator=gen, device="cuda").bfloat16())
         p, idx = pool_argmax(x)
@@ -1624,7 +1672,9 @@ def check_pool(torch, gen) -> dict:
     log(f"argmax pool, unpool, unpool backward at the {len(SEGNET_UNPOOLS)} "
         f"SegNet shapes of a train step {[list(s) for s in SEGNET_UNPOOLS]}, "
         f"the {len(SEGNET_INFER_UNPOOLS)} of a full-resolution forward "
-        f"{[list(s) for s in SEGNET_INFER_UNPOOLS]} and an integer tie case: "
+        f"{[list(s) for s in SEGNET_INFER_UNPOOLS]}, the {len(SEGNET_BN_UNPOOLS)} of "
+        f"use_bn's TTA eval and grid {[list(s) for s in SEGNET_BN_UNPOOLS]} and an "
+        "integer tie case: "
         "bytes exact against the plain versions")
 
     log("argmax pool / unpool timings (device ms per call, mean of two turns):")
@@ -2393,13 +2443,19 @@ def drive_spatial_training(torch, tmp: str, preset: str, data: str | None = None
 GRID = {"fcn8s_kitti": dict(model="fcn8s", classes=2, n=8, hw=PADDED_HW, stride=32,
                             seed=11, kernels=("stage1_tail_halo", "stage1_tail_halo_bwd")),
         "unet_cityscapes": dict(model="unet", classes=19, n=4, hw=(496, 1024),
-                                stride=16, seed=12, kernels=("preprocess_normalize",))}
+                                stride=16, seed=12, kernels=("preprocess_normalize",)),
+        # SegNet with BatchNorm: 352 rows, 11 blocks of 32 -> 192 + 160;
+        # its gradients are held to the f32 step's (check_grid)
+        "segnet_kitti_bn": dict(model="segnet", preset="segnet_kitti",
+                                model_kw={"use_bn": True}, classes=2, n=4,
+                                hw=(352, 1248), stride=32, seed=13, f32_ref=True,
+                                kernels=("pool_argmax", "unpool", "unpool_bwd"))}
 
 
-def _grid_state(torch, dev, workload, weights=None):
+def _grid_state(torch, dev, workload, weights=None, dtype=None):
     """The grid workload's preset model at full width with the SPMD-safe
     kwargs (for FCN pallas_spmd; no Winograd), dropout 0, Adam 1e-4, seeded
-    (or given) weights."""
+    (or given) weights; ``dtype`` the compute dtype (default bf16)."""
     from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
     from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
@@ -2410,9 +2466,12 @@ def _grid_state(torch, dev, workload, weights=None):
     )
 
     g = GRID[workload]
-    kw = merge_spmd_safe_kwargs(g["model"], dict(get_preset(workload).model_kwargs))
+    kw = merge_spmd_safe_kwargs(g["model"], dict(
+        get_preset(g.get("preset", workload)).model_kwargs, **g.get("model_kw", {})))
     if g["model"] == "fcn8s":
         kw["dropout_rate"] = 0.0
+    if dtype is not None:
+        kw["dtype"] = dtype
     model = build_model(g["model"], g["classes"], device=dev, **kw)
     if weights is None:
         init_params(model, torch.Generator(device=dev).manual_seed(g["seed"]))
@@ -2423,15 +2482,15 @@ def _grid_state(torch, dev, workload, weights=None):
 
 
 def _grid_batch(torch, dev, workload):
-    """FCN: generated road scenes; U-Net: random images and 19-class
-    labels (seeded)."""
+    """FCN and SegNet: generated road scenes; U-Net: random images and
+    19-class labels (seeded)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
 
     g = GRID[workload]
     rng = np.random.default_rng(4)
-    if g["model"] == "fcn8s":
+    if g["model"] != "unet":
         imgs, lbls = zip(*(_road_scene(rng, *g["hw"]) for _ in range(g["n"])))
         imgs, lbls = np.stack(imgs), np.stack(lbls)
     else:
@@ -2447,7 +2506,9 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     stride (``Grid.at_height``: unevenly where the blocks do not divide),
     two train steps of the job's workload on this rank's rows of its batch
     from the job's weights, then timed steps and one profiled step; rank 0
-    saves the first step's gradients."""
+    saves the first step's gradients. A job with ``control`` (check_grid's
+    negative control) makes every BatchNorm take its statistics over this
+    rank's rows alone and runs the two steps only."""
     import datetime
 
     import torch
@@ -2456,7 +2517,7 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
 
     sys.path[:0] = [REPO]
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import (
-        preprocess as cuda_preprocess, stage1 as cuda_stage1,
+        pool as cuda_pool, preprocess as cuda_preprocess, stage1 as cuda_stage1,
     )
     from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import make_grid
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
@@ -2468,6 +2529,10 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     dev = torch.device("cuda", 0)
     spec = torch.load(job, map_location=dev)
     g = GRID[spec["workload"]]
+    if spec.get("control"):
+        from semanticsegmentation_tensorflow_tpu_torch.models.common import BatchNorm
+
+        BatchNorm._group = lambda self, grid: False     # the rank's own pixels
     grid = make_grid(1, world).at_height(g["hw"][0], g["stride"])
     state = _grid_state(torch, dev, spec["workload"], spec["weights"])
     rows = grid.rows(g["hw"][0], g["stride"])
@@ -2476,7 +2541,8 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     step = make_train_step(g["classes"], mesh=grid,
                            augment_fn=cuda_preprocess.make_preprocess_augment_fn(
                                MEAN, STD, None))
-    wrappers = [getattr(cuda_preprocess if k.startswith("preprocess") else cuda_stage1, k)
+    wrappers = [getattr(cuda_preprocess if k.startswith("preprocess") else
+                        cuda_pool if "pool" in k else cuda_stage1, k)
                 for k in g["kernels"]]
     for w in wrappers:
         w.launches = 0
@@ -2489,6 +2555,11 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
             torch.save({k: p.grad.float().cpu() for k, p in
                         state.model.named_parameters()}, out + ".grads")
     launches = tuple(w.launches for w in wrappers)
+    if spec.get("control"):
+        torch.save({"losses": losses, "cms": cms}, out)
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
     ms = cuda_ms(lambda: step(state, batch), iters=4, warmup=1)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         t0 = time.perf_counter()
@@ -2508,6 +2579,61 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     return 0
 
 
+def _spawn_ranks(tmp: str, workload: str, weights,
+                 control: bool = False) -> tuple[list, list[str]]:
+    """Start check_grid's two ranks (``chip_smoke.py --grid-rank``) on a job
+    of ``workload`` from ``weights``; returns the processes and each rank's
+    output file."""
+    import torch
+
+    tag = f"{workload}_control" if control else workload
+    job = os.path.join(tmp, f"grid_{tag}.pt")
+    torch.save({"workload": workload, "weights": weights, "control": control}, job)
+    store = os.path.join(tmp, f"grid_store_{tag}")
+    outs = [os.path.join(tmp, f"grid_{tag}_rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--grid-rank",
+                               str(r), "2", store, job, outs[r]]) for r in range(2)]
+    return procs, outs
+
+
+def _wait_ranks(procs) -> None:
+    for p in procs:
+        if p.wait(timeout=600) != 0:
+            raise AssertionError(f"grid rank exited with {p.returncode}")
+
+
+def _kill_ranks(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+
+
+def _grid_numbers(torch, g: dict, outs: list, ref: dict, fed: set) -> dict:
+    """check_grid's numbers for the ranks' outputs ``outs`` against the
+    single-process reference ``ref`` (its losses, confusion matrices, first
+    gradients and, with ``f32_ref``, the f32 step's gradients): the worst
+    loss's relative distance, the worst first gradient (the conv biases in
+    ``fed`` left out) and the share of labels that agree."""
+    ranks = [torch.load(o) for o in outs]
+    grads = torch.load(outs[0] + ".grads")
+    worst, worst_name = 0.0, ""
+    for k, gr in ref["grads"].items():
+        if k in fed:
+            continue
+        if g.get("f32_ref"):    # the distance to f32 over its bound
+            r = ref["f32_grads"][k]
+            rel = rel_l2(grads[k], r) / (2 * rel_l2(gr, r) + 2 ** -8 / r.numel() ** 0.5)
+        else:
+            rel = ((grads[k] - gr).norm() / gr.norm().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, k
+    agree = min(1 - (a - b).abs().sum().item() / (2 * b.sum().item())
+                for a, b in zip(ranks[0]["cms"], ref["cms"]))
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref["losses"]))
+    return {"ranks": ranks, "worst": worst, "worst_name": worst_name, "agree": agree,
+            "rel_loss": rel_loss, "same": ranks[0]["losses"] == ranks[1]["losses"]}
+
+
 def check_grid(torch, tmp: str, smi: str, workload: str = "fcn8s_kitti") -> dict:
     """The 2-rank grid (data 1 x spatial 2) with gloo on cuda:0: two ranks
     sharing one GPU, each holding its rows of the workload's batch (``GRID``:
@@ -2516,11 +2642,21 @@ def check_grid(torch, tmp: str, smi: str, workload: str = "fcn8s_kitti") -> dict
     two Adam steps through the halo exchange (and kernel 1c for FCN), held
     against the single-process run of the same step (pallas_spmd at one
     rank for FCN) with check_train_step's bounds: both losses within 1e-3
-    relative, each parameter's first gradient within 5e-2 of its L2 norm,
-    the confusion matrices on >= 99.5 % of the labels. Then ms per step (4
-    steps, CUDA events) and the exchange's and the gradient all-reduce's
-    share of one profiled step. Two ranks on one card over gloo: not a
-    multi-GPU number."""
+    relative, each parameter's first gradient within 5e-2 of its L2 norm
+    (with ``f32_ref``, BatchNorm's SegNet, whose BN biases' gradients are
+    sums that nearly cancel, so that bf16's rounding moves them by their
+    own size between two cuDNN plans: each leaf's distance to the f32
+    single-process step's within 2x the bf16 single-process step's own
+    plus 2^-8/sqrt(numel), as check_segnet_train_step holds SegNet; a conv
+    bias that feeds a BatchNorm left out either way: ``bn_fed_biases``),
+    the confusion matrices on >= 99.5 % of the labels. With ``f32_ref`` a
+    negative control follows: the same two ranks with every BatchNorm's
+    statistics over the rank's own rows (the data-grid semantics, wrong on
+    a grid that splits rows) must fall outside those bounds. Then ms per
+    step (4 steps, CUDA events) and the exchange's and the gradient
+    all-reduce's share of one profiled step. Two ranks on one card over
+    gloo: not a multi-GPU number."""
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import bn_fed_biases
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
         make_preprocess_augment_fn,
     )
@@ -2528,56 +2664,53 @@ def check_grid(torch, tmp: str, smi: str, workload: str = "fcn8s_kitti") -> dict
 
     g = GRID[workload]
     dev = torch.device("cuda")
-    ref = _grid_state(torch, dev, workload)
-    job = os.path.join(tmp, f"grid_{workload}.pt")
-    torch.save({"workload": workload, "weights": ref.model.state_dict()}, job)
-    store = os.path.join(tmp, f"grid_store_{workload}")
-    outs = [os.path.join(tmp, f"grid_{workload}_rank{r}.pt") for r in range(2)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--grid-rank",
-                               str(r), "2", store, job, outs[r]]) for r in range(2)]
+    ref_state = _grid_state(torch, dev, workload)
+    weights = {k: v.clone() for k, v in ref_state.model.state_dict().items()}
+    fed = bn_fed_biases(ref_state.model)
+    procs, outs = _spawn_ranks(tmp, workload, weights)
     try:
         # the single-process reference runs while the ranks start
         batch = _grid_batch(torch, dev, workload)
         step = make_train_step(g["classes"],
                                augment_fn=make_preprocess_augment_fn(MEAN, STD, None))
-        ref_losses, ref_cms = [], []
+        ref = {"losses": [], "cms": []}
         for i in range(2):
-            o = step(ref, batch)
-            ref_losses.append(o["loss"].item())
-            ref_cms.append(o["cm"].cpu())
+            o = step(ref_state, batch)
+            ref["losses"].append(o["loss"].item())
+            ref["cms"].append(o["cm"].cpu())
             if i == 0:
-                ref_grads = {k: p.grad.float().cpu()
-                             for k, p in ref.model.named_parameters()}
-        single_ms = cuda_ms(lambda: step(ref, batch), iters=4, warmup=1)
-        del ref, batch
+                ref["grads"] = {k: p.grad.float().cpu()
+                                for k, p in ref_state.model.named_parameters()}
+        single_ms = cuda_ms(lambda: step(ref_state, batch), iters=4, warmup=1)
+        del ref_state
+        if g.get("f32_ref"):
+            from profile_train import plain_pools
+
+            f32 = _grid_state(torch, dev, workload, weights, dtype=torch.float32)
+            with plain_pools():     # the pool kernels take bf16
+                step(f32, batch)
+            ref["f32_grads"] = {k: p.grad.float().cpu()
+                                for k, p in f32.model.named_parameters()}
+            del f32
+        del batch
         torch.cuda.empty_cache()
-        for p in procs:
-            if p.wait(timeout=600) != 0:
-                raise AssertionError(f"grid rank exited with {p.returncode}")
+        _wait_ranks(procs)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    ranks = [torch.load(o) for o in outs]
-    grads = torch.load(outs[0] + ".grads")
-    worst, worst_name = 0.0, ""
-    for k, gr in ref_grads.items():
-        rel = ((grads[k] - gr).norm() / gr.norm().clamp(min=1e-30)).item()
-        if rel > worst:
-            worst, worst_name = rel, k
-    agree = min(1 - (a - b).abs().sum().item() / (2 * b.sum().item())
-                for a, b in zip(ranks[0]["cms"], ref_cms))
-    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], ref_losses))
-    same = ranks[0]["losses"] == ranks[1]["losses"]
+        _kill_ranks(procs)
+    got = _grid_numbers(torch, g, outs, ref, fed)
+    ranks, worst, agree, rel_loss = got["ranks"], got["worst"], got["agree"], got["rel_loss"]
+    gbound, gwhat = ((1.0, "distance to f32 over its bound") if g.get("f32_ref")
+                     else (5e-2, "|dg|/|g|"))
     r0 = ranks[0]
     n, (h, w) = g["n"], g["hw"]
     share = {k: v / r0["profiled_wall_ms"] for k, v in r0["spans_ms"].items()}
     log(f"grid data1 x spatial2 (2 gloo ranks sharing cuda:0), {workload}, {n} x "
         f"{h}x{w}, rows {[r['rows'] for r in ranks]}: losses {r0['losses']} vs "
-        f"single-process {ref_losses} (max rel {rel_loss:.3g}, bound 1e-3); worst first "
-        f"gradient |dg|/|g| {worst:.4g} ({worst_name}, bound 5e-2); labels agree >= "
-        f"{100 * agree:.4f} % (bound 99.5 %); both ranks' losses equal: {same}; "
-        f"launches on rank 0 {dict(zip(g['kernels'], r0['launches']))}")
+        f"single-process {ref['losses']} (max rel {rel_loss:.3g}, bound 1e-3); worst "
+        f"first gradient {gwhat} {worst:.4g} ({got['worst_name']}, bound {gbound:g}); "
+        f"labels agree >= {100 * agree:.4f} % (bound 99.5 %); both ranks' losses "
+        f"equal: {got['same']}; launches on rank 0 "
+        f"{dict(zip(g['kernels'], r0['launches']))}")
     log(f"grid step {workload}: {r0['ms']:.2f} ms/step, {n / r0['ms'] * 1e3:.2f} "
         f"images/s (two ranks sharing one GPU over gloo, not a multi-GPU number; the "
         f"single-process step of the same model {single_ms:.2f} ms); one profiled "
@@ -2586,15 +2719,39 @@ def check_grid(torch, tmp: str, smi: str, workload: str = "fcn8s_kitti") -> dict
         f", gradient all-reduce {r0['spans_ms']['grid_all_reduce']:.2f} ms "
         f"({100 * share['grid_all_reduce']:.1f} %); peak memory per rank "
         f"{r0['peak_gib']:.2f} GiB | {smi}")
-    if not (rel_loss <= 1e-3 and worst <= 5e-2 and agree >= 0.995 and same
+    if not (rel_loss <= 1e-3 and worst <= gbound and agree >= 0.995 and got["same"]
             and all(r0["launches"])
             and sum(r["rows"] for r in ranks) == h):
         raise AssertionError(f"the {workload} grid step is outside the bounds")
-    return {"grid_ms": r0["ms"], "grid_images_per_s": n / r0["ms"] * 1e3,
-            "grid_single_ms": single_ms, "grid_exchange_share": share["halo_exchange"],
-            "grid_all_reduce_share": share["grid_all_reduce"],
-            "grid_rows": [r["rows"] for r in ranks],
-            "grid_launches": list(r0["launches"])}
+    res = {"grid_ms": r0["ms"], "grid_images_per_s": n / r0["ms"] * 1e3,
+           "grid_single_ms": single_ms, "grid_exchange_share": share["halo_exchange"],
+           "grid_all_reduce_share": share["grid_all_reduce"],
+           "grid_rows": [r["rows"] for r in ranks],
+           "grid_launches": list(r0["launches"]),
+           "grid_loss_rel": rel_loss, "grid_worst": worst, "grid_agree": agree}
+    if g.get("f32_ref"):
+        procs, outs = _spawn_ranks(tmp, workload, weights, control=True)
+        try:
+            _wait_ranks(procs)
+        finally:
+            _kill_ranks(procs)
+        bad = _grid_numbers(torch, g, outs, ref, fed)
+        caught = [name for name, v, b in (("loss", bad["rel_loss"], 1e-3),
+                                          ("gradient", bad["worst"], gbound))
+                  if v > b] + (["labels"] if bad["agree"] < 0.995 else [])
+        log(f"grid {workload} negative control (each rank's BatchNorm statistics "
+            f"over its own rows): losses {bad['ranks'][0]['losses']}, max rel "
+            f"{bad['rel_loss']:.3g} (bound 1e-3); worst first gradient {gwhat} "
+            f"{bad['worst']:.4g} ({bad['worst_name']}, bound {gbound:g}); labels "
+            f"agree >= {100 * bad['agree']:.4f} % (bound 99.5 %); outside the bounds: "
+            f"{caught or 'none'}")
+        if not caught:
+            raise AssertionError(f"the {workload} grid check passes a grid whose "
+                                 "BatchNorm takes each rank's own statistics")
+        res.update(control_loss_rel=bad["rel_loss"], control_worst=bad["worst"],
+                   control_worst_name=bad["worst_name"], control_agree=bad["agree"],
+                   control_caught=caught)
+    return res
 
 
 def time_train(torch, smi: str, workload: str) -> dict:
@@ -3089,6 +3246,375 @@ def unet_phase(torch, smi: str, drive, gen) -> tuple[list[dict], dict]:
     return runs, res
 
 
+# --- BatchNorm (use_bn) at full width: segnet_kitti as published ------------
+
+BN_PRESET, BN_KW = "segnet_kitti", "use_bn=True"
+TTA_SCALES = "0.75,1.0,1.25"
+
+
+def check_bn_train_step(torch) -> dict:
+    """One segnet_kitti train step with ``use_bn`` (BatchNorm after every
+    conv, no fused stage1: the argmax pool and unpool kernels and the
+    preprocess kernel) against the same step on plain PyTorch (the pools'
+    and the preprocess kernel's plain versions), same weights, same batch of
+    8 road scenes at 384x1248 cropped to 320x1152, bf16 on the card:
+    hold_train_steps's bounds (the conv biases that feed a BatchNorm left
+    out: ``bn_fed_biases``), and every BatchNorm's running statistics
+    after the step within 1e-3 of their L2 norm (the kernels are
+    bit-equal to their plain versions; cuDNN's choices may differ between
+    two builds' convs). Returns the worst statistics' distance."""
+    from functools import partial
+
+    import numpy as np
+
+    from profile_train import plain_pools
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn, preprocess_normalize_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW) for _ in range(8)))
+    batch = {"image": torch.from_numpy(np.stack(imgs)).to(dev),
+             "label": torch.from_numpy(np.stack(lbls)).to(dev)}
+    crop = (320, 1152)
+    weights = init_params(build_model("segnet", 2, device=dev, use_bn=True),
+                          torch.Generator(device=dev).manual_seed(7)).state_dict()
+
+    def run(augment):
+        model = build_model("segnet", 2, device=dev, use_bn=True)
+        model.load_state_dict(weights)
+        state = create_train_state(model, make_optimizer("adam", model.parameters(),
+                                                         1e-4),
+                                   make_lr_schedule(1e-4), seed=0)
+        return state, make_train_step(2, augment_fn=augment)(state, batch)
+
+    kern, out_k = run(make_preprocess_augment_fn(MEAN, STD, crop))
+    with plain_pools():
+        plain, out_p = run(Augment(partial(preprocess_normalize_plain, crop_hw=crop,
+                                           mean=MEAN, std=STD), crop, True))
+    hold_train_steps("segnet_kitti use_bn (batch 8)", kern, out_k, plain, out_p)
+    bk, bp = dict(kern.model.named_buffers()), dict(plain.model.named_buffers())
+    worst = max(((bk[k] - b).norm() / b.norm().clamp(min=1e-30)).item()
+                for k, b in bp.items())
+    moved = max((b - weights[k]).abs().max().item() for k, b in bk.items())
+    log(f"segnet use_bn step: running statistics kernels vs plain, worst |ds|/|s| "
+        f"{worst:.3g} (bound 1e-3), {len(bk)} buffers; the step moved them by up "
+        f"to {moved:.3g} (momentum 0.99)")
+    if not (worst <= 1e-3 and moved > 0):
+        raise AssertionError("segnet use_bn: running statistics outside the bound")
+    return {"stats_rel": worst}
+
+
+def drive_bn_training(torch, tmp: str) -> dict:
+    """segnet_kitti with ``use_bn`` through the user's entry points:
+    train.py (3 steps of 8, --pallas-preprocess, --resume, infer_image on
+    the checkpoint), then infer_image, serve (/segment, /labels) and the
+    Predictor from that checkpoint (its running statistics), then
+    ``eval.py --tta --tta-scales 0.75,1.0,1.25 --road-metrics`` on it."""
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+
+    r = drive_training(torch, tmp, BN_PRESET, BN_KW)
+    ck = r["ckpt"]
+    serve_tmp = os.path.join(tmp, "serve")
+    os.makedirs(serve_tmp)
+    r["serve"] = drive_slice(torch, serve_tmp, BN_PRESET, BN_KW,
+                             extra=("--checkpoint-dir", ck))
+    text = run_cli(eval_cli.main, ["--preset", BN_PRESET, "--model-kw", BN_KW,
+                                   "--data-dir", r["data"], "--checkpoint-dir", ck,
+                                   "--device", "cuda", "--road-metrics", "--tta",
+                                   "--tta-scales", TTA_SCALES])
+    if "TTA eval: scales=[0.75, 1.0, 1.25] flip=True" not in text:
+        raise AssertionError(f"eval --tta printed no TTA line: {text!r}")
+    r["tta_eval"] = parse_eval(text)
+    return r
+
+
+def bn_phase(torch, smi: str, drive) -> tuple[list[dict], dict]:
+    """BatchNorm at full width on segnet_kitti (SegNet as published): the
+    train step with the kernels against plain PyTorch (check_bn_train_step);
+    train.main to a checkpoint, the Predictor and /segment from it, and
+    eval.py --tta on it (drive_bn_training); the 2-rank gloo --spatial 2
+    step on this card against one process (BatchNorm's statistics over both
+    ranks' rows, 192 + 160 of 352); the preset step timed. Returns each
+    path's launches and the phase's numbers."""
+    from profile_train import show_idle
+
+    t_phase = time.perf_counter()
+    runs, res = [], {}
+    res["step"] = check_bn_train_step(torch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, launches = drive("segnet_kitti use_bn training, serving and TTA eval",
+                             drive_bn_training, torch, tmp)
+        runs.append(launches)
+        missing = [k for k in ("pool_argmax", "unpool", "unpool_bwd",
+                               "preprocess_normalize", "overlay") if not launches[k]]
+        if missing or launches["stage1_tail_segnet"]:
+            raise AssertionError(f"segnet use_bn path: launches {launches}")
+        res["train"] = {k: v for k, v in tr.items() if k not in ("data", "ckpt")}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res["grid"] = check_grid(torch, tmp, smi, "segnet_kitti_bn")
+    torch.cuda.empty_cache()
+    res["steps"] = time_train(torch, smi, "segnet_bn")
+    st, sv = res["steps"], res["train"]["serve"]
+    log(f"segnet_kitti use_bn: preset step (batch 8, 320x1152) "
+        f"{st['images_per_s']:.2f} images/s, {st['host_ms']:.2f} ms/step host, device "
+        f"{st['device_ms']:.2f} ms, idle share {show_idle(st['idle_share'])}, peak "
+        f"{st['peak_gib']:.2f} GiB; Predictor {sv['predictor_overlay_ms']:.3f} "
+        f"ms/image host (device {sv['predictor_overlay_device_ms']:.3f}); /segment "
+        f"{sv['segment_ms']:.2f} ms; TTA eval (6 variants) "
+        f"{res['train']['tta_eval']['img_per_s']:.2f} img/s; grid "
+        f"{res['grid']['grid_ms']:.2f} ms/step | {smi}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"BN phase: {res['phase_s']:.1f} s")
+    log("bn timings: " + json.dumps(res))
+    return runs, res
+
+
+# --- test-time augmentation and tiled native-resolution inference ----------
+
+def drive_tiled(torch, tmp: str, preset: str, hw: tuple[int, int],
+                grid: tuple[int, int]) -> dict:
+    """``infer_image --tiled`` at ``preset`` (random weights) on a generated
+    image of ``hw``: the JAX CLI's ``tiled:`` line with ``grid`` tiles of the
+    preset's size rounded to the stride, an overlay of ``hw``; then the
+    TiledPredictor's steady state on that image (host clock, and the device
+    time of one call). Kernel 2 is held against its plain version on the
+    path's own summed probabilities: exact labels and bytes (a comparison
+    launch, taken out of the path's count)."""
+    import re
+
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+    from semanticsegmentation_tensorflow_tpu_torch.data.palette import overlay_palette
+    from semanticsegmentation_tensorflow_tpu_torch.infer import TiledPredictor
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+        build_model, padded_input_hw,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
+        argmax_colormap_overlay_cuda, argmax_colormap_overlay_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import infer_image
+
+    cfg = get_preset(preset)
+    dc = cfg.data
+    png, out = os.path.join(tmp, f"{preset}_big.png"), os.path.join(tmp, "tiled.png")
+    write_png(png, seed=3, hw=hw)
+    t0 = time.perf_counter()
+    text = run_cli(infer_image.main, ["--preset", preset, "--image", png, "--out",
+                                      out, "--device", "cuda", "--tiled"])
+    wall = time.perf_counter() - t0
+    model = build_model(cfg.model, dc.num_classes, device="cuda", **cfg.model_kwargs)
+    tile = padded_input_hw(model, dc.image_size)
+    want = f"tiled: input {hw[0]}x{hw[1]}, grid {grid[0]}x{grid[1]} tiles of " \
+           f"{tile[0]}x{tile[1]}"
+    ov = np.asarray(Image.open(out))
+    if not re.search("^" + re.escape(want) + "$", text, re.M) or ov.shape != (*hw, 3):
+        raise AssertionError(f"infer_image --tiled {preset}: {text!r}, {ov.shape}")
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    tp = TiledPredictor(model, dc.image_size, device="cuda", mean=dc.mean, std=dc.std,
+                        overlay_palette=overlay_palette(dc.dataset))
+    img = np.asarray(Image.open(png).convert("RGB"))
+    tp(img)
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tp(img)
+        ts.append((time.perf_counter() - t0) * 1e3)
+    dev, ops = device_ms(lambda: tp(img), iters=5)
+    x = torch.from_numpy(img.copy()).to("cuda")
+    acc = tp.summed_probs(x)
+    launched = argmax_colormap_overlay_cuda.launches
+    ov_k, lab_k = argmax_colormap_overlay_cuda(x[None].contiguous(), acc, tp._palette,
+                                               tp._alpha)
+    argmax_colormap_overlay_cuda.launches = launched
+    ov_p, lab_p = argmax_colormap_overlay_plain(x[None], acc[:, :hw[0], :hw[1]],
+                                                tp._palette, tp._alpha)
+    torch.cuda.synchronize()
+    what = f"overlay C={acc.shape[-1]} [1,{hw[0]},{hw[1]}] on the tiled path's summed " \
+           f"probabilities {list(acc.shape)}"
+    if not torch.equal(lab_k, lab_p):
+        raise AssertionError(f"{what}: labels differ at {int((lab_k != lab_p).sum())} "
+                             "pixels")
+    if not torch.equal(ov_k, ov_p):
+        raise AssertionError(f"{what}: bytes differ (max "
+                             f"{(ov_k.int() - ov_p.int()).abs().max().item()})")
+    log(f"{what}: labels and bytes exact against the plain version")
+    r = {"cli_s": wall, "tiled_ms": float(np.median(ts)), "tiled_device_ms": dev}
+    log(f"infer_image --tiled {preset}: {want}; CLI {wall:.2f} s (model build "
+        f"included); TiledPredictor {r['tiled_ms']:.2f} ms/image (host clock, median "
+        f"of 5), device {dev:.2f} ms in {ops} ops")
+    return r
+
+
+def drive_tta_eval(torch, tmp: str) -> dict:
+    """``eval.py --tta --tta-scales 0.75,1.0,1.25 --road-metrics`` at
+    fcn8s_kitti (full width, seeded weights saved as a step-0 checkpoint) on
+    8 generated images."""
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+
+    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=8,
+                                    n_test=1, h=IMAGE_HW[0], w=IMAGE_HW[1], seed=5)
+    ck = tta_checkpoint(torch, tmp)
+    text = run_cli(eval_cli.main, ["--data-dir", data, "--checkpoint-dir", ck,
+                                   "--device", "cuda", "--road-metrics", "--tta",
+                                   "--tta-scales", TTA_SCALES])
+    if "TTA eval: scales=[0.75, 1.0, 1.25] flip=True" not in text:
+        raise AssertionError(f"eval --tta printed no TTA line: {text!r}")
+    return {"eval": parse_eval(text), "data": data, "ckpt": ck}
+
+
+def tta_checkpoint(torch, tmp: str) -> str:
+    """A port checkpoint (step 0) of fcn8s_kitti at seeded random weights."""
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer,
+    )
+
+    cfg = get_preset("fcn8s_kitti")
+    model = init_params(build_model(cfg.model, 2, device="cuda", **cfg.model_kwargs),
+                        torch.Generator(device="cuda").manual_seed(9))
+    state = create_train_state(model, make_optimizer("adam", model.parameters(), 1e-4),
+                               make_lr_schedule(1e-4), seed=0)
+    ck = os.path.join(tmp, "ckpt_tta")
+    CheckpointManager(ck).save(state)
+    return ck
+
+
+def check_tta_and_tiles(torch, data: str, ck: str) -> dict:
+    """On the card at fcn8s_kitti (the checkpoint's weights): the TTA eval
+    step at ``scales=(1.0,)`` without flip against ``make_eval_step`` on two
+    batches of 4 (the same road histogram and pixel count, the loss within
+    1e-6 relative, the same predictions wherever the two logits differ by
+    more than 1e-6), and the TiledPredictor on a 375x1242 image (one
+    384x1248 tile, a 1x1 grid) against the Predictor's labels there too.
+    Below that margin the two softmax probabilities of a pixel can round to
+    one value (exp of a difference under 2^-24 is 1.0 in f32), and the
+    first-max argmax of a tie says class 0 where the logits say 1; random
+    weights give logits of ~1e-2, where such near-ties are common."""
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+    from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import normalize_images
+    from semanticsegmentation_tensorflow_tpu_torch.data.pipeline import BatchLoader
+    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor, TiledPredictor
+    from semanticsegmentation_tensorflow_tpu_torch.infer.tta import make_tta_eval_step
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import load_weights
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_eval_step
+
+    cfg = get_preset("fcn8s_kitti")
+    dc = cfg.data
+    dev = torch.device("cuda")
+
+    def model():
+        m = build_model(cfg.model, 2, device=dev, **cfg.model_kwargs)
+        m.load_state_dict(load_weights(ck, map_location=dev))
+        return m.eval()
+
+    m = model()
+    ds = build_dataset(dc.dataset, data, dc.image_size, split="train")
+    loader = BatchLoader(ds, 4, pad_multiple=32, device=dev, drop_remainder=False)
+    tta = make_tta_eval_step(2, scales=(1.0,), flip=False, road_hist=True)
+    plain = make_eval_step(2, road_hist=True)
+    worst, ties, pixels = 0.0, 0, 0
+    for b in loader.epoch():
+        b = dict(b, image=normalize_images(b["image"], dc.mean, dc.std))
+        got, want = tta(m, b), plain(m, b)
+        with torch.no_grad():
+            lg = m(b["image"]).float()
+        decided = (lg[..., 1] - lg[..., 0]).abs() > 1e-6
+        ties += int((~decided).sum())
+        pixels += decided.numel()
+        if not (torch.equal(got["pred"][decided], want["pred"][decided])
+                and torch.equal(got["road_hist"], want["road_hist"])
+                and got["cm"].sum() == want["cm"].sum()):
+            raise AssertionError("TTA at scale 1.0 without flip differs from the "
+                                 "eval step")
+        worst = max(worst, abs(got["loss"].item() - want["loss"].item())
+                    / abs(want["loss"].item()))
+    if worst > 1e-6:
+        raise AssertionError(f"TTA at scale 1.0: loss rel {worst:.3g} > 1e-6")
+    img = kitti_like(seed=8)
+    pred = Predictor(model(), dc.image_size, device=dev)
+    logits = pred._padded_logits(torch.from_numpy(img[None]).to(dev))[0].float().cpu()
+    _, want = pred(img)
+    tp = TiledPredictor(model(), dc.image_size, device=dev)
+    _, got = tp(img)
+    lg = logits.numpy()[:img.shape[0], :img.shape[1]]
+    decided = np.abs(lg[..., 1] - lg[..., 0]) > 1e-6
+    same = int((got == want)[decided].sum())
+    log(f"TTA eval step at scale 1.0, no flip, vs the eval step: road histogram "
+        f"equal, predictions equal on the {pixels - ties} of {pixels} pixels whose "
+        f"logits differ by more than 1e-6, loss rel {worst:.3g} (bound 1e-6); tiled "
+        f"grid {tp.grid} vs the Predictor: {same} of {int(decided.sum())} such labels "
+        f"equal ({img.shape[0] * img.shape[1] - int(decided.sum())} pixels within "
+        "1e-6 of a tie)")
+    if tp.grid != (1, 1) or same != int(decided.sum()):
+        raise AssertionError("the 1x1 tiled grid differs from the Predictor")
+    return {"tta_identity_loss_rel": worst, "tta_identity_ties": ties,
+            "tiled_vs_predictor_ties": int(img.shape[0] * img.shape[1] - decided.sum())}
+
+
+def tta_tiled_phase(torch, smi: str, drive) -> tuple[list[dict], dict]:
+    """Tiled native-resolution inference and test-time augmentation through
+    the user's entry points, each path run by ``drive``: ``infer_image
+    --tiled`` on a 1024x2048 Cityscapes frame at unet_cityscapes (3x3 tiles
+    of 512x1024; kernel 2 at [1,1024,2048] C=19) and on a 750x2484 image at
+    fcn8s_kitti (3x3 tiles of 384x1248); ``eval.py --tta`` at fcn8s_kitti
+    (kernel 1 on every variant); then check_tta_and_tiles on the card."""
+    t_phase = time.perf_counter()
+    runs, res = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for preset, hw in (("unet_cityscapes", (1024, 2048)), ("fcn8s_kitti", (750, 2484))):
+            res[f"tiled_{preset}"], launches = drive(
+                f"{preset} infer_image --tiled", drive_tiled, torch, tmp, preset, hw,
+                (3, 3))
+            runs.append(launches)
+            if not launches["overlay"]:
+                raise AssertionError(f"overlay not launched on the tiled path: {launches}")
+            torch.cuda.empty_cache()
+        tta, launches = drive("fcn8s_kitti eval --tta", drive_tta_eval, torch, tmp)
+        runs.append(launches)
+        if not launches["stage1_tail"]:
+            raise AssertionError(f"stage1_tail not launched on the TTA path: {launches}")
+        res["tta_eval"] = tta["eval"]
+        res["checks"] = check_tta_and_tiles(torch, tta["data"], tta["ckpt"])
+    torch.cuda.empty_cache()
+    u, f = res["tiled_unet_cityscapes"], res["tiled_fcn8s_kitti"]
+    log(f"tiled: unet_cityscapes 1024x2048 (3x3 tiles) {u['tiled_ms']:.2f} ms/image "
+        f"(device {u['tiled_device_ms']:.2f}), fcn8s_kitti 750x2484 (3x3 tiles) "
+        f"{f['tiled_ms']:.2f} ms/image (device {f['tiled_device_ms']:.2f}); TTA eval "
+        f"fcn8s_kitti (6 variants) {res['tta_eval']['img_per_s']:.2f} img/s | {smi}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"TTA and tiled phase: {res['phase_s']:.1f} s")
+    log("tta/tiled timings: " + json.dumps(res))
+    return runs, res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--grid-rank"]:     # a rank of check_grid's phase
         rank, world, store, job, out = sys.argv[2:7]
@@ -3332,6 +3858,8 @@ def main() -> int:
 
     dl_runs = deeplab_phase(torch, smi, drive)
     unet_runs, unet = unet_phase(torch, smi, drive, gen)
+    bn_runs, bn = bn_phase(torch, smi, drive)
+    tta_runs, _ = tta_tiled_phase(torch, smi, drive)
 
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, sweep_launches,
@@ -3340,7 +3868,7 @@ def main() -> int:
                                         seg_infer_launches, seg_train_launches,
                                         w_infer_launches, w_train_launches,
                                         w_seg_launches, *spatial_runs, *dl_runs,
-                                        *unet_runs)
+                                        *unet_runs, *bn_runs, *tta_runs)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3375,7 +3903,8 @@ def main() -> int:
         dict(name="argmax_pool_unpool", route="cuda",
              source=f"{PKG}/csrc/pool.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/pool.py:44",
-             launches=total("pool_argmax", "unpool", "unpool_bwd"), **pool),
+             launches=total("pool_argmax", "unpool", "unpool_bwd")
+             + sum(bn["grid"]["grid_launches"]), **pool),
         dict(name="winograd", route="cuda",
              source=f"{PKG}/csrc/winograd.cu",
              replaces="semanticsegmentation_tensorflow_tpu/ops/pallas/winograd.py:146 "

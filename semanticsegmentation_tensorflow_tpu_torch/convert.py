@@ -3,7 +3,9 @@
 
 flax params are a tree keyed like ``vgg16/stage1/conv0/kernel``; the port
 names its modules the same way, so the state-dict key is the flax path with
-``.`` for ``/`` and ``weight`` for ``kernel``. Layouts:
+``.`` for ``/`` and ``weight`` for ``kernel``. A BatchNorm's flax
+``scale`` and ``bias`` (params) and ``mean`` and ``var`` (``batch_stats``)
+are the port's parameters and buffers of the same names. Layouts:
 
 * conv kernels: flax HWIO -> PyTorch OIHW;
 * transposed-conv kernels: flax [kh, kw, Cin, Cout], which flax applies
@@ -28,16 +30,31 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import (
 )
 
 
+# the flax collections a model's variables may hold; their leaves share one
+# flat namespace (a BatchNorm's params are scale/bias, its stats mean/var)
+COLLECTIONS = ("params", "batch_stats")
+_STATS_LEAVES = ("mean", "var")
+
+
 def flatten_params(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
     """Nested flax param dict -> flat {"a/b/kernel": np.ndarray}. A
-    top-level ``{"params": ...}`` wrapper is unwrapped."""
-    if not prefix and set(tree) == {"params"}:
-        tree = tree["params"]
+    top-level variables dict (``{"params": ...}``, with ``"batch_stats"``
+    for a BatchNorm model) is unwrapped, both collections into one flat
+    dict."""
+    if not prefix and "params" in tree and set(tree) <= set(COLLECTIONS):
+        flat = {}
+        for col in COLLECTIONS:
+            flat.update(_flatten(tree.get(col, {}), ""))
+        return flat
+    return _flatten(tree, prefix)
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str) -> dict[str, np.ndarray]:
     flat: dict[str, np.ndarray] = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
         if isinstance(v, Mapping):
-            flat.update(flatten_params(v, key + "/"))
+            flat.update(_flatten(v, key + "/"))
         else:
             flat[key] = np.asarray(v)
     return flat
@@ -53,6 +70,19 @@ def unflatten_params(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = v
     return tree
+
+
+def to_variables(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
+    """Flat leaves (:func:`flatten_params`, :func:`from_state_dict`) -> a
+    flax variables dict: ``{"params": ...}``, plus ``"batch_stats"`` (the
+    ``mean`` and ``var`` leaves) when the model has BatchNorm."""
+    stats = {k: v for k, v in flat.items()
+             if k.rsplit("/", 1)[-1] in _STATS_LEAVES}
+    out = {"params": unflatten_params({k: v for k, v in flat.items()
+                                       if k not in stats})}
+    if stats:
+        out["batch_stats"] = unflatten_params(stats)
+    return out
 
 
 def torch_key(flax_key: str) -> str:
@@ -120,8 +150,11 @@ def to_state_dict(flat: Mapping[str, np.ndarray], model: nn.Module, *,
 def from_state_dict(state_dict: Mapping[str, torch.Tensor],
                     model: nn.Module) -> dict[str, np.ndarray]:
     """A port ``state_dict`` -> flat flax params (float32 numpy), the
-    inverse of :func:`to_state_dict`."""
+    inverse of :func:`to_state_dict`. The arrays are copies: a later
+    in-place update of the model (an optimizer step, BatchNorm's running
+    statistics) leaves them as they were."""
     transposed = transposed_weights(model)
-    return {flax_key(tk): np.ascontiguousarray(flax_layout(
-                t.detach().to("cpu", torch.float32).numpy(), tk in transposed))
+    return {flax_key(tk): np.array(flax_layout(
+                t.detach().to("cpu", torch.float32).numpy(), tk in transposed),
+                order="C")
             for tk, t in state_dict.items()}

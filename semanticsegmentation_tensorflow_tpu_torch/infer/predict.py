@@ -36,6 +36,17 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.shape import (
 )
 
 
+def inference_form(model: nn.Module, device) -> nn.Module:
+    """``model`` on ``device`` in eval mode with its parameters cast once,
+    in place, to the compute dtype (``model.dtype``) and to channels_last
+    memory: the form every conv (and the stage1 kernel) would otherwise
+    convert them to on each call, so the same outputs without ~40 copy
+    kernels per image. BatchNorm keeps its f32 parameters and statistics
+    (``models.common.BatchNorm``), as flax does."""
+    return model.to(torch.device(device), getattr(model, "dtype", None),
+                    memory_format=torch.channels_last).eval()
+
+
 class Predictor:
     """Forward + overlay for a fixed image size on an explicit ``device``.
 
@@ -43,13 +54,12 @@ class Predictor:
     ``num_classes`` (and ``total_stride``, default 32; ``dtype``, its
     compute dtype).
 
-    The Predictor takes ownership of ``model``: it moves it to ``device``,
-    puts it in eval mode and casts its parameters once, in place, to the
-    compute dtype and to channels_last memory, the form every conv (and the
-    stage1 kernel) would otherwise convert them to on each call: the same
-    outputs, without ~40 copy kernels per image. The caller's module then
-    holds bf16 parameters, an inference-only form; to keep the f32 ones
-    (for training, or to save them), pass a copy."""
+    The Predictor takes ownership of ``model`` (:func:`inference_form`: on
+    ``device``, in eval mode, its parameters cast in place to the compute
+    dtype and channels_last). The caller's module then holds bf16
+    parameters, an inference-only form; to keep the f32 ones (for training,
+    or to save them), pass a copy. A BatchNorm model runs on its running
+    statistics."""
 
     def __init__(self, model: nn.Module, image_size: tuple[int, int], *,
                  device, mean: Sequence[float] = (123.68, 116.779, 103.939),
@@ -57,8 +67,7 @@ class Predictor:
                  overlay_palette: np.ndarray = KITTI_OVERLAY_PALETTE,
                  alpha: float = 0.5):
         self.device = torch.device(device)
-        self.model = model.to(self.device, getattr(model, "dtype", None),
-                              memory_format=torch.channels_last).eval()
+        self.model = inference_form(model, self.device)
         self.image_size = tuple(image_size)
         self._stride = getattr(model, "total_stride", 32)
         self._mean = torch.tensor(mean, dtype=torch.float32, device=self.device)

@@ -20,15 +20,11 @@ import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    Conv, conv_nhwc, upsample_bilinear,
+    BatchNorm, Conv, conv_nhwc, upsample_bilinear,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import VGG16
 from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import spatial_sum
 from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import spatial_grid
-
-_BN_UNPORTED = ("not ported yet: use_bn (BatchNorm; the port implements only "
-                "use_bn=False)")
-
 
 def image_mean(x: torch.Tensor) -> torch.Tensor:
     """[N,H,W,C] -> [N,1,1,C]: the mean over H and W summed in float32 and
@@ -85,17 +81,20 @@ class ASPP(nn.Module):
     (the mean over H and W, :func:`image_mean`, then 1x1),
     each followed by a relu, then ``project`` (:class:`_ASPPProject`) and a
     relu. Under a grid that splits rows the mean sums over the ranks.
-    ``use_bn`` raises: BatchNorm is not ported."""
+    ``use_bn``: a ``BatchNorm`` before each of those relus (``b0_bn``,
+    ``b_rate{r}_bn``, ``b_image_bn``, ``project_bn``; the JAX ``bn_relu``,
+    ``models/deeplab.py:95-117``); the image branch's takes its statistics
+    over the images at 1x1, each image once on a grid that splits rows
+    (``BatchNorm(whole_image=True)``)."""
 
     def __init__(self, in_features: int, features: int = 256,
                  rates: Sequence[int] = (6, 12, 18), *, use_bn: bool = False,
                  split_proj: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None):
         super().__init__()
-        if use_bn:
-            raise NotImplementedError(_BN_UNPORTED)
         kw = dict(dtype=dtype, device=device)
         self.rates = tuple(rates)
+        self.use_bn = use_bn
         self.b0 = Conv(in_features, features, 1, **kw)
         for r in self.rates:
             self.add_module(f"b_rate{r}", Conv(in_features, features, 3,
@@ -103,12 +102,23 @@ class ASPP(nn.Module):
         self.b_image = Conv(in_features, features, 1, **kw)
         self.project = _ASPPProject(features * (2 + len(self.rates)), features,
                                     split=split_proj, **kw)
+        if use_bn:
+            for name in ("b0", *(f"b_rate{r}" for r in self.rates), "b_image",
+                         "project"):
+                self.add_module(f"{name}_bn", BatchNorm(
+                    features, whole_image=name == "b_image", **kw))
+
+    def _bn_relu(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        if self.use_bn:
+            t = getattr(self, f"{name}_bn")(t)
+        return torch.relu(t)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        branches = [torch.relu(self.b0(x))]
-        branches += [torch.relu(getattr(self, f"b_rate{r}")(x)) for r in self.rates]
-        img = torch.relu(self.b_image(image_mean(x)))
-        return torch.relu(self.project(branches, img))
+        branches = [self._bn_relu(self.b0(x), "b0")]
+        branches += [self._bn_relu(getattr(self, f"b_rate{r}")(x), f"b_rate{r}")
+                     for r in self.rates]
+        img = self._bn_relu(self.b_image(image_mean(x)), "b_image")
+        return self._bn_relu(self.project(branches, img), "project")
 
 
 class DeepLabASPP(nn.Module):
@@ -119,7 +129,7 @@ class DeepLabASPP(nn.Module):
     (``packed_stage1``, ``pallas_pool``, ``pallas_spmd``,
     ``deferred_pool_bias``) and ``winograd`` go to :class:`VGG16` as for
     FCN; ``aspp_split_proj`` selects the concat-free projection. ``use_bn``
-    raises (BatchNorm is not ported)."""
+    puts BatchNorm in the backbone's stages and in the ASPP head."""
 
     def __init__(self, num_classes: int = 2, aspp_features: int = 256,
                  rates: Sequence[int] = (6, 12, 18), width_mult: float = 1.0, *,
@@ -132,19 +142,18 @@ class DeepLabASPP(nn.Module):
         super().__init__()
         if output_stride not in (8, 16):
             raise ValueError(f"output_stride must be 8 or 16, got {output_stride}")
-        if use_bn:
-            raise NotImplementedError(_BN_UNPORTED)
         self.num_classes = num_classes
         self.output_stride = output_stride
         self.dtype = dtype
         self.vgg16 = VGG16(512, width_mult, dilated_last_stages=True,
                            dilate_from={8: 4, 16: 5}[output_stride],
                            dropout_rate=dropout_rate, winograd=winograd,
+                           use_bn=use_bn,
                            deferred_pool_bias=deferred_pool_bias,
                            packed_stage1=packed_stage1, pallas_pool=pallas_pool,
                            pallas_spmd=pallas_spmd, dtype=dtype, device=device)
-        self.aspp = ASPP(512, aspp_features, rates, split_proj=aspp_split_proj,
-                         dtype=dtype, device=device)
+        self.aspp = ASPP(512, aspp_features, rates, use_bn=use_bn,
+                         split_proj=aspp_split_proj, dtype=dtype, device=device)
         self.head = Conv(aspp_features, num_classes, 1, dtype=dtype, device=device)
 
     @property

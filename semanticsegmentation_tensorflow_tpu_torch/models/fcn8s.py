@@ -14,7 +14,7 @@ import torch.nn as nn
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import (
-    VGG16, VGG16_STAGES, reject_unported,
+    VGG16, VGG16_STAGES,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import (
     ConvTranspose,
@@ -30,8 +30,8 @@ class FCN8s(nn.Module):
 
     ``fast_upsample`` is accepted for preset compatibility: on the TPU it
     chose between two implementations of the same function; the port has
-    one (``F.conv_transpose2d``). ``pallas_pool`` goes to :class:`VGG16`.
-    Flags the port does not implement raise.
+    one (``F.conv_transpose2d``). ``pallas_pool`` and ``use_bn``
+    (BatchNorm in the backbone's stages) go to :class:`VGG16`.
     """
 
     total_stride = 32

@@ -15,7 +15,7 @@ import torch.nn as nn
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, ConvBlock
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import (
-    VGG16_STAGES, reject_unported,
+    VGG16_STAGES,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import SegNetStage1
 from semanticsegmentation_tensorflow_tpu_torch.ops.pool import (
@@ -41,7 +41,10 @@ class SegNet(nn.Module):
     (enc2-enc5, dec5-dec1; ``models.common.winograd_impl`` picks the
     eligible layers), as in the JAX package; the parameters do not change.
     ``pallas_spmd`` goes to :class:`SegNetStage1` (its halo mode, kernel
-    1c). ``use_bn=True`` is not ported and raises.
+    1c). ``use_bn=True`` puts a ``BatchNorm`` after every encoder and
+    decoder conv (SegNet as published); ``enc1`` is then a ``ConvBlock``
+    and the argmax pool, as the JAX package leaves its packed enc1 under BN
+    (``models/segnet.py:78``); the argmax pool and unpool stay kernel 5.
     ``forward`` takes a ``generator`` for the train step's calling
     convention; SegNet has no dropout and draws nothing.
     """
@@ -55,13 +58,13 @@ class SegNet(nn.Module):
                  packed_dec2: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None):
         super().__init__()
-        reject_unported(use_bn=use_bn)
         self.num_classes = num_classes
         self.dtype = dtype
-        self.fused_stage1 = packed_stage1 and pallas_pool is not False
+        self.fused_stage1 = (packed_stage1 and pallas_pool is not False
+                             and not use_bn)
         feats = [max(8, int(f * width_mult)) for _, f in VGG16_STAGES]
         kw = dict(dtype=dtype, device=device)
-        wkw = dict(kw, winograd=winograd)
+        wkw = dict(kw, winograd=winograd, use_bn=use_bn)
         cin = 3
         for i, (n_convs, _) in enumerate(VGG16_STAGES, start=1):
             f = feats[i - 1]

@@ -28,14 +28,11 @@ from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, ConvBl
 from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import ConvTranspose
 from semanticsegmentation_tensorflow_tpu_torch.ops.pool import max_pool
 
-_BN_UNPORTED = ("not ported yet: use_bn (BatchNorm, ROADMAP queue 1 item 6; the "
-                "port implements only use_bn=False)")
-
-
 class UNet(nn.Module):
     """U-Net of ``depth`` stages from ``base_features`` channels (module
-    docstring); total stride ``2 ** depth``. ``use_bn`` raises (BatchNorm
-    is not ported)."""
+    docstring); total stride ``2 ** depth``. ``use_bn`` puts a
+    ``BatchNorm`` after every conv of every ``ConvBlock`` (``bn{j}`` beside
+    ``conv{j}``); the up-convs and the head have none."""
 
     def __init__(self, num_classes: int = 2, base_features: int = 64,
                  depth: int = 4, *, use_bn: bool = False,
@@ -43,8 +40,6 @@ class UNet(nn.Module):
                  fast_upconv: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None):
         super().__init__()
-        if use_bn:
-            raise NotImplementedError(_BN_UNPORTED)
         if packed_stage0 not in (True, False, "mixed"):
             raise ValueError(f"packed_stage0 must be True, False or 'mixed', "
                              f"got {packed_stage0!r}")
@@ -53,7 +48,7 @@ class UNet(nn.Module):
         self.num_classes = num_classes
         self.depth = depth
         self.dtype = dtype
-        kw = dict(winograd=winograd, dtype=dtype, device=device)
+        kw = dict(winograd=winograd, use_bn=use_bn, dtype=dtype, device=device)
         cin, feats = 3, base_features
         for i in range(depth):
             self.add_module(f"down{i}", ConvBlock(cin, feats, **kw))

@@ -34,23 +34,12 @@ VGG16_STAGES: tuple[tuple[int, int], ...] = (
 )
 
 
-def reject_unported(**flags) -> None:
-    """Raise on a JAX-package model flag the port does not implement,
-    rather than ignoring it. Each keyword is true when its flag was set
-    away from the port's only form."""
-    on = sorted(k for k, v in flags.items() if v)
-    if on:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(on)} (the port implements only "
-            "the default of each)")
-
-
 class ConvPoolBlock(ConvBlock):
-    """ConvBlock (conv + bias + relu for every conv) then a 2x2/2 max pool:
-    the JAX package's VGG16 stage with ``deferred_pool_bias=False``
-    (``models/vgg16.py:105-116``). Same parameters as
-    :class:`PooledConvBlock`, which computes the same function bit for bit
-    with the last bias and relu after the pool."""
+    """ConvBlock (conv + bias [+ BN] + relu for every conv) then a 2x2/2 max
+    pool: the JAX package's VGG16 stage with ``deferred_pool_bias=False`` or
+    ``use_bn`` (``models/vgg16.py:105-116``). Without BN it has the
+    parameters of :class:`PooledConvBlock`, which computes the same function
+    bit for bit with the last bias and relu after the pool."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return max_pool(super().forward(x), 2)
@@ -75,6 +64,13 @@ class VGG16(nn.Module):
     from the ``generator`` given to :meth:`forward`. ``pallas_spmd`` goes to
     :class:`Stage1` (its halo mode, kernel 1c).
 
+    ``use_bn``: BatchNorm after every conv of stages 1-5
+    (``models.common.BatchNorm``; conv, bias, BN, relu), each stage a
+    :class:`ConvPoolBlock` (or, dilated, a :class:`ConvBlock`): no fused
+    stage1 and no deferred pool bias, as the JAX package's
+    ``models/vgg16.py:97`` and ``:105`` leave them under BN. fc6 and fc7
+    have none.
+
     ``dilated_last_stages`` (DeepLab; the JAX package's
     ``models/vgg16.py:93-138``): stage ``dilate_from`` and every stage after
     it run as a :class:`ConvBlock` (bias and relu per conv, no pool) at the
@@ -93,23 +89,25 @@ class VGG16(nn.Module):
                  pallas_spmd: bool = False, pallas_pool: bool | None = None,
                  device=None):
         super().__init__()
-        reject_unported(use_bn=use_bn)
         cin = 3
         dilation = 1
         for i, (n_convs, feats) in enumerate(VGG16_STAGES, start=1):
             feats = max(8, int(feats * width_mult))
-            if i == 1 and packed_stage1 and pallas_pool is not False:
+            if i == 1 and packed_stage1 and pallas_pool is not False \
+                    and not use_bn:
                 block = Stage1(cin, feats, winograd=winograd,
                                pallas_spmd=pallas_spmd, dtype=dtype,
                                device=device)
             elif dilated_last_stages and i >= dilate_from:
                 block = ConvBlock(cin, feats, n_convs, dilation=dilation,
-                                  winograd=winograd, dtype=dtype, device=device)
+                                  winograd=winograd, use_bn=use_bn,
+                                  dtype=dtype, device=device)
                 dilation *= 2      # the stride folded into the dilation
             else:
-                kind = PooledConvBlock if deferred_pool_bias else ConvPoolBlock
+                kind = (PooledConvBlock if deferred_pool_bias and not use_bn
+                        else ConvPoolBlock)
                 block = kind(cin, feats, n_convs, winograd=winograd,
-                             dtype=dtype, device=device)
+                             use_bn=use_bn, dtype=dtype, device=device)
             self.add_module(f"stage{i}", block)
             cin = feats
         self.conv6 = Conv(cin, fc_features, 7, dilation=dilation, dtype=dtype,

@@ -11,10 +11,9 @@ import sys
 import torch
 
 # flags of the JAX package's serving CLIs that the port does not implement
-# yet (by their argparse names: --calib-dir is serve's, --tile-overlap
-# infer_image's); scripts/test.py has only --int8 and --mesh of them
-UNPORTED_FLAGS = ("int8", "tiled", "mesh", "artifact", "calib_dir",
-                  "tile_overlap")
+# yet (by their argparse names: --calib-dir is serve's); scripts/test.py has
+# only --int8 and --mesh of them
+UNPORTED_FLAGS = ("int8", "mesh", "artifact", "calib_dir")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -83,19 +82,15 @@ def load_checkpoint_weights(directory: str, use_ema: bool,
     return load_weights(directory, use_ema=use_ema, map_location=device)
 
 
-def build_predictor(args: argparse.Namespace, device: torch.device):
-    """Preset + ``--model-kw`` -> model on ``device`` with ``--weights`` or
-    ``--checkpoint-dir`` (or seeded random init, with a warning) ->
-    Predictor, painting with the preset dataset's palette (Cityscapes' 19
-    colours for ``unet_cityscapes``; the JAX CLIs pass KITTI's two-colour
-    palette whatever the model, which paints every class above 0 green)."""
+def build_served_model(args: argparse.Namespace, device: torch.device):
+    """Preset + ``--model-kw`` -> (model on ``device`` with ``--weights`` or
+    ``--checkpoint-dir``, or seeded random init with a warning; the preset's
+    DataConfig). A BatchNorm model's running statistics come with its
+    weights (a port checkpoint's EMA parameters are served beside the live
+    statistics)."""
     from semanticsegmentation_tensorflow_tpu_torch.config import (
         get_preset, parse_model_kw,
     )
-    from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
-        overlay_palette,
-    )
-    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
     from semanticsegmentation_tensorflow_tpu_torch.models.common import (
         init_params,
@@ -117,6 +112,20 @@ def build_predictor(args: argparse.Namespace, device: torch.device):
         print("warning: no --weights given; using seeded random weights",
               file=sys.stderr)
         init_params(model, torch.Generator(device=device).manual_seed(0))
+    return model, dc
+
+
+def build_predictor(args: argparse.Namespace, device: torch.device):
+    """:func:`build_served_model` -> Predictor, painting with the preset
+    dataset's palette (Cityscapes' 19 colours for ``unet_cityscapes``; the
+    JAX CLIs pass KITTI's two-colour palette whatever the model, which
+    paints every class above 0 green)."""
+    from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
+        overlay_palette,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
+
+    model, dc = build_served_model(args, device)
     return Predictor(model, dc.image_size, device=device, mean=dc.mean,
                      std=dc.std, overlay_palette=overlay_palette(dc.dataset),
                      alpha=args.alpha)

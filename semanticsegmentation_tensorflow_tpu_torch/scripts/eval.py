@@ -8,13 +8,18 @@ format).
         [--ema] [--road-metrics]
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.eval \
         --preset unet_cityscapes --data-dir cityscapes --checkpoint-dir ckpts
+    python -m semanticsegmentation_tensorflow_tpu_torch.scripts.eval \
+        --preset fcn8s_kitti --data-dir data_road --checkpoint-dir ckpts \
+        --tta --tta-scales 0.75,1.0,1.25
 
 Reads the port's training checkpoints (``<checkpoint-dir>/ckpt_<step>.pt``,
 the latest); an orbax checkpoint of the JAX package converts with
 ``tools/convert_checkpoint_to_torch.py``. ``--device`` defaults to cuda and
-raises without a card. The JAX CLI's test-time augmentation, int8 and
-multi-device flags parse with their defaults and raise
-``NotImplementedError`` when set away from them.
+raises without a card. ``--tta`` averages the flipped variant's
+probabilities with the plain one's, at each of ``--tta-scales`` (default
+1.0; ``infer/tta.py``). The JAX CLI's int8 and multi-device flags parse
+with their defaults and raise ``NotImplementedError`` when set away from
+them.
 """
 
 from __future__ import annotations
@@ -25,9 +30,7 @@ import time
 
 # the JAX CLI's flags that the port does not implement yet, with their
 # argparse settings there
-UNPORTED = (("--tta", dict(action="store_true")),
-            ("--tta-scales", dict(default=None)),
-            ("--int8", dict(action="store_true")),
+UNPORTED = (("--int8", dict(action="store_true")),
             ("--calib-batches", dict(type=int, default=4)),
             ("--mesh", dict(action="store_true")),
             ("--distributed", dict(action="store_true")),
@@ -57,6 +60,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="also report the KITTI road devkit measures (MaxF, "
                         "AP, precision, recall, FPR, FNR at the best "
                         "threshold; binary models only)")
+    p.add_argument("--tta", action="store_true",
+                   help="test-time augmentation: average the softmax of the "
+                        "image and its horizontal flip (at each of "
+                        "--tta-scales)")
+    p.add_argument("--tta-scales", default=None,
+                   help="comma-separated TTA scales, e.g. 0.75,1.0,1.25 "
+                        "(implies --tta; default 1.0)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda raises without a card")
     for flag, kw in UNPORTED:
@@ -119,7 +129,17 @@ def main(argv=None) -> int:
     if args.road_metrics and dc.num_classes != 2:
         print("note: --road-metrics needs a binary model; ignored")
         args.road_metrics = False
-    eval_step = make_eval_step(dc.num_classes, road_hist=args.road_metrics)
+    if args.tta or args.tta_scales:
+        from semanticsegmentation_tensorflow_tpu_torch.infer.tta import (
+            make_tta_eval_step,
+        )
+        scales = (tuple(float(s) for s in args.tta_scales.split(","))
+                  if args.tta_scales else (1.0,))
+        print(f"TTA eval: scales={list(scales)} flip=True")
+        eval_step = make_tta_eval_step(dc.num_classes, scales=scales, flip=True,
+                                       road_hist=args.road_metrics)
+    else:
+        eval_step = make_eval_step(dc.num_classes, road_hist=args.road_metrics)
 
     metrics = SegMetrics(dc.num_classes, device)
     road_hist = (torch.zeros((2, 256), dtype=torch.int64, device=device)

@@ -2,7 +2,11 @@
 
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.infer_image \
         --preset fcn8s_kitti --image um_000000.png --weights fcn8s.pt \
-        --out overlay.png
+        --out overlay.png [--tiled [--tile-overlap 96]]
+
+The image is resized to the preset's size, or with ``--tiled`` kept at its
+own size and covered by overlapped tiles of that size whose probabilities
+are summed where they overlap (``infer/window.py``).
 """
 
 from __future__ import annotations
@@ -15,21 +19,46 @@ import numpy as np
 
 def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
-        add_model_args, build_predictor, check_unported, resolve_device,
+        add_model_args, build_predictor, build_served_model, check_unported,
+        resolve_device,
     )
 
     p = argparse.ArgumentParser(description=__doc__)
     add_model_args(p)
     p.add_argument("--image", required=True)
     p.add_argument("--out", default="overlay.png")
+    p.add_argument("--tiled", action="store_true",
+                   help="native-resolution sliding-window inference: keep "
+                        "the input at its own size and tile it with "
+                        "overlapped windows of the training resolution "
+                        "(probability-summed seams) instead of resizing")
+    p.add_argument("--tile-overlap", type=int, default=None,
+                   help="overlap in px between tiles (default: tile/4)")
     args = p.parse_args(argv)
     check_unported(args)
     device = resolve_device(args.device)
 
     from PIL import Image
 
-    predictor = build_predictor(args, device)
-    overlay, labels = predictor.predict_file(args.image)
+    if args.tiled:
+        from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
+            overlay_palette,
+        )
+        from semanticsegmentation_tensorflow_tpu_torch.infer import TiledPredictor
+
+        model, dc = build_served_model(args, device)
+        predictor = TiledPredictor(model, dc.image_size, device=device,
+                                   overlap=args.tile_overlap, mean=dc.mean,
+                                   std=dc.std,
+                                   overlay_palette=overlay_palette(dc.dataset),
+                                   alpha=args.alpha)
+        img = np.asarray(Image.open(args.image).convert("RGB"))
+        overlay, labels = predictor(img)
+        print(f"tiled: input {img.shape[0]}x{img.shape[1]}, "
+              f"grid {predictor.grid[0]}x{predictor.grid[1]} tiles of "
+              f"{predictor.tile[0]}x{predictor.tile[1]}")
+    else:
+        overlay, labels = build_predictor(args, device).predict_file(args.image)
     Image.fromarray(overlay).save(args.out)
     road_frac = float(np.mean(labels != 0))
     print(f"wrote {args.out} (non-background fraction {road_frac:.3f})")

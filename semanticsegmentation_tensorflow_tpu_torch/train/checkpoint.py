@@ -4,9 +4,10 @@
 Each save writes ``<dir>/ckpt_<step>.pt`` with ``torch.save`` to a temporary
 file and renames it into place, so a crash leaves the previous checkpoints
 whole; the oldest beyond ``max_to_keep`` are deleted. A checkpoint holds the
-model parameters, the optimizer state, the step, both generator states and
-the EMA parameters when tracked: resuming continues the run bit for bit
-(given the same batches).
+model parameters and buffers (a BatchNorm model's running statistics, the
+JAX package's ``batch_stats``), the optimizer state, the step, both
+generator states and the EMA parameters when tracked: resuming continues
+the run bit for bit (given the same batches).
 """
 
 from __future__ import annotations
@@ -96,7 +97,9 @@ def load_weights(directory: str, use_ema: bool = False, map_location="cpu"
                  ) -> dict[str, torch.Tensor]:
     """The model ``state_dict`` of the latest port checkpoint in
     ``directory``, with the EMA parameters in place of the raw ones when
-    ``use_ema``. Raises FileNotFoundError when ``directory`` holds none."""
+    ``use_ema`` (a BatchNorm model's running statistics stay the live ones:
+    the EMA covers parameters only, as in the JAX package). Raises
+    FileNotFoundError when ``directory`` holds none."""
     steps = checkpoint_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no port checkpoint (ckpt_<step>.pt) in "

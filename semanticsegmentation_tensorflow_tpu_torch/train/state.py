@@ -163,7 +163,10 @@ class TrainState:
     ``train()`` mode), ``optimizer`` over its parameters, ``lr_fn`` (step ->
     rate), the optimizer ``step`` count, the augment and dropout generators
     (explicit ``torch.Generator``s; the dropout one on the model's device),
-    and the EMA copy of the parameters (empty when ``ema_decay`` is 0)."""
+    and the EMA copy of the parameters (empty when ``ema_decay`` is 0; the
+    parameters only: BatchNorm's running statistics are buffers, served
+    live beside the EMA parameters, as the JAX package's
+    ``train/state.py:37-48`` keeps ``batch_stats`` out of its EMA)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer

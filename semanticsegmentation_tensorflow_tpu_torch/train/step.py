@@ -19,8 +19,18 @@ step up to summation order and the update is the same on every rank.
 (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` with
 ``nothing_saveable``): the dropout generator's state is saved before the
 forward and put back for the recompute, so the recompute draws the same
-masks. The eval step (:func:`make_eval_step`) runs the forward in
-``eval()`` mode without gradients and draws from no generator.
+masks, and the recompute leaves BatchNorm's running statistics alone
+(``models.common.frozen_batch_stats``). The eval step
+(:func:`make_eval_step`) runs the forward in ``eval()`` mode without
+gradients and draws from no generator.
+
+BatchNorm (``use_bn``): each microbatch's forward in ``train()`` mode
+normalizes by its own statistics and updates the running ones in turn, as
+the JAX package threads ``batch_stats`` through its microbatch scan
+(``train/step.py:139-184``). On a data-only grid each rank does so on its
+images and the step ends with the running statistics averaged over the
+ranks (JAX's ``lax.pmean``, ``:275``); on a grid that splits rows the
+statistics are the world's already (``models.common.BatchNorm``).
 
 Batch contract (leading dim = batch): image [N,H,W,3] (uint8 with an
 augment function, or float32 already normalized), label [N,H,W] class ids,
@@ -37,6 +47,9 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from semanticsegmentation_tensorflow_tpu_torch.models.common import (
+    average_batch_stats, frozen_batch_stats,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import labels_from_logits
 from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import use_grid
 from semanticsegmentation_tensorflow_tpu_torch.train.loss import (
@@ -106,6 +119,8 @@ def make_train_step(num_classes: int, mesh=None,
         if mesh is not None and mesh.world > 1:
             ce_total, valid_total, cm = _all_reduce(model, ce_total, valid_total,
                                                     cm)
+            if mesh.spatial == 1:
+                average_batch_stats(model, mesh)
         denom = valid_total.clamp(min=1.0)
         with torch.no_grad():
             for p in model.parameters():
@@ -122,12 +137,14 @@ def make_train_step(num_classes: int, mesh=None,
 
 @contextlib.contextmanager
 def _replay(generator: torch.Generator, saved: torch.Tensor):
-    """Run the enclosed recompute from the generator state ``saved`` and
+    """Run the enclosed recompute from the generator state ``saved``, with
+    BatchNorm's running statistics left as the forward left them, and
     leave the generator where it was before."""
     now = generator.get_state()
     generator.set_state(saved)
     try:
-        yield
+        with frozen_batch_stats():
+            yield
     finally:
         generator.set_state(now)
 

@@ -97,8 +97,9 @@ def run_step(sc: dict) -> dict:
     """``steps`` train steps of a model on a ``data x spatial`` grid from the
     given weights and global batch (SGD; ``classes`` classes, default 2;
     with ``stride``, the rows split at it, unevenly where they must); the losses, the last confusion
-    matrix, a checksum of the parameters on every rank, and on rank 0 the
-    first step's gradients and the last parameters."""
+    matrix, checksums of the parameters and of the buffers (BatchNorm's
+    running statistics) on every rank, and on rank 0 the first step's
+    gradients and the last state_dict."""
     classes = sc.get("classes", 2)
     grid = make_grid(sc["data"], sc["spatial"])
     model = build_model(sc["model"], classes, device="cpu", dtype=torch.float32,
@@ -123,7 +124,8 @@ def run_step(sc: dict) -> dict:
             grads = {k: p.grad.clone() for k, p in model.named_parameters()}
     res = {"losses": losses, "cm": out["cm"],
            "checksum": sum(p.detach().double().sum().item()
-                           for p in model.parameters())}
+                           for p in model.parameters()),
+           "buffers": sum(b.double().sum().item() for b in model.buffers())}
     if dist.get_rank() == 0:
         res["grads"] = grads
         res["params"] = {k: v.clone() for k, v in model.state_dict().items()}

@@ -441,8 +441,19 @@ def test_bf16_forward_spread(os_):
                                     ({"output_stride": 32}, ValueError),
                                     ({"output_stride": 4}, ValueError)])
 def test_unported_and_bad_flags_raise(kw, err):
-    with pytest.raises(err, match="use_bn" if err is NotImplementedError
-                       else "output_stride"):
+    """A bad ``output_stride`` raises naming it. ``use_bn``, which raised
+    (naming itself) until BatchNorm was ported, now builds: BN in the
+    backbone's stages and the ASPP head (``b0_bn``, ``b_rate{r}_bn``,
+    ``b_image_bn``, ``project_bn``), the image branch's counting each image
+    once on a grid that splits rows."""
+    if kw.get("use_bn"):
+        m = build_model("deeplab", 2, device="meta", **kw)
+        names = {n for n, _ in m.named_modules()}
+        assert {"vgg16.stage1.bn0", "aspp.b0_bn", "aspp.b_rate6_bn",
+                "aspp.b_image_bn", "aspp.project_bn"} <= names
+        assert m.aspp.b_image_bn.whole_image and not m.aspp.b0_bn.whole_image
+        return
+    with pytest.raises(err, match="output_stride"):
         build_model("deeplab", 2, device="meta", **kw)
 
 

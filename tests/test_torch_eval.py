@@ -295,10 +295,12 @@ def test_eval_cli_prints_its_eval_step(tmp_path, capsys, ema):
     (["--checkpoint-dir", "ORBAX"], NotImplementedError,
      "convert_checkpoint_to_torch"),
 ])
-def test_eval_cli_guards(tmp_path, monkeypatch, extra, err, match):
+def test_eval_cli_guards(tmp_path, monkeypatch, capsys, extra, err, match):
     """Unported flags raise NotImplementedError naming the flag; --device
     cuda raises without a card (never drops to the CPU); an orbax
-    directory points at the conversion tool."""
+    directory points at the conversion tool. --tta and --tta-scales raised
+    so until test-time augmentation was ported: they now evaluate, printing
+    the JAX CLI's ``TTA eval:`` line."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data, ck = _eval_cli_setup(tmp_path)
     (tmp_path / "EMPTY").mkdir()
@@ -306,6 +308,11 @@ def test_eval_cli_guards(tmp_path, monkeypatch, extra, err, match):
     extra = [str(tmp_path / a) if a in ("EMPTY", "ORBAX") else a for a in extra]
     argv = ["--device", "cpu", "--model-kw", KW, "--data-dir", data,
             "--checkpoint-dir", ck] + extra
+    if match.startswith("--tta"):
+        assert eval_cli.main(argv) == 0
+        scales = "[0.75, 1.0]" if match == "--tta-scales" else "[1.0]"
+        assert f"TTA eval: scales={scales} flip=True" in capsys.readouterr().out
+        return
     with pytest.raises(err, match=match):
         eval_cli.main(argv)
     assert os.path.isdir(ck)

@@ -163,8 +163,13 @@ def test_init_mirrors_flax_distributions():
 
 @pytest.mark.parametrize("kw", [{"use_bn": True}])
 def test_unported_flags_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model("fcn8s", 2, device="meta", **kw)
+    """``use_bn`` raised as not ported until BatchNorm was; it now builds
+    FCN-8s with a BatchNorm after every backbone conv and no fused stage1
+    (the JAX package's BN form)."""
+    m = build_model("fcn8s", 2, device="meta", **kw)
+    bns = [n for n, mod in m.named_modules() if type(mod).__name__ == "BatchNorm"]
+    assert len(bns) == 13 and bns[0] == "vgg16.stage1.bn0"
+    assert type(m.vgg16.stage1).__name__ == "ConvPoolBlock"
 
 
 def test_packed_stage2_entry_matches_jax():
@@ -237,8 +242,8 @@ def test_padded_input_hw_matches_jax(hw):
 
 @pytest.mark.parametrize("name", ["unet"])
 def test_unported_models_raise(name):
-    """U-Net builds since its slice was ported; what of it is not ported
-    (BatchNorm) still raises, naming the flag."""
+    """U-Net builds since its slice was ported, and with ``use_bn`` (which
+    raised, naming the flag, until BatchNorm was ported) since then."""
     assert build_model(name, 19, device="meta").total_stride == 16
-    with pytest.raises(NotImplementedError, match="use_bn"):
-        build_model(name, 2, device="meta", use_bn=True)
+    m = build_model(name, 2, device="meta", use_bn=True)
+    assert "down0.bn1.var" in m.state_dict()

@@ -172,7 +172,10 @@ def test_cli_guards(entry, extra, err, monkeypatch, tmp_path):
     """--device cuda raises when no card is present (never drops to the
     CPU); unported flags raise before any model is built, naming the flag; a
     --checkpoint-dir of the JAX package's orbax checkpoints (step
-    subdirectories) raises with the conversion hint."""
+    subdirectories) raises with the conversion hint. --tiled and
+    --tile-overlap raised so until tiled inference was ported: infer_image
+    now runs them (narrow, seeded weights), and serve refuses them in
+    argparse, as the JAX package's serve.py, which has neither."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import (
         infer_image, serve,
     )
@@ -182,6 +185,17 @@ def test_cli_guards(entry, extra, err, monkeypatch, tmp_path):
     (tmp_path / "ckpt" / "1").mkdir(parents=True)
     argv = extra + (["--image", "x.png"] if entry == "infer_image" else [])
     fn = infer_image.main if entry == "infer_image" else serve.make_server
+    if extra[-1] in ("--tiled", "64"):
+        if entry == "serve":
+            with pytest.raises(SystemExit):
+                fn(argv)
+            return
+        Image.fromarray(np.random.default_rng(2).integers(
+            0, 256, (45, 70, 3), np.uint8)).save(tmp_path / "x.png")
+        assert fn(argv + ["--tiled", "--model", "fcn32s", "--model-kw",
+                          "fc_features=32,width_mult=0.25"]) == 0
+        assert Image.open(tmp_path / "overlay.png").size == (70, 45)
+        return
     with pytest.raises(err, match=extra[2] if err is NotImplementedError
                        else None):
         fn(argv)

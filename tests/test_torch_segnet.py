@@ -368,8 +368,12 @@ def test_segnet_weight_bridge_round_trip_is_bit_equal(canonical):
 
 @pytest.mark.parametrize("kw", [{"use_bn": True}])
 def test_segnet_unported_flags_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model("segnet", 2, device="meta", **kw)
+    """``use_bn`` raised as not ported until BatchNorm was; SegNet now builds
+    with a BatchNorm after every encoder and decoder conv, enc1 a plain
+    ConvBlock before the argmax pool (no fused SegNet stage1)."""
+    m = build_model("segnet", 2, device="meta", **kw)
+    assert not m.fused_stage1 and type(m.enc1).__name__ == "ConvBlock"
+    assert sum(type(mod).__name__ == "BatchNorm" for mod in m.modules()) == 26
 
 
 def test_segnet_odd_size_raises_and_decoder_flags_are_layouts():

@@ -11,6 +11,8 @@ grid of ranks) against the JAX package on the CPU, in float32.
   in subprocesses of ``tests/_torch_grid_worker.py``) against the JAX
   package's single-device and 1-D mesh steps with ``pallas_spmd=True``, and
   against the port's own single-process step (gradients, dropout on);
+* BatchNorm on the grid (U-Net 2x1 and 1x2 with uneven rows, DeepLab 2x2)
+  against the JAX package's 1-D ``shard_map`` mesh and its 2-D mesh;
 * ``pallas_spmd`` on one process, the registry's SPMD-safe kwargs, the
   loader's grid slices, and the train CLI's ``--spatial`` at one rank.
 
@@ -40,10 +42,11 @@ from semanticsegmentation_tensorflow_tpu.ops.pallas.stage1 import (
     _fused_fwd, _halo_rows, fused_segnet_stage1_tail, fused_stage1_tail,
 )
 from semanticsegmentation_tensorflow_tpu.parallel.mesh import (
-    make_mesh, replicate, shard_batch,
+    make_mesh, make_mesh_2d, replicate, shard_batch,
 )
 from semanticsegmentation_tensorflow_tpu.train.state import (
-    create_train_state as jax_state, make_optimizer as jax_optimizer,
+    TrainState as JaxTrainState, create_train_state as jax_state,
+    make_optimizer as jax_optimizer,
 )
 from semanticsegmentation_tensorflow_tpu.train.step import (
     make_train_step as jax_train_step,
@@ -56,7 +59,7 @@ from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
 )
 from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    conv_nhwc, init_params,
+    bn_fed_biases, conv_nhwc, init_params,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
     build_model, merge_spmd_safe_kwargs, spmd_safe_kwargs,
@@ -101,6 +104,18 @@ UNEVEN = {"deeplab_os8": dict(model="deeplab", hw=(24, 32), stride=8, classes=2,
                               kw=dict(DL_KW, dropout_rate=0.0)),
           "unet": dict(model="unet", hw=(20, 32), stride=4, classes=19,
                        kw=dict(base_features=8, depth=2))}
+# BatchNorm on the grid: U-Net (19 classes) on a 2x1 data grid, each rank
+# normalizing by its own images (JAX's 1-D shard_map mesh, whose BatchNorm
+# has no axis name; the statistics pmean'd after the step), and on a 1x2
+# grid of 20 rows at stride 4, 12 + 8 (JAX's 2-D mesh, one global program:
+# the statistics of every row); DeepLab os8 on a 2x2 grid (the world's
+# statistics, the ASPP image branch's counting each image once)
+BN = {"unet_bn": dict(model="unet", hw=(20, 32), stride=4, classes=19,
+                      kw=dict(base_features=8, depth=2, use_bn=True)),
+      "deeplab_bn": dict(model="deeplab", hw=DL_HW, stride=8, classes=2,
+                         kw=dict(DL_KW, dropout_rate=0.0, use_bn=True))}
+BN_GRIDS = {"unet_bn_2x1": ("unet_bn", 2, 1), "unet_bn_1x2": ("unet_bn", 1, 2),
+            "deeplab_bn_2x2": ("deeplab_bn", 2, 2)}
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +373,46 @@ def _port_state(name, state_dict, classes=2, **kw):
                               make_lr_schedule(LR), seed=0)
 
 
+def _bn_setup(name, seed):
+    """A BN model's port state_dict (seeded init, the running statistics
+    drawn away from theirs) and a maker of the JAX state on the same
+    variables (the JAX step donates its state: each mesh gets its own)."""
+    u = BN[name]
+    model = build_model(u["model"], u["classes"], device="cpu", dtype=torch.float32,
+                        **u["kw"])
+    init_params(model, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for k, b in model.named_buffers():
+            b.copy_(torch.from_numpy((rng.normal(0, 0.1, b.shape) if k.endswith("mean")
+                                      else rng.uniform(0.5, 2, b.shape)).astype(np.float32)))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    v = convert.to_variables(convert.from_state_dict(sd, model))
+    kw = {k: w for k, w in u["kw"].items() if k != "pallas_spmd"}
+    jm = jax_build(u["model"], num_classes=u["classes"], dtype=jnp.float32, **kw)
+    tx = jax_optimizer("sgd", LR)
+    return sd, lambda: JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=v["params"],
+        opt_state=tx.init(v["params"]), batch_stats=v["batch_stats"],
+        rng=jax.random.key(0), apply_fn=jm.apply, tx=tx)
+
+
+def _jax_mesh_steps(js, batch, classes, data, spatial):
+    """Two steps of the JAX step on a ``data x spatial`` mesh of the host
+    devices: 1-D (``make_mesh``, shard_map) at spatial 1, else 2-D."""
+    devs = jax.devices()[:data * spatial]
+    mesh = make_mesh(devs) if spatial == 1 else make_mesh_2d(data, spatial, devs)
+    st = replicate(js, mesh)
+    step = jax_train_step(classes, mesh=mesh)
+    b = shard_batch({k: v.numpy() for k, v in batch.items()}, mesh)
+    for _ in range(2):
+        st, out = step(st, b)
+    st = jax.device_get(st)
+    return (float(out["loss"]), np.asarray(out["cm"]),
+            convert.flatten_params({"params": st.params,
+                                    "batch_stats": st.batch_stats}))
+
+
 def _single_steps(state, batch, steps=2, augment=None, classes=2):
     step = make_train_step(classes, augment_fn=augment)
     losses, grads = [], None
@@ -399,6 +454,14 @@ def grid_runs(tmp_path_factory):
         meta = build_model(u["model"], u["classes"], device="meta", **u["kw"])
         usds[name] = convert.to_state_dict(convert.flatten_params(ujs[name].params), meta)
         ubatches[name] = _batch(4, u["hw"], 10 + i, u["classes"])
+    bn = {name: (*_bn_setup(name, 20 + i), _batch(4, u["hw"], 20 + i, u["classes"]))
+          for i, (name, u) in enumerate(BN.items())}
+
+    def bn_sc(grid):
+        name, data, spatial = BN_GRIDS[grid]
+        u, (sd, _, batch) = BN[name], bn[name]
+        return step_sc(grid, u["model"], data, spatial, sd, batch, u["kw"],
+                       stride=u["stride"], classes=u["classes"])
 
     def step_sc(name, model, data, spatial, sd, batch, kw, **extra):
         return dict(name=name, kind="step", model=model, data=data, spatial=spatial,
@@ -418,11 +481,13 @@ def grid_runs(tmp_path_factory):
           for name, u in UNEVEN.items()),
         _uneven_ops_job(),
         dict(name="eval_2x1", kind="eval", model="fcn8s", state_dict=sds["fcn8s"],
-             batch=eval_batch, kw=fk)])
+             batch=eval_batch, kw=fk),
+        bn_sc("unet_bn_2x1"), bn_sc("unet_bn_1x2")])
     four = _launch(tmp, "w4", 4, [
         step_sc("fcn8s_2x2", "fcn8s", 2, 2, sds["fcn8s"], batches["fcn8s"], fk),
         step_sc("segnet_2x2", "segnet", 2, 2, sds["segnet"], batches["segnet"], sk),
-        step_sc("deeplab_1x4", "deeplab", 1, 4, dl_sd, dl_batch, DL_KW)])
+        step_sc("deeplab_1x4", "deeplab", 1, 4, dl_sd, dl_batch, DL_KW),
+        bn_sc("deeplab_bn_2x2")])
     try:
         jax_out = {}
         for name, st in js.items():
@@ -461,6 +526,14 @@ def grid_runs(tmp_path_factory):
                 ubatches[name], classes=u["classes"])
         single["eval"] = make_eval_step(2, road_hist=True)(
             _port_state("fcn8s", sds["fcn8s"], **fk), eval_batch)
+        for grid, (name, data, spatial) in BN_GRIDS.items():
+            u, (sd, js, batch) = BN[name], bn[name]
+            jax_out[grid] = _jax_mesh_steps(js(), batch, u["classes"], data, spatial)
+        for name, (sd, _, batch) in bn.items():
+            u = BN[name]
+            single[name] = _single_steps(_port_state(u["model"], sd, u["classes"],
+                                                     **u["kw"]),
+                                         batch, classes=u["classes"])
     finally:
         ranks2, ranks4 = _collect(two), _collect(four)
     return {"jax": jax_out, "single": single, "w2": ranks2, "w4": ranks4}
@@ -678,6 +751,54 @@ def test_grid_uneven_rows_step_matches_single_process_and_jax(grid_runs, name):
     for k, w in params.items():
         np.testing.assert_allclose(mine[k], np.asarray(w), rtol=3e-4, atol=3e-6,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("grid", list(BN_GRIDS))
+def test_grid_bn_step_matches_jax_meshes(grid_runs, grid):
+    """Two SGD steps of a BatchNorm model on the grid against the JAX
+    package's step on its own mesh of the host devices, on the same weights,
+    running statistics and batch: the 1-D ``shard_map`` mesh for the 2x1
+    data grid (each rank's own statistics, averaged after the step), the
+    2-D mesh (one global program) for the 1x2 grid of uneven rows and the
+    2x2 DeepLab. Every rank ends with the same parameters, statistics and
+    losses. Against JAX: the loss within rtol 2e-5, the parameters within
+    rtol 1e-3 / atol 1e-5 and the statistics within rtol 1e-4 / atol 1e-6
+    (``tests/test_torch_bn.py``'s bounds), at most one labeled pixel in
+    1000 moved in the confusion matrix. Where the grid splits rows its
+    statistics are the whole batch's, so it also equals the port's
+    single-process step: the losses within rtol 2e-5 and every leaf's
+    first gradient within 1e-4 of its norm, but for a conv bias that feeds
+    a BatchNorm, whose gradient is zero up to rounding: both within 1e-6."""
+    name, data, spatial = BN_GRIDS[grid]
+    u = BN[name]
+    ranks = _ranks(grid_runs, grid)
+    got = ranks[0]
+    for key in ("checksum", "buffers", "losses"):
+        assert all(r[key] == got[key] for r in ranks), key
+    loss, cm, want = grid_runs["jax"][grid]
+    np.testing.assert_allclose(got["losses"][-1], loss, rtol=2e-5)
+    assert got["cm"].sum() == cm.sum()
+    assert np.abs(got["cm"].numpy() - cm).sum() // 2 <= cm.sum() // 1000
+    meta = build_model(u["model"], u["classes"], device="meta", **u["kw"])
+    mine = convert.from_state_dict(got["params"], meta)
+    assert set(mine) == set(want)
+    for k, w in want.items():
+        stats = k.endswith(("/mean", "/var"))
+        np.testing.assert_allclose(mine[k], np.asarray(w), rtol=1e-4 if stats else 1e-3,
+                                   atol=1e-6 if stats else 1e-5, err_msg=k)
+    if spatial > 1:
+        single = grid_runs["single"][name]
+        np.testing.assert_allclose(got["losses"], single["losses"], rtol=2e-5)
+        fed = bn_fed_biases(meta)
+        for k, g in single["grads"].items():
+            d = got["grads"][k] - g
+            if k in fed:
+                # a conv bias that feeds a BatchNorm: its gradient is zero up
+                # to rounding (the BN subtracts the mean), so only its size
+                assert d.abs().max() <= 1e-6 and g.abs().max() <= 1e-6, k
+                continue
+            err = d.norm() / g.norm().clamp(min=1e-30)
+            assert err <= 1e-4, (k, err.item())
 
 
 def test_grid_eval_step_matches_single_process(grid_runs):

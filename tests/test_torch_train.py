@@ -399,6 +399,9 @@ def test_train_cli_then_infer_image_from_its_checkpoint(tmp_path, capsys):
     (["--qat-calib-batches", "8"], NotImplementedError, ""),
     (["--synthetic", "--device", "cuda"], RuntimeError, ""),
     (["--data-dir", "/nonexistent", "--device", "cpu"], FileNotFoundError, ""),
+    # BatchNorm (use_bn) builds and reaches the data
+    (["--model-kw", "use_bn=true", "--data-dir", "/nonexistent", "--device", "cpu"],
+     FileNotFoundError, ""),
     # the JAX defaults of the unported flags parse and do not raise
     (["--val-every", "1", "--qat-calib-batches", "4", "--data-dir",
       "/nonexistent", "--device", "cpu"], FileNotFoundError, ""),

@@ -250,15 +250,15 @@ def test_checkpoint_converter_at_the_unet_preset(tmp_path):
 def test_build_stride_and_unported_flags():
     """``build_model("unet", 19)`` at the preset's width has U-Net's ~31 M
     parameters and stride 16 (512x1024 needs no pad; 500x1000 pads to
-    512x1008); ``use_bn`` raises naming queue 1 item 6, an unknown
-    ``packed_stage0`` is refused."""
+    512x1008); ``use_bn`` builds a BatchNorm beside every conv of every
+    block, an unknown ``packed_stage0`` is refused."""
     m = build_model("unet", C, device="meta")
     assert m.total_stride == 16
     assert 30e6 < sum(p.numel() for p in m.parameters()) < 32e6
     assert padded_input_hw(m, (512, 1024)) == (512, 1024)
     assert padded_input_hw(m, (500, 1000)) == (512, 1008)
-    with pytest.raises(NotImplementedError, match="use_bn.*item 6"):
-        build_model("unet", C, device="meta", use_bn=True)
+    bn = build_model("unet", C, device="meta", use_bn=True)
+    assert sum(type(mod).__name__ == "BatchNorm" for mod in bn.modules()) == 18
     with pytest.raises(ValueError, match="packed_stage0"):
         build_model("unet", C, device="meta", packed_stage0="both")
 

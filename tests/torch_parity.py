@@ -45,6 +45,29 @@ def port_fcn(name: str = "fcn8s", variables=None, **kw):
     return model.eval()
 
 
+def draw_bn_state(model, seed: int, params: bool = False):
+    """Every BatchNorm of ``model`` with running statistics drawn away from
+    their init (mean ~ N(0, 0.1), var ~ U(0.5, 2)), and with ``params`` its
+    scale ~ U(0.5, 1.5) and bias ~ N(0, 0.1), from a numpy seed, so that eval
+    mode is no identity. Returns ``model``."""
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import BatchNorm
+
+    rng = np.random.default_rng(seed)
+    draws = {"mean": lambda c: rng.normal(0, 0.1, c),
+             "var": lambda c: rng.uniform(0.5, 2.0, c)}
+    if params:
+        draws.update(scale=lambda c: rng.uniform(0.5, 1.5, c),
+                     bias=lambda c: rng.normal(0, 0.1, c))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                for name in ("scale", "bias", "mean", "var"):
+                    if name in draws:
+                        t = getattr(m, name)
+                        t.copy_(torch.from_numpy(draws[name](t.numel()).astype(np.float32)))
+    return model
+
+
 def nhwc_input(shape, seed=0) -> np.ndarray:
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 

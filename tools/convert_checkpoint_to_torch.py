@@ -4,8 +4,9 @@
 Restores the checkpoint with the JAX package (``train/checkpoint.py``) for a
 preset's model, then writes the port's ``state_dict`` (``.pt``) through the
 port's weight bridge (``semanticsegmentation_tensorflow_tpu_torch/convert.py``,
-strict: every flax leaf lands on exactly one port parameter). The result is
-what the port's CLIs take as ``--weights``:
+strict: every flax leaf lands on exactly one port parameter or, for a
+BatchNorm model's ``batch_stats``, buffer). The result is what the port's
+CLIs take as ``--weights``:
 
     python tools/convert_checkpoint_to_torch.py --preset fcn8s_kitti \
         --checkpoint-dir checkpoints --out fcn8s_kitti.pt
@@ -69,9 +70,12 @@ def main(argv=None) -> int:
         state = ckpt.restore(template, step=args.step)
     finally:
         ckpt.close()
+    # a BatchNorm model's running statistics ride beside the (EMA) params,
+    # as the JAX package serves them
+    variables = {"params": state.eval_params(args.ema)}
     if jax.tree.leaves(state.batch_stats):
-        raise NotImplementedError("BatchNorm models are not ported yet")
-    flat = convert.flatten_params(jax.device_get(state.eval_params(args.ema)))
+        variables["batch_stats"] = state.batch_stats
+    flat = convert.flatten_params(jax.device_get(variables))
 
     port = build_model(name, num_classes=cfg.data.num_classes, device="meta",
                        **model_kwargs)

@@ -100,6 +100,9 @@ WINOGRAD_FORMS = {
 WORKLOADS.update({name: dict(WORKLOADS[base], model_kw=kw,
                              what=f"{WORKLOADS[base]['what']}, {kw}")
                   for name, (base, kw) in WINOGRAD_FORMS.items()})
+# SegNet as published: BatchNorm after every conv (use_bn; no fused stage1)
+WORKLOADS["segnet_bn"] = dict(WORKLOADS["segnet"], base_kw={"use_bn": True},
+                              what=WORKLOADS["segnet"]["what"] + ", use_bn")
 # the preset with the halo mode of the fused stage1 (kernel 1c), what
 # --spatial S trains through on one rank
 WORKLOADS["preset_spmd"] = dict(WORKLOADS["preset"], model_kw={"pallas_spmd": True},
