@@ -87,7 +87,20 @@ step timed. Then TTA and tiles (``tta_tiled_phase``): ``infer_image
 --tiled`` on a 1024x2048 frame at ``unet_cityscapes`` and a 750x2484 image at
 ``fcn8s_kitti``, ``eval.py --tta`` at ``fcn8s_kitti``, the TTA step at one
 scale without flip against the eval step and one tile against the
-Predictor.
+Predictor. Then int8 serving, BatchNorm folding and quantization-aware
+training (``int8_phase``): the int8 product against an exact float64 conv
+of the same int8 tensors; ``fcn8s_kitti`` through ``infer_image --int8``,
+serve ``--int8 --calib-dir``, ``test.py --int8 --calib 4`` (every file
+against the int8 Predictor) and ``eval.py --int8 --calib-batches 2``;
+``train.py --qat`` (3 steps, ``--pallas-preprocess``, ``--resume`` reading
+back ``qat_scales.json``), then ``eval.py`` on its checkpoint with
+``--int8`` (its QAT scales) and without (the QAT warning);
+``segnet_kitti`` with ``use_bn`` (26 BatchNorms folded) and
+``unet_cityscapes`` with ``--int8``; every quantized layer's int32
+accumulator of three int8 Predictors held bit-equal; the int8 forward
+against the fake-quant one and the folded SegNet against the unfolded one
+in float32; the bf16 and int8 Predictors timed in turns and the QAT train
+step beside the plain ones.
 
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
@@ -863,12 +876,12 @@ def drive_sweep(torch, tmp: str, counters: dict) -> dict:
 
 
 def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None,
-                extra: tuple = ()) -> dict:
+                extra: tuple = (), serve_extra: tuple = ()) -> dict:
     """The inference path through the user's entry points at ``preset``
     (random weights, or ``extra``'s ``--checkpoint-dir``; ``model_kw`` as
-    ``--model-kw`` takes it) on a generated image of the preset's size:
-    infer_image, the server answering requests, the Predictor's steady
-    state. Returns timings."""
+    ``--model-kw`` takes it; ``serve_extra``: flags of the server alone) on
+    a generated image of the preset's size: infer_image, the server
+    answering requests, the Predictor's steady state. Returns timings."""
     import http.client
 
     import numpy as np
@@ -903,7 +916,7 @@ def drive_slice(torch, tmp: str, preset: str, model_kw: str | None = None,
 
     # 2. the server, in a thread, answering real HTTP requests
     server, _ = serve.make_server(["--preset", preset, "--device", "cuda",
-                                   "--port", "0", *kw])
+                                   "--port", "0", *kw, *serve_extra])
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -1056,15 +1069,16 @@ def check_end_to_end(torch, name: str = "fcn8s", padded_hw=PADDED_HW, **kw) -> N
 
 def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
                    model_kw: str | None = None, data: str | None = None,
-                   extra: tuple = ()) -> dict:
+                   extra: tuple = (), expect_resume: str | None = None) -> dict:
     """The training path through the user's entry points: the port's
     scripts/train.py on a generated synthetic KITTI set at 375x1242 (24
     images, or ``data``, the preset's dataset: as many as 3 steps take after
     any ``extra`` flags' validation split) at ``preset`` (its batch and
     crops, full width, 3 steps; ``model_kw`` as ``--model-kw`` takes it)
-    with --pallas-preprocess, then --resume, then infer_image on the
-    checkpoint it wrote (on the dataset's first test image). Returns
-    timings, and the data and checkpoint directories."""
+    with --pallas-preprocess, then --resume (whose output must hold
+    ``expect_resume``), then infer_image on the checkpoint it wrote (on the
+    dataset's first test image). Returns timings, and the data and
+    checkpoint directories."""
     import contextlib
     import math
 
@@ -1115,6 +1129,8 @@ def drive_training(torch, tmp: str, preset: str = "fcn8s_kitti",
     print(buf.getvalue(), end="")
     if rc != 0 or "resumed at step 3" not in buf.getvalue():
         raise AssertionError("train --resume did not restore step 3")
+    if expect_resume is not None and expect_resume not in buf.getvalue():
+        raise AssertionError(f"train --resume printed no {expect_resume!r}")
     out = os.path.join(tmp, "trained_overlay.png")
     src = build_dataset(dc.dataset, data, hw).test_images[0]
     if infer_image.main(["--preset", preset, "--checkpoint-dir", ck, "--image",
@@ -3615,6 +3631,576 @@ def tta_tiled_phase(torch, smi: str, drive) -> tuple[list[dict], dict]:
     return runs, res
 
 
+# --- int8 serving, BatchNorm folding and quantization-aware training -------
+
+INT8_CALIB_N = 4        # test.py --int8 --calib 4 over INT8_SWEEP_N images
+INT8_SWEEP_N = 8
+# the int8 product at shapes the driven paths do not give it, each held
+# bit-equal to a float64 conv of the same int8 tensors: (what, x shape,
+# weight shape, dilation, transposed stride or 0)
+INT8_GEMM_CASES = (
+    ("conv1_2 at eval's batch 4 (patches split over rows)", (4, *PADDED_HW, 64),
+     (64, 64, 3, 3), 1, 0),
+    ("DeepLab's image branch at one pixel (M = 1, padded to 32 rows)",
+     (1, 1, 1, 512), (256, 512, 1, 1), 1, 0),
+    ("conv6 of deeplab_kitti_os16, 7x7 at dilation 2", (1, 24, 78, 512),
+     (512, 512, 7, 7), 2, 0),
+    ("FCN's up2 4/2 up-conv", (1, 12, 39, 2), (2, 2, 4, 4), 1, 2),
+)
+
+
+def _exact_int8(torch, xq, wq, dilation: int, stride: int):
+    """The int8 product of ``xq`` (NHWC) by ``wq`` (the port's layout) in
+    float64 with cuDNN off (PyTorch's own im2col GEMM, cuBLAS's float64
+    GEMM): every partial sum is an integer below 2^53, so it is exact.
+    NHWC float64 out."""
+    import torch.nn.functional as F
+
+    from semanticsegmentation_tensorflow_tpu_torch.ops.quant import transpose_padding
+
+    x = xq.double().permute(0, 3, 1, 2)
+    with torch.backends.cudnn.flags(enabled=False):
+        if stride:
+            y = F.conv_transpose2d(x, wq.double(), stride=stride,
+                                   padding=transpose_padding(wq.shape[-1], stride))
+        else:
+            y = F.conv2d(x, wq.double(), padding=dilation * (wq.shape[-1] - 1) // 2,
+                         dilation=dilation)
+    return y.permute(0, 2, 3, 1)
+
+
+def _int8_product(xq, wq, dilation: int, stride: int):
+    from semanticsegmentation_tensorflow_tpu_torch.ops import quant as oq
+
+    return (oq.int8_conv_transpose2d(xq, wq, stride) if stride
+            else oq.int8_conv2d(xq, wq, dilation))
+
+
+def check_int8_gemm(torch, gen) -> dict:
+    """The int8 product (``ops/quant.py``: ``torch._int_mm`` on cuBLASLt over
+    the patch matrix, K and N padded to multiples of 8) on random int8
+    tensors at ``INT8_GEMM_CASES``: bit-equal to the exact float64 conv;
+    each timed by CUDA events beside the bf16 cuDNN conv of the same shape
+    (a yardstick: it has no quantize or rescale either)."""
+    import torch.nn.functional as F
+
+    res = {}
+    for what, xs, ws, dil, stride in INT8_GEMM_CASES:
+        xq = torch.randint(-127, 128, xs, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, ws, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        got = _int8_product(xq, wq, dil, stride)
+        if not torch.equal(got.double(), _exact_int8(torch, xq, wq, dil, stride)):
+            raise AssertionError(f"int8 product, {what}: differs from the exact conv")
+        xb, wb = xq.bfloat16().permute(0, 3, 1, 2), wq.bfloat16()
+        if stride:
+            from semanticsegmentation_tensorflow_tpu_torch.ops.quant import (
+                transpose_padding,
+            )
+            cudnn = lambda: F.conv_transpose2d(  # noqa: E731
+                xb, wb, stride=stride, padding=transpose_padding(ws[-1], stride))
+        else:
+            cudnn = lambda: F.conv2d(xb, wb, padding=dil * (ws[-1] - 1) // 2,  # noqa: E731
+                                     dilation=dil)
+        ms = cuda_ms(lambda: _int8_product(xq, wq, dil, stride), iters=5, warmup=1)
+        bf16 = cuda_ms(cudnn, iters=5, warmup=1)
+        res[what] = {"int8_ms": ms, "cudnn_bf16_ms": bf16,
+                     "max_abs_acc": int(got.abs().max())}
+        log(f"int8 product, {what}: x {list(xs)}, w {list(ws)}: int32 bit-equal to "
+            f"the float64 conv (max |acc| {res[what]['max_abs_acc']}); {ms:.3f} ms "
+            f"(CUDA events, int8 in, int32 out) vs cuDNN's bf16 conv {bf16:.3f} ms")
+    return res
+
+
+def hold_int8_layers(torch, model, x, what: str) -> list[dict]:
+    """One forward of the quantized ``model`` on ``x`` with every quantized
+    conv's int32 accumulator, on the input it is given, held against the
+    exact float64 conv of the same int8 tensors: bit-equal (raises
+    otherwise). Returns a row per layer."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops import quant as oq
+
+    rows = []
+
+    def hold(name, m, args):
+        if m.act_scale is None:
+            return
+        xq = oq.quantize_act(args[0], m.act_scale)
+        stride = m.stride if isinstance(m, oq.QuantConvTranspose) else 0
+        dil = 1 if stride else m.dilation
+        got = _int8_product(xq, m.weight, dil, stride)
+        ok = torch.equal(got.double(), _exact_int8(torch, xq, m.weight, dil, stride))
+        rows.append({"layer": name, "x": list(xq.shape), "w": list(m.weight.shape),
+                     "k": int(m.weight[0].numel() if not stride
+                              else m.weight.shape[0]), "equal": ok})
+        if not ok:
+            raise AssertionError(f"{what}: {name}'s int32 accumulator differs from "
+                                 "the exact conv")
+
+    handles = [m.register_forward_pre_hook(
+                   lambda m, args, name=name: hold(name, m, args))
+               for name, m in model.named_modules()
+               if isinstance(m, (oq.QuantConv, oq.QuantConvTranspose))]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    log(f"{what}: the int32 accumulators of all {len(rows)} quantized convs "
+        "bit-equal to the float64 conv of the same int8 tensors: " + ", ".join(
+            f"{r['layer']} {r['x']} K={r['k']}" for r in rows))
+    return rows
+
+
+def _int8_predictor(torch, preset: str, calib: list[str], model_kw: str | None = None):
+    """The Predictor ``infer_image``/``serve`` build at ``preset`` (its
+    seeded random weights) with ``--int8``, calibrated on the images
+    ``calib`` (weight-only with none); without ``calib`` the bf16 one."""
+    from argparse import ArgumentParser
+
+    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
+        add_model_args, build_predictor,
+    )
+
+    p = ArgumentParser()
+    add_model_args(p)
+    argv = ["--preset", preset, "--device", "cuda", *(["--int8"] if calib else []),
+            *(["--model-kw", model_kw] if model_kw else [])]
+    return build_predictor(p.parse_args(argv), torch.device("cuda"),
+                           calib_paths=calib or ())
+
+
+def drive_int8_fcn(torch, tmp: str) -> dict:
+    """fcn8s_kitti int8 serving through the entry points: ``infer_image
+    --int8`` and the server with ``--int8 --calib-dir`` (drive_slice: its
+    requests checked against its Predictor), ``test.py --int8 --calib 4``
+    over 8 generated test images (each file equal to ``host_overlay`` of
+    the labels of the int8 Predictor calibrated on the same 4), ``eval.py
+    --int8 --calib-batches 2`` on a step-0 checkpoint of seeded weights."""
+    import contextlib
+
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+    from semanticsegmentation_tensorflow_tpu_torch.data.kitti import load_image
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import test as test_cli
+
+    data = generate_synthetic_kitti(os.path.join(tmp, "data_road"), n_train=8,
+                                    n_test=INT8_SWEEP_N, seed=7)
+    calib_dir = os.path.join(data, "testing", "image_2")
+    r = {"slice": drive_slice(torch, tmp, "fcn8s_kitti", extra=("--int8",),
+                              serve_extra=("--calib-dir", calib_dir))}
+    runs = os.path.join(tmp, "int8_runs")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = test_cli.main(["--device", "cuda", "--data-dir", data, "--runs-dir", runs,
+                            "--int8", "--calib", str(INT8_CALIB_N), "--batch", "4"])
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    print(text, end="")
+    if rc or "int8 serving: 21 activation scales" not in text.splitlines():
+        raise AssertionError(f"test.py --int8: rc {rc}, {text[-500:]!r}")
+    srcs = build_dataset("kitti_road", data, IMAGE_HW).test_images
+    pred = _int8_predictor(torch, "fcn8s_kitti", list(srcs[:INT8_CALIB_N]))
+    (run_dir,) = os.listdir(runs)
+    imgs = np.stack([load_image(q) for q in srcs])
+    for i in range(0, len(srcs), 4):
+        labels = pred._fetch_labels(imgs[i:i + 4])
+        for j, q in enumerate(srcs[i:i + 4]):
+            got = np.asarray(Image.open(os.path.join(runs, run_dir, os.path.basename(q))))
+            if not np.array_equal(got, host_overlay(imgs[i + j], labels[j], pred._palette,
+                                                    pred._alpha)):
+                raise AssertionError(f"test.py --int8: {q} differs from the int8 "
+                                     "Predictor's overlay")
+    r["sweep_img_per_s"] = float(text.strip().splitlines()[-1].split("(")[1].split()[0])
+    log(f"test.py --int8 --calib {INT8_CALIB_N} --batch 4: {len(srcs)} files, each "
+        f"equal to host_overlay of the int8 Predictor's labels; {r['sweep_img_per_s']:.2f}"
+        f" img/s (the CLI's count), main() {wall:.2f} s")
+    del pred
+    ck = tta_checkpoint(torch, tmp)
+    text = run_cli(eval_cli.main, ["--data-dir", data, "--checkpoint-dir", ck,
+                                   "--device", "cuda", "--road-metrics", "--int8",
+                                   "--calib-batches", "2"])
+    if "int8: 21 convs quantized, 21 activation scales" not in text.splitlines():
+        raise AssertionError(f"eval.py --int8 printed no int8 line: {text!r}")
+    r["eval"] = parse_eval(text)
+    return r
+
+
+def drive_int8_qat(torch, tmp: str) -> dict:
+    """``train.py --qat`` at fcn8s_kitti (3 steps of 8, --pallas-preprocess,
+    then --resume, which must read back qat_scales.json; drive_training),
+    then ``eval.py --int8`` on that checkpoint (which must take the QAT
+    scales) and ``eval.py`` without it (which must warn)."""
+    import contextlib
+
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import eval as eval_cli
+
+    r = drive_training(torch, tmp, extra=("--qat",),
+                       expect_resume="QAT: 21 activation scales from ")
+    sp = os.path.join(r["ckpt"], "qat_scales.json")
+    if not os.path.exists(sp):
+        raise AssertionError("train --qat wrote no qat_scales.json")
+    argv = ["--data-dir", r["data"], "--checkpoint-dir", r["ckpt"], "--device", "cuda"]
+    text = run_cli(eval_cli.main, argv + ["--int8"])
+    if f"int8: QAT scales from {sp}" not in text.splitlines():
+        raise AssertionError(f"eval.py --int8 on the QAT checkpoint: {text!r}")
+    r["eval_int8"] = parse_eval(text, road=False)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        text = run_cli(eval_cli.main, argv)
+    if "evaluating WITHOUT --int8 removes the activation clamps" not in err.getvalue():
+        raise AssertionError(f"eval.py without --int8 gave no QAT warning: {err.getvalue()!r}")
+    r["eval_fp"] = parse_eval(text, road=False)
+    log(f"QAT checkpoint: eval --int8 loss {r['eval_int8']['loss']:.4f} miou "
+        f"{r['eval_int8']['miou']:.4f}; eval without --int8 (warned) loss "
+        f"{r['eval_fp']['loss']:.4f} miou {r['eval_fp']['miou']:.4f}")
+    return {k: v for k, v in r.items() if k not in ("data", "ckpt")}
+
+
+def drive_unet_int8(torch, tmp: str) -> dict:
+    """``infer_image --int8`` at unet_cityscapes (19 classes, transposed
+    2x2/2 up-convs) on a generated 1024x2048 frame, resized to 512x1024."""
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import infer_image
+
+    png, out = os.path.join(tmp, "city.png"), os.path.join(tmp, "city_int8.png")
+    write_png(png, seed=11, hw=(1024, 2048))
+    text = run_cli(infer_image.main, ["--preset", "unet_cityscapes", "--image", png,
+                                      "--out", out, "--device", "cuda", "--int8"])
+    if "int8: 23 activation scales" not in text.splitlines() \
+            or np.asarray(Image.open(out)).shape != (*UNET_HW, 3):
+        raise AssertionError(f"infer_image --int8 unet_cityscapes: {text!r}")
+    return {"png": png}
+
+
+def check_int8_forms(torch, png: str) -> dict:
+    """At fcn8s_kitti's full width in float32 (TF32 off), seeded weights,
+    scales calibrated on a generated image: each quantized conv's output
+    against its fake-quant (QAT) form on the same input (the same quantized
+    product; bound 1e-4 of the layer's largest output), and the whole int8
+    forward against the fake-quant forward (every layer's input on its int8
+    grid: a value that lands within rounding of a grid midpoint may take the
+    other step and move the logits by up to a few steps of the score maps'
+    grid; bound 5 % of the largest logit, labels on >= 99.5 % of pixels);
+    then segnet_kitti with use_bn in float32, its 26 BatchNorms given drawn
+    statistics and their folds, both with the plain argmax pools: each conv
+    with its BatchNorm, folded against unfolded on the same input (bound
+    1e-4 of the largest output), and the eval logits (relative L2 within
+    1e-2, labels on >= 99.9 % of pixels: an argmax pool whose window holds
+    a near-tie may route the other way once the fold moves it by a
+    rounding)."""
+    import copy
+
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch import convert
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import normalize_images
+    from semanticsegmentation_tensorflow_tpu_torch.infer import quant
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import (
+        BatchNorm, Conv, init_params,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+        build_model, quant_safe_kwargs,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.shape import pad_to_multiple
+
+    dev = torch.device("cuda")
+    mean, std = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+    img = np.asarray(Image.open(png).convert("RGB"))
+    x = pad_to_multiple(normalize_images(torch.from_numpy(img[None].copy()).to(dev),
+                                         mean, std), 32)
+    res = {}
+    model = build_model("fcn8s", 2, device=dev, dtype=torch.float32,
+                        **quant_safe_kwargs("fcn8s"))
+    init_params(model, torch.Generator(device=dev).manual_seed(4))
+    model.eval()
+    scales = quant.calibrate_act_scales(model, [x])
+    q8 = quant.quantize_model(copy.deepcopy(model), scales)
+    fq = quant.fake_quantize(model, scales)
+    inputs = {}
+    handles = [m.register_forward_pre_hook(
+                   lambda m, a, n=n: inputs.__setitem__(n, a[0]))
+               for n, m in fq.named_modules() if getattr(m, "qat", False)]
+    with torch.inference_mode():
+        want = fq(x)
+        for h in handles:
+            h.remove()
+        qmods = dict(q8.named_modules())
+        worst = max(((qmods[n](t) - m(t)).abs().max() / m(t).abs().max()).item()
+                    for n, m in fq.named_modules() if n in inputs
+                    for t in (inputs[n],))
+        got = q8(x)
+    del inputs
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"int8 vs fake-quant (QAT) forms, fcn8s_kitti f32 [1,384,1248]: per layer on "
+        f"the same input max |d| / max |y| = {worst:.3g} (bound 1e-4) over "
+        f"{len(scales)} convs; whole forward max |dlogits| / max |logits| = {rel:.4g} "
+        f"(bound 0.05), labels agree on {100 * agree:.4f} % (bound 99.5 %)")
+    if worst > 1e-4 or rel > 0.05 or agree < 0.995:
+        raise AssertionError("the int8 forward differs from the fake-quant forward")
+    res.update(int8_vs_fq_layer=worst, int8_vs_fq_logits=rel, int8_vs_fq_labels=agree)
+    del model, q8, fq
+    torch.cuda.empty_cache()
+
+    seg = build_model("segnet", 2, device=dev, dtype=torch.float32, use_bn=True)
+    init_params(seg, torch.Generator(device=dev).manual_seed(5))
+    rng = np.random.default_rng(5)
+    with torch.no_grad():        # BatchNorm away from its init (drawn, seeded)
+        for m in seg.modules():
+            if isinstance(m, BatchNorm):
+                c = m.mean.numel()
+                for t, v in ((m.mean, rng.normal(0, 0.1, c)), (m.var, rng.uniform(0.5, 2, c)),
+                             (m.scale, rng.uniform(0.5, 1.5, c)),
+                             (m.bias, rng.normal(0, 0.1, c))):
+                    t.copy_(torch.from_numpy(v.astype(np.float32)))
+    seg.eval()
+    from profile_train import plain_pools
+
+    state, n = quant.fold_batchnorm(seg.state_dict(), convert.transposed_weights(seg))
+    folded = copy.deepcopy(seg)
+    folded.load_state_dict(state)
+    def bn_of(conv: str) -> str:         # enc1.conv0 -> enc1.bn0
+        head, _, leaf = conv.rpartition(".")
+        return f"{head}.bn{leaf[4:]}"
+
+    inputs = {}
+    handles = [m.register_forward_pre_hook(lambda m, a, k=k: inputs.__setitem__(k, a[0]))
+               for k, m in seg.named_modules()
+               if type(m) is Conv and f"{bn_of(k)}.mean" in state]
+    # float32 SegNet: its argmax pools in their plain versions (the kernels
+    # take bf16); the fold is what is compared here
+    with torch.inference_mode(), plain_pools():
+        before = seg(x)
+        for h in handles:
+            h.remove()
+        after = folded(x)
+        layer = 0.0
+        for k, t in inputs.items():
+            y = seg.get_submodule(bn_of(k))(seg.get_submodule(k)(t))
+            yf = folded.get_submodule(bn_of(k))(folded.get_submodule(k)(t))
+            layer = max(layer, ((yf - y).abs().max() / y.abs().max()).item())
+    del inputs
+    l2 = ((after - before).norm() / before.norm()).item()
+    agree = (after.argmax(-1) == before.argmax(-1)).float().mean().item()
+    log(f"BatchNorm folding, segnet_kitti use_bn f32 [1,384,1248]: {n} pairs folded; "
+        f"each conv + BN on the same input, folded vs unfolded, max |d| / max |y| = "
+        f"{layer:.3g} (bound 1e-4); eval logits relative L2 {l2:.3g} (bound 1e-2), max "
+        f"|d| / max |logits| {((after - before).abs().max() / before.abs().max()).item():.3g}"
+        f" (unbounded: an argmax pool's near-tie may route either way), labels agree on "
+        f"{100 * agree:.4f} % (bound 99.9 %)")
+    if n != 26 or len(handles) != 26 or layer > 1e-4 or l2 > 1e-2 or agree < 0.999:
+        raise AssertionError("the folded SegNet differs from the unfolded one")
+    res.update(fold_pairs=n, fold_layer=layer, fold_logits_l2=l2, fold_labels=agree)
+    del seg, folded
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_int8_predictor(torch, smi: str, preset: str, png: str,
+                        model_kw: str | None = None) -> dict:
+    """The bf16 and the int8 Predictor at ``preset`` (the same seeded
+    weights; int8 calibrated on ``png``) on ``png``: every quantized
+    layer's accumulator held (hold_int8_layers), the overlay kernel held
+    against its plain version on the int8 logits (labels and bytes exact),
+    then in turns bf16, int8, int8, bf16: ms/image on the host clock
+    (median of 5 calls, each ending in the overlay's device->host copy) and
+    device ms per call (torch.profiler, 5 calls), the int8 call's device
+    time by op; then each one's weight bytes and the peak device memory of
+    a call above what was allocated before it."""
+    import numpy as np
+    from PIL import Image
+
+    from profile_train import profile_device
+
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
+        argmax_colormap_overlay_cuda, argmax_colormap_overlay_plain,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import normalize_images
+    from semanticsegmentation_tensorflow_tpu_torch.ops.shape import pad_to_multiple
+
+    preds = {"bf16": _int8_predictor(torch, preset, [], model_kw),
+             "int8": _int8_predictor(torch, preset, [png], model_kw)}
+    q8 = preds["int8"]
+    img = np.asarray(Image.open(png).convert("RGB").resize(q8.image_size[::-1],
+                                                          Image.BILINEAR))
+    xd = q8._to_device(img[None].copy())
+    x = pad_to_multiple(normalize_images(xd, q8._mean, q8._std), q8._stride)
+    res = {"layers": len(hold_int8_layers(torch, q8.model, x,
+                                          f"int8 Predictor {preset}"))}
+    logits = q8._padded_logits(xd)
+    launched = argmax_colormap_overlay_cuda.launches
+    ov_k, lab_k = argmax_colormap_overlay_cuda(xd, logits, q8._palette_dev, q8._alpha)
+    argmax_colormap_overlay_cuda.launches = launched
+    h, w = img.shape[:2]
+    ov_p, lab_p = argmax_colormap_overlay_plain(xd, logits[:, :h, :w], q8._palette_dev,
+                                                q8._alpha)
+    if not (torch.equal(lab_k, lab_p) and torch.equal(ov_k, ov_p)):
+        raise AssertionError(f"overlay on the int8 {preset} logits differs from plain")
+    log(f"overlay C={logits.shape[-1]} [1,{h},{w}] on the int8 {preset} logits: labels "
+        "and bytes exact against the plain version")
+    t = {k: {"host": [], "device": []} for k in preds}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        p = preds[name]
+        p(img)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            p(img)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        t[name]["host"].append(float(np.median(ts)))
+        prof = profile_device(torch, lambda: p(img), 5)
+        t[name]["device"].append(prof["device_ms"])
+        if name == "int8":
+            by_op = prof["by_op"]
+    for name, p in preds.items():
+        res[f"{name}_ms"] = float(np.mean(t[name]["host"]))
+        res[f"{name}_device_ms"] = float(np.mean(t[name]["device"]))
+        res[f"{name}_weight_mib"] = sum(
+            b.numel() * b.element_size()
+            for b in [*p.model.parameters(), *p.model.buffers()]) / 2 ** 20
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p(img)
+        torch.cuda.synchronize()
+        res[f"{name}_call_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    top = sorted(by_op.items(), key=lambda kv: -kv[1])[:6]
+    res["int8_top_ops"] = {k: v for k, v in top}
+    log(f"Predictor {preset}{' ' + model_kw if model_kw else ''}, 1 image: bf16 "
+        f"{res['bf16_ms']:.3f} ms host, device {res['bf16_device_ms']:.3f} ms; int8 "
+        f"{res['int8_ms']:.3f} ms host, device {res['int8_device_ms']:.3f} ms (turns "
+        f"bf16/int8/int8/bf16, host median of 5, device by torch.profiler); weights "
+        f"bf16 {res['bf16_weight_mib']:.1f} MiB, int8 {res['int8_weight_mib']:.1f} MiB; "
+        f"a call's peak above its start bf16 {res['bf16_call_peak_gib']:.3f} GiB, int8 "
+        f"{res['int8_call_peak_gib']:.3f} GiB; int8 device time by op: "
+        + ", ".join(f"{k[:60]} {v:.3f}" for k, v in top) + f" | {smi}")
+    del preds, q8
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_phase(torch, smi: str, drive, gen) -> tuple[list[dict], dict]:
+    """int8 serving, BatchNorm folding and quantization-aware training
+    (``infer/quant.py``, ``ops/quant.py``) at full width, each path run by
+    ``drive``: fcn8s_kitti ``infer_image --int8``, serve ``--int8
+    --calib-dir``, ``test.py --int8 --calib 4`` and ``eval.py --int8
+    --calib-batches 2`` (drive_int8_fcn); ``train.py --qat`` with
+    --pallas-preprocess and --resume, then eval.py with and without --int8
+    on its checkpoint (drive_int8_qat); segnet_kitti with use_bn (26
+    BatchNorms folded) through infer_image, serve and the Predictor with
+    --int8; unet_cityscapes ``infer_image --int8``. The int8 product at
+    shapes the paths do not give it (check_int8_gemm), the int8 and
+    fake-quant forms and BN folding (check_int8_forms), then the bf16 and
+    int8 Predictors of fcn8s_kitti, segnet_kitti use_bn and unet_cityscapes
+    (every quantized layer's accumulator held, the times; SegNet's int8
+    forward with the pool kernels equal to the one with their plain
+    versions), and the QAT train step beside the plain ones."""
+    import numpy as np
+    from PIL import Image
+
+    from profile_train import plain_pools
+
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+
+    t_phase = time.perf_counter()
+    runs, res = [], {}
+    res["gemm"] = check_int8_gemm(torch, gen)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        fcn, launches = drive("fcn8s_kitti --int8 serving, sweep and eval",
+                              drive_int8_fcn, torch, tmp)
+        runs.append(launches)
+        if not launches["overlay"] or any(launches[k] for k in (
+                "stage1_tail", "stage1_tail_train", "stage1_tail_bwd")):
+            raise AssertionError(f"fcn8s_kitti --int8 path: launches {launches}")
+        res["fcn"] = fcn
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(tmp, "qat"))
+        qat, launches = drive("fcn8s_kitti train.py --qat and eval", drive_int8_qat,
+                              torch, os.path.join(tmp, "qat"))
+        runs.append(launches)
+        # the fused stage1 trains nowhere under the quant-safe flags; the
+        # float infer_image and eval on the checkpoint run kernel 1
+        if not launches["preprocess_normalize"] or any(launches[k] for k in (
+                "stage1_tail_train", "stage1_tail_bwd")):
+            raise AssertionError(f"train --qat path: launches {launches}")
+        res["qat"] = qat
+        torch.cuda.empty_cache()
+        seg_tmp = os.path.join(tmp, "segnet")
+        os.makedirs(seg_tmp)
+        calib = generate_synthetic_kitti(os.path.join(tmp, "calib"), n_train=0, n_test=2,
+                                         seed=9)
+        seg, launches = drive("segnet_kitti use_bn --int8", drive_slice, torch, seg_tmp,
+                              BN_PRESET, BN_KW, ("--int8",),
+                              ("--calib-dir", os.path.join(calib, "testing", "image_2")))
+        runs.append(launches)
+        if not all(launches[k] for k in ("pool_argmax", "unpool", "overlay")) \
+                or launches["stage1_tail_segnet"]:
+            raise AssertionError(f"segnet_kitti use_bn --int8 path: launches {launches}")
+        res["segnet"] = seg
+        torch.cuda.empty_cache()
+        unet, launches = drive("unet_cityscapes infer_image --int8", drive_unet_int8,
+                               torch, tmp)
+        runs.append(launches)
+        if not launches["overlay"]:
+            raise AssertionError(f"unet_cityscapes --int8 path: launches {launches}")
+        torch.cuda.empty_cache()
+
+        png = os.path.join(tmp, "kitti_int8.png")
+        write_png(png, seed=12)
+        res["forms"] = check_int8_forms(torch, png)
+        res["fcn8s_kitti"] = time_int8_predictor(torch, smi, "fcn8s_kitti", png)
+        res["unet_cityscapes"] = time_int8_predictor(torch, smi, "unet_cityscapes",
+                                                     unet["png"])
+        res["segnet_kitti_bn"] = time_int8_predictor(torch, smi, BN_PRESET, png, BN_KW)
+        pred = _int8_predictor(torch, BN_PRESET, [png], BN_KW)
+        x = pred._to_device(np.asarray(Image.open(png).convert("RGB"))[None].copy())
+        # the same forward with the pool kernels and with their plain versions
+        with torch.inference_mode():
+            a = pred._padded_logits(x)
+            with plain_pools():
+                b = pred._padded_logits(x)
+        if not torch.equal(a, b):
+            raise AssertionError("segnet int8: the pool kernels change the logits")
+        log("segnet_kitti use_bn int8 forward with the argmax pool/unpool kernels: "
+            "logits bit-equal to the same forward with their plain versions")
+        del pred
+        torch.cuda.empty_cache()
+    res["steps"] = {w: time_train(torch, smi, w)
+                    for w in ("preset_quant_safe", "preset_qat", "preset")}
+    for r in res["steps"].values():
+        r.pop("by_op", None)
+    st = res["steps"]
+    log(f"int8 and QAT: Predictor device ms bf16 -> int8: fcn8s_kitti "
+        f"{res['fcn8s_kitti']['bf16_device_ms']:.3f} -> "
+        f"{res['fcn8s_kitti']['int8_device_ms']:.3f}, unet_cityscapes "
+        f"{res['unet_cityscapes']['bf16_device_ms']:.3f} -> "
+        f"{res['unet_cityscapes']['int8_device_ms']:.3f}, segnet_kitti use_bn "
+        f"{res['segnet_kitti_bn']['bf16_device_ms']:.3f} -> "
+        f"{res['segnet_kitti_bn']['int8_device_ms']:.3f}; train step device ms: preset "
+        f"{st['preset']['device_ms']:.2f}, quant-safe {st['preset_quant_safe']['device_ms']:.2f}"
+        f", --qat {st['preset_qat']['device_ms']:.2f} | {smi}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"int8 phase: {res['phase_s']:.1f} s")
+    log("int8 timings: " + json.dumps(res))
+    return runs, res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--grid-rank"]:     # a rank of check_grid's phase
         rank, world, store, job, out = sys.argv[2:7]
@@ -3860,6 +4446,7 @@ def main() -> int:
     unet_runs, unet = unet_phase(torch, smi, drive, gen)
     bn_runs, bn = bn_phase(torch, smi, drive)
     tta_runs, _ = tta_tiled_phase(torch, smi, drive)
+    int8_runs, _ = int8_phase(torch, smi, drive, gen)
 
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, sweep_launches,
@@ -3868,7 +4455,8 @@ def main() -> int:
                                         seg_infer_launches, seg_train_launches,
                                         w_infer_launches, w_train_launches,
                                         w_seg_launches, *spatial_runs, *dl_runs,
-                                        *unet_runs, *bn_runs, *tta_runs)
+                                        *unet_runs, *bn_runs, *tta_runs,
+                                        *int8_runs)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -14,7 +14,11 @@ are the port's parameters and buffers of the same names. Layouts:
 * biases: copied.
 
 Both directions are pure permutations of float32 values, so a round trip is
-bit-equal. No JAX import: flax arrays arrive as anything ``np.asarray`` takes.
+bit-equal. The JAX package's int8 trees (``infer/quant.py``
+``quantize_variables``) carry too: an int8 ``kernel`` is permuted as int8,
+its ``kernel_scale`` is the quantized module's ``weight_scale``
+(``ops/quant.py``). No JAX import: flax arrays arrive as anything
+``np.asarray`` takes.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn as nn
 from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import (
     ConvTranspose,
 )
+from semanticsegmentation_tensorflow_tpu_torch.ops.quant import QuantConvTranspose
 
 
 # the flax collections a model's variables may hold; their leaves share one
@@ -85,22 +90,33 @@ def to_variables(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
     return out
 
 
+_LEAVES = {"kernel": "weight", "kernel_scale": "weight_scale"}
+
+
 def torch_key(flax_key: str) -> str:
     """flax path ``a/b/kernel`` -> state-dict key ``a.b.weight``."""
     *path, leaf = flax_key.split("/")
-    return ".".join([*path, {"kernel": "weight"}.get(leaf, leaf)])
+    return ".".join([*path, _LEAVES.get(leaf, leaf)])
 
 
 def flax_key(torch_key: str) -> str:
     """The inverse of :func:`torch_key`."""
     *path, leaf = torch_key.split(".")
-    return "/".join([*path, {"weight": "kernel"}.get(leaf, leaf)])
+    inverse = {v: k for k, v in _LEAVES.items()}
+    return "/".join([*path, inverse.get(leaf, leaf)])
 
 
 def transposed_weights(model: nn.Module) -> set[str]:
-    """State-dict keys of the model's transposed-conv kernels."""
+    """State-dict keys of the model's transposed-conv kernels (float or
+    int8)."""
     return {f"{name}.weight" for name, m in model.named_modules()
-            if isinstance(m, ConvTranspose)}
+            if isinstance(m, (ConvTranspose, QuantConvTranspose))}
+
+
+def _leaf(a: np.ndarray) -> np.ndarray:
+    """A leaf as the port holds it: int8 kept, anything else float32."""
+    a = np.asarray(a)
+    return a if a.dtype == np.int8 else a.astype(np.float32, copy=False)
 
 
 def torch_layout(a: np.ndarray, transposed: bool) -> np.ndarray:
@@ -135,7 +151,7 @@ def to_state_dict(flat: Mapping[str, np.ndarray], model: nn.Module, *,
         if tk not in own:
             unused.append(fk)
             continue
-        a = torch_layout(np.asarray(v, dtype=np.float32), tk in transposed)
+        a = torch_layout(_leaf(v), tk in transposed)
         if tuple(a.shape) != tuple(own[tk].shape):
             raise ValueError(f"shape mismatch for {fk!r}: {a.shape} (converted) "
                              f"vs {tuple(own[tk].shape)} in the port model")
@@ -149,12 +165,14 @@ def to_state_dict(flat: Mapping[str, np.ndarray], model: nn.Module, *,
 
 def from_state_dict(state_dict: Mapping[str, torch.Tensor],
                     model: nn.Module) -> dict[str, np.ndarray]:
-    """A port ``state_dict`` -> flat flax params (float32 numpy), the
-    inverse of :func:`to_state_dict`. The arrays are copies: a later
+    """A port ``state_dict`` -> flat flax params (float32 numpy, int8 for
+    a quantized weight), the inverse of :func:`to_state_dict`. The arrays
+    are copies: a later
     in-place update of the model (an optimizer step, BatchNorm's running
     statistics) leaves them as they were."""
     transposed = transposed_weights(model)
     return {flax_key(tk): np.array(flax_layout(
-                t.detach().to("cpu", torch.float32).numpy(), tk in transposed),
+                _leaf(t.detach().cpu().float().numpy() if t.is_floating_point()
+                      else t.detach().cpu().numpy()), tk in transposed),
                 order="C")
             for tk, t in state_dict.items()}

@@ -123,6 +123,13 @@ class Conv(nn.Module):
     ``init_std``: None gives flax's lecun_normal kernel init, a number a
     normal(0, init_std) init (the FCN score convs). Biases start at zero.
     Parameters are created uninitialized: call :func:`init_params`.
+
+    ``qat`` (set by ``infer.quant.fake_quantize``): quantization-aware
+    training, the JAX package's ``make_fake_quant_apply`` for this conv: the
+    weight on its per-channel int8 grid and the input on its per-tensor grid
+    at ``act_scale`` (none where that is None), both with straight-through
+    gradients (``ops.quant``), then the conv in the compute dtype, the bias
+    added in float32 and one rounding. The parameters stay the same.
     """
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
@@ -136,6 +143,8 @@ class Conv(nn.Module):
         self.padding = dilation * (kernel_size - 1) // 2
         self.dtype = dtype
         self.init_std = init_std
+        self.qat = False
+        self.act_scale: float | None = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         if self.init_std is None:
@@ -153,6 +162,14 @@ class Conv(nn.Module):
                          padding=self.padding, dilation=self.dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qat:
+            from semanticsegmentation_tensorflow_tpu_torch.ops.quant import (
+                fake_quant_act, fake_quant_weight,
+            )
+            y = conv_nhwc(fake_quant_act(x, self.act_scale),
+                          fake_quant_weight(self.weight), dtype=self.dtype,
+                          padding=self.padding, dilation=self.dilation)
+            return (y.float() + self.bias.float()).to(self.dtype)
         return self.conv(x) + self.bias.to(self.dtype)
 
 
@@ -426,7 +443,11 @@ class ConvBlock(nn.Module):
     kernel 6, ``"f2x"`` / ``"f4x"`` through the materialized form
     (:func:`winograd_impl`); the same parameters either way. A BN block
     keeps the direct conv (conv + bias, :class:`BatchNorm`, relu), as the
-    JAX package's does (``models/common.py:113-138``)."""
+    JAX package's does (``models/common.py:113-138``). Without a Winograd
+    flag, or with BN, each conv runs as its module (``relu(conv(x))``, the
+    arithmetic of :func:`conv3x3_bias_relu`'s direct conv), where int8
+    serving and quantization-aware training find it, as the JAX block calls
+    ``nn.Conv``."""
 
     def __init__(self, in_features: int, features: int, n_convs: int = 2, *,
                  dilation: int = 1, winograd: str | None = None,
@@ -451,10 +472,12 @@ class ConvBlock(nn.Module):
         for i, conv in enumerate(self.convs()):
             if self.use_bn:
                 x = torch.relu(getattr(self, f"bn{i}")(conv(x)))
-                continue
-            x = conv3x3_bias_relu(x, conv.weight, conv.bias, dtype=conv.dtype,
-                                  dilation=conv.dilation,
-                                  winograd=self.winograd)
+            elif self.winograd:
+                x = conv3x3_bias_relu(x, conv.weight, conv.bias, dtype=conv.dtype,
+                                      dilation=conv.dilation,
+                                      winograd=self.winograd)
+            else:
+                x = torch.relu(conv(x))
         return x
 
 

@@ -82,8 +82,12 @@ class FCN8s(nn.Module):
         s7 = self.score_conv7(ends["conv7"])              # /32
         if self.variant == 32:
             return self.up32_final(s7).float()            # /1
-        x = self.up2_conv7(s7) + self.score_pool4(ends["pool4"])   # /16
+        # each score conv before the up-conv it is added to: the JAX
+        # model's call order, which the int8 path lists the convs in
+        s4 = self.score_pool4(ends["pool4"])
+        x = self.up2_conv7(s7) + s4                       # /16
         if self.variant == 16:
             return self.up16_final(x).float()
-        x = self.up2_fuse4(x) + self.score_pool3(ends["pool3"])    # /8
+        s3 = self.score_pool3(ends["pool3"])
+        x = self.up2_fuse4(x) + s3                        # /8
         return self.up8_final(x).float()                  # /1

@@ -48,24 +48,73 @@ def spmd_safe_kwargs(name: str) -> dict[str, Any]:
     return {}
 
 
+def _merge_safe(table: dict[str, Any], kwargs: dict[str, Any],
+                 conflict: str) -> dict[str, Any]:
+    """``table`` into ``kwargs`` with setdefault semantics (the user's
+    explicit value wins), warning with ``conflict`` (formatted with ``k``,
+    ``mine`` and ``safe``) on each flag whose explicit value differs."""
+    import warnings
+
+    for k, v in table.items():
+        if k in kwargs and kwargs[k] != v:
+            warnings.warn(conflict.format(k=k, mine=kwargs[k], safe=v),
+                          stacklevel=3)
+        kwargs.setdefault(k, v)
+    return kwargs
+
+
 def merge_spmd_safe_kwargs(name: str, kwargs: dict[str, Any]) -> dict[str, Any]:
     """Merge :func:`spmd_safe_kwargs` into user kwargs for a spatial grid,
     warning on any conflict instead of silently dropping or silently keeping
     the user's choice. The user's explicit value still wins (setdefault
     semantics), so the failure, if any, is the raise of a layer that cannot
     run on split rows, preceded by a warning that names the flag."""
-    import warnings
+    return _merge_safe(
+        spmd_safe_kwargs(name), kwargs,
+        "model kwarg {k}={mine!r} has no halo exchange under a "
+        "spatially-partitioned (2-D) grid; the SPMD-safe value is "
+        "{k}={safe!r}. Keeping your explicit choice; expect an error "
+        "if this path is exercised.")
 
-    for k, v in spmd_safe_kwargs(name).items():
-        if k in kwargs and kwargs[k] != v:
-            warnings.warn(
-                f"model kwarg {k}={kwargs[k]!r} has no halo exchange under a "
-                f"spatially-partitioned (2-D) grid; the SPMD-safe value is "
-                f"{k}={v!r}. Keeping your explicit choice; expect an error "
-                f"if this path is exercised.",
-                stacklevel=2)
-        kwargs.setdefault(k, v)
-    return kwargs
+
+def quant_safe_kwargs(name: str) -> dict[str, Any]:
+    """Model kwargs under which every conv runs as its ``Conv`` /
+    ``ConvTranspose`` module, where int8 serving and quantization-aware
+    training find it (``infer/quant.py``); the JAX package's table
+    (``models/registry.py:79-102``). In the port they turn off the fused
+    stage1 kernels (``packed_stage1``; kernels 1, 1b and 3), the Winograd
+    forms (``winograd``, ``winograd_fc6``), the deferred pool bias and the
+    ASPP's split projection, each of which reads its conv's weight outside
+    the module. ``packed_stage2_entry``, ``fast_upsample``, ``packed_dec1``,
+    ``packed_dec2``, ``packed_stage0`` and ``fast_upconv`` are TPU layouts
+    of the same function here; they stay in the table so that a conflict is
+    named as the JAX package names it. The parameters, and so the
+    checkpoints, are the same either way."""
+    if name in ("fcn8s", "fcn16s", "fcn32s"):
+        return {"packed_stage1": False, "packed_stage2_entry": False,
+                "deferred_pool_bias": False, "fast_upsample": False,
+                "winograd": None, "winograd_fc6": False}
+    if name == "segnet":
+        return {"packed_stage1": False, "packed_dec1": False,
+                "packed_dec2": False, "winograd": None}
+    if name == "unet":
+        return {"packed_stage0": False, "fast_upconv": False,
+                "winograd": None}
+    if name == "deeplab":
+        return {"packed_stage1": False, "deferred_pool_bias": False,
+                "aspp_split_proj": False, "winograd": None}
+    return {}
+
+
+def merge_quant_safe_kwargs(name: str, kwargs: dict[str, Any]) -> dict[str, Any]:
+    """Merge :func:`quant_safe_kwargs` into user kwargs for an int8 or QAT
+    path (as :func:`merge_spmd_safe_kwargs`: warn on a conflict, the user's
+    explicit value wins)."""
+    return _merge_safe(
+        quant_safe_kwargs(name), kwargs,
+        "model kwarg {k}={mine!r} keeps a packed/fused path the int8/QAT "
+        "module swap cannot see; quantization will skip those convs. The "
+        "quant-safe value is {k}={safe!r}. Keeping your explicit choice.")
 
 
 def padded_input_hw(model: nn.Module,

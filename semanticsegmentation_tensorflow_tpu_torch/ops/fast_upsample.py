@@ -47,7 +47,9 @@ class ConvTranspose(nn.Module):
     flipped relative to flax's kernel); ``bias`` [features]. Init:
     normal(0, init_std) kernels (the FCN decoder's), or with ``init_std``
     None flax's lecun_normal over the fan-in k * k * in_features (flax
-    ``nn.ConvTranspose``'s default); zero biases."""
+    ``nn.ConvTranspose``'s default); zero biases. ``qat`` and
+    ``act_scale``: quantization-aware training, as ``models.common.Conv``
+    has them (the weight's grid per output channel, dim 1)."""
 
     def __init__(self, in_features: int, features: int, stride: int, *,
                  kernel_size: int | None = None,
@@ -67,6 +69,8 @@ class ConvTranspose(nn.Module):
         self.kernel_size = k
         self.dtype = dtype
         self.init_std = init_std
+        self.qat = False
+        self.act_scale: float | None = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         if self.init_std is None:
@@ -79,9 +83,21 @@ class ConvTranspose(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qat:
+            from semanticsegmentation_tensorflow_tpu_torch.ops.quant import (
+                fake_quant_act, fake_quant_weight,
+            )
+            y = self.transpose(fake_quant_act(x, self.act_scale),
+                               fake_quant_weight(self.weight, transposed=True))
+            return (y.float() + self.bias.float()).to(self.dtype)
+        return self.transpose(x, self.weight) + self.bias.to(self.dtype)
+
+    def transpose(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The transposed conv of NHWC ``x`` by ``w`` without the bias, both
+        in the compute dtype; NHWC out."""
         s = self.stride
         x = x.to(self.dtype)
-        w = self.weight.to(self.dtype)
+        w = w.to(self.dtype)
         grid = spatial_grid()
         if self.kernel_size == s:          # no tap overlap: rows stay local
             y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=s)
@@ -95,4 +111,4 @@ class ConvTranspose(nn.Module):
                                    padding=(0, s // 2))
             # extended output row o' is the image's row o' - s - s/2
             y = y[:, :, s + s // 2:s + s // 2 + h * s]
-        return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)
+        return y.permute(0, 2, 3, 1)

@@ -1,6 +1,7 @@
 """Shared CLI pieces of the port's entry points: device selection, the
 model flags, and building a Predictor from a preset plus weights (a
-state_dict file, or the port's own training checkpoints)."""
+state_dict file, or the port's own training checkpoints), int8-quantized
+with ``--int8`` (``infer/quant.py``)."""
 
 from __future__ import annotations
 
@@ -11,9 +12,8 @@ import sys
 import torch
 
 # flags of the JAX package's serving CLIs that the port does not implement
-# yet (by their argparse names: --calib-dir is serve's); scripts/test.py has
-# only --int8 and --mesh of them
-UNPORTED_FLAGS = ("int8", "mesh", "artifact", "calib_dir")
+# yet (by their argparse names); scripts/test.py has only --mesh of them
+UNPORTED_FLAGS = ("mesh", "artifact")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -47,6 +47,10 @@ def add_model_args(p: argparse.ArgumentParser,
     p.add_argument("--ema", action="store_true",
                    help="serve the EMA params of --checkpoint-dir (trained "
                         "with --ema-decay)")
+    p.add_argument("--int8", action="store_true",
+                   help="post-training int8 forward (per-channel weights, "
+                        "per-tensor activations; infer/quant.py), BatchNorm "
+                        "folded first")
     for flag in unported:
         p.add_argument("--" + flag.replace("_", "-"), default=None,
                        nargs="?", const=True, help="not ported yet (raises)")
@@ -82,25 +86,38 @@ def load_checkpoint_weights(directory: str, use_ema: bool,
     return load_weights(directory, use_ema=use_ema, map_location=device)
 
 
-def build_served_model(args: argparse.Namespace, device: torch.device):
+def build_served_model(args: argparse.Namespace, device: torch.device, *,
+                       calib_paths=(), act_scales=None,
+                       int8_label: str = "int8 serving"):
     """Preset + ``--model-kw`` -> (model on ``device`` with ``--weights`` or
     ``--checkpoint-dir``, or seeded random init with a warning; the preset's
     DataConfig). A BatchNorm model's running statistics come with its
     weights (a port checkpoint's EMA parameters are served beside the live
-    statistics)."""
+    statistics).
+
+    With ``--int8`` the model is built with the quant-safe kwargs and
+    quantized (``infer.quant.quantize_for_inference``: BatchNorm folded,
+    then the activation scales ``act_scales``, e.g. a QAT run's, or those
+    calibrated on the images ``calib_paths``, weight-only with neither), and
+    ``"<int8_label>: N activation scales"`` is printed."""
     from semanticsegmentation_tensorflow_tpu_torch.config import (
         get_preset, parse_model_kw,
     )
-    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+        build_model, merge_quant_safe_kwargs,
+    )
     from semanticsegmentation_tensorflow_tpu_torch.models.common import (
         init_params,
     )
 
     cfg = get_preset(args.preset)
     dc = cfg.data
+    name = args.model or cfg.model
     model_kwargs = dict(cfg.model_kwargs, **parse_model_kw(args.model_kw))
-    model = build_model(args.model or cfg.model, num_classes=dc.num_classes,
-                        device=device, **model_kwargs)
+    if args.int8:   # every conv a module the quantization can replace
+        model_kwargs = merge_quant_safe_kwargs(name, model_kwargs)
+    model = build_model(name, num_classes=dc.num_classes, device=device,
+                        **model_kwargs)
     if args.checkpoint_dir is not None:
         model.load_state_dict(load_checkpoint_weights(
             args.checkpoint_dir, args.ema, device), strict=True)
@@ -112,11 +129,22 @@ def build_served_model(args: argparse.Namespace, device: torch.device):
         print("warning: no --weights given; using seeded random weights",
               file=sys.stderr)
         init_params(model, torch.Generator(device=device).manual_seed(0))
+    if args.int8:
+        from semanticsegmentation_tensorflow_tpu_torch.infer import quant
+
+        calib = quant.calib_batches_from_files(
+            list(calib_paths), dc.image_size, dc.mean, dc.std,
+            getattr(model, "total_stride", 32), device=device) or None
+        model, scales = quant.quantize_for_inference(model, calib,
+                                                     act_scales=act_scales)
+        print(f"{int8_label}: {len(scales)} activation scales"
+              + (" (weight-only)" if not scales else ""))
     return model, dc
 
 
-def build_predictor(args: argparse.Namespace, device: torch.device):
-    """:func:`build_served_model` -> Predictor, painting with the preset
+def build_predictor(args: argparse.Namespace, device: torch.device, **int8):
+    """:func:`build_served_model` (``int8``: its quantization arguments) ->
+    Predictor, painting with the preset
     dataset's palette (Cityscapes' 19 colours for ``unet_cityscapes``; the
     JAX CLIs pass KITTI's two-colour palette whatever the model, which
     paints every class above 0 green)."""
@@ -125,7 +153,7 @@ def build_predictor(args: argparse.Namespace, device: torch.device):
     )
     from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
 
-    model, dc = build_served_model(args, device)
+    model, dc = build_served_model(args, device, **int8)
     return Predictor(model, dc.image_size, device=device, mean=dc.mean,
                      std=dc.std, overlay_palette=overlay_palette(dc.dataset),
                      alpha=args.alpha)

@@ -17,9 +17,12 @@ the latest); an orbax checkpoint of the JAX package converts with
 ``tools/convert_checkpoint_to_torch.py``. ``--device`` defaults to cuda and
 raises without a card. ``--tta`` averages the flipped variant's
 probabilities with the plain one's, at each of ``--tta-scales`` (default
-1.0; ``infer/tta.py``). The JAX CLI's int8 and multi-device flags parse
-with their defaults and raise ``NotImplementedError`` when set away from
-them.
+1.0; ``infer/tta.py``). ``--int8`` evaluates the int8 model
+(``infer/quant.py``: BatchNorm folded, per-channel int8 weights, per-tensor
+activations at the checkpoint's ``qat_scales.json`` where a ``--qat`` run
+wrote one, else calibrated on the first ``--calib-batches`` batches, 0:
+weight-only). The JAX CLI's multi-device flags parse with their defaults
+and raise ``NotImplementedError`` when set away from them.
 """
 
 from __future__ import annotations
@@ -30,9 +33,7 @@ import time
 
 # the JAX CLI's flags that the port does not implement yet, with their
 # argparse settings there
-UNPORTED = (("--int8", dict(action="store_true")),
-            ("--calib-batches", dict(type=int, default=4)),
-            ("--mesh", dict(action="store_true")),
+UNPORTED = (("--mesh", dict(action="store_true")),
             ("--distributed", dict(action="store_true")),
             ("--coordinator", dict(default=None)),
             ("--num-processes", dict(type=int, default=None)),
@@ -67,6 +68,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--tta-scales", default=None,
                    help="comma-separated TTA scales, e.g. 0.75,1.0,1.25 "
                         "(implies --tta; default 1.0)")
+    p.add_argument("--int8", action="store_true",
+                   help="post-training int8 quantization (per-channel "
+                        "weights, calibrated per-tensor activations); reports "
+                        "the int8 serving path's metrics")
+    p.add_argument("--calib-batches", type=int, default=4,
+                   help="calibration batches for --int8 (0 = weight-only)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda raises without a card")
     for flag, kw in UNPORTED:
@@ -93,7 +100,10 @@ def main(argv=None) -> int:
         normalize_images,
     )
     from semanticsegmentation_tensorflow_tpu_torch.data.pipeline import BatchLoader
-    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.infer import quant
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+        build_model, merge_quant_safe_kwargs,
+    )
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
         load_checkpoint_weights, resolve_device,
     )
@@ -108,9 +118,12 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     cfg = get_preset(args.preset)
     dc = cfg.data
+    name = args.model or cfg.model
     model_kwargs = dict(cfg.model_kwargs, **parse_model_kw(args.model_kw))
-    model = build_model(args.model or cfg.model, num_classes=dc.num_classes,
-                        device=device, **model_kwargs)
+    if args.int8:   # every conv a module the quantization can replace
+        model_kwargs = merge_quant_safe_kwargs(name, model_kwargs)
+    model = build_model(name, num_classes=dc.num_classes, device=device,
+                        **model_kwargs)
     model.load_state_dict(load_checkpoint_weights(args.checkpoint_dir, args.ema,
                                                   device))
     model.eval()
@@ -123,9 +136,32 @@ def main(argv=None) -> int:
                        split=split)
     n_images = len(ds.train_images)
     print(f"evaluating split={split!r} ({n_images} images)")
-    loader = BatchLoader(ds, args.batch_size,
-                         pad_multiple=getattr(model, "total_stride", 32),
-                         device=device, drop_remainder=False)
+
+    def make_loader():
+        return BatchLoader(ds, args.batch_size,
+                           pad_multiple=getattr(model, "total_stride", 32),
+                           device=device, drop_remainder=False)
+
+    loader = make_loader()
+    quant.warn_qat_fp_eval(args.checkpoint_dir, args.int8, verb="evaluating")
+    if args.int8:
+        calib = None
+        scales_path, qat_scales = quant.checkpoint_act_scales(args.checkpoint_dir)
+        if qat_scales is not None:
+            # a QAT run persisted its training grid: evaluate on it
+            print(f"int8: QAT scales from {scales_path}")
+        elif args.calib_batches > 0:
+            batches = make_loader().epoch()   # its own order, as JAX's
+            try:
+                calib = [normalize_images(b["image"], dc.mean, dc.std)
+                         for _, b in zip(range(args.calib_batches), batches)]
+            finally:
+                batches.close()
+        model, scales = quant.quantize_for_inference(model, calib,
+                                                     act_scales=qat_scales)
+        print(f"int8: {quant.quantized_count(model)} convs quantized, "
+              f"{len(scales)} activation scales"
+              + (" (weight-only)" if not scales else ""))
     if args.road_metrics and dc.num_classes != 2:
         print("note: --road-metrics needs a binary model; ignored")
         args.road_metrics = False

@@ -6,7 +6,9 @@
 
 The image is resized to the preset's size, or with ``--tiled`` kept at its
 own size and covered by overlapped tiles of that size whose probabilities
-are summed where they overlap (``infer/window.py``).
+are summed where they overlap (``infer/window.py``). ``--int8`` runs the
+int8 forward with its activation scales calibrated on the input image
+itself (``infer/quant.py``).
 """
 
 from __future__ import annotations
@@ -40,13 +42,15 @@ def main(argv=None) -> int:
 
     from PIL import Image
 
+    # --int8: the activation scales are calibrated on this image
+    int8 = dict(calib_paths=[args.image], int8_label="int8")
     if args.tiled:
         from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
             overlay_palette,
         )
         from semanticsegmentation_tensorflow_tpu_torch.infer import TiledPredictor
 
-        model, dc = build_served_model(args, device)
+        model, dc = build_served_model(args, device, **int8)
         predictor = TiledPredictor(model, dc.image_size, device=device,
                                    overlap=args.tile_overlap, mean=dc.mean,
                                    std=dc.std,
@@ -58,7 +62,8 @@ def main(argv=None) -> int:
               f"grid {predictor.grid[0]}x{predictor.grid[1]} tiles of "
               f"{predictor.tile[0]}x{predictor.tile[1]}")
     else:
-        overlay, labels = build_predictor(args, device).predict_file(args.image)
+        overlay, labels = build_predictor(args, device, **int8).predict_file(
+            args.image)
     Image.fromarray(overlay).save(args.out)
     road_frac = float(np.mean(labels != 0))
     print(f"wrote {args.out} (non-background fraction {road_frac:.3f})")

@@ -2,7 +2,8 @@
 label map) out. Same request contract as the JAX package's scripts/serve.py.
 
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.serve \
-        --preset fcn8s_kitti --weights fcn8s.pt --port 8500
+        --preset fcn8s_kitti --weights fcn8s.pt --port 8500 \
+        [--int8 [--calib-dir calib_images/]]
 
     curl -s -X POST --data-binary @image.png localhost:8500/segment > out.png
     curl -s -X POST --data-binary @image.png localhost:8500/labels > labels.png
@@ -107,6 +108,10 @@ def make_server(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__)
     add_model_args(p)
+    p.add_argument("--calib-dir", default=None,
+                   help="directory of images (its first 16 png/jpg/jpeg) to "
+                        "calibrate --int8's activation scales on; without it "
+                        "--int8 is weight-only")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8500)
     p.add_argument("--warmup", action=argparse.BooleanOptionalAction,
@@ -126,7 +131,15 @@ def make_server(argv=None):
         encode_png,
     )
 
-    predictor = build_predictor(args, device)
+    calib = []
+    if args.int8 and args.calib_dir:
+        import glob
+        import os
+
+        calib = sorted(q for ext in ("png", "jpg", "jpeg")
+                       for q in glob.glob(os.path.join(args.calib_dir,
+                                                       f"*.{ext}")))[:16]
+    predictor = build_predictor(args, device, calib_paths=calib)
     if args.warmup:  # pay the kernel and segio builds, cuDNN setup
         hs, ws = predictor.image_size
         dummy = np.zeros((hs, ws, 3), np.uint8)

@@ -6,6 +6,10 @@ package's scripts/test.py, which reads KITTI's layout for every preset.
 
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.test \
         --preset fcn8s_kitti --data-dir data_road --weights fcn8s.pt --batch 8
+
+``--int8`` sweeps with the int8 model (``infer/quant.py``): its activation
+scales are the checkpoint's ``qat_scales.json`` where a ``--qat`` run wrote
+one, else calibrated on the first ``--calib`` test images (0: weight-only).
 """
 
 from __future__ import annotations
@@ -14,9 +18,6 @@ import argparse
 import os
 import sys
 import time
-
-JAX_CALIB_DEFAULT = 8
-
 
 def devkit_name(image_path: str) -> str:
     """The devkit's file name of an image's confidence map:
@@ -33,14 +34,13 @@ def main(argv=None) -> int:
     )
 
     p = argparse.ArgumentParser(description=__doc__)
-    add_model_args(p, unported=("int8", "mesh"))
+    add_model_args(p, unported=("mesh",))
     p.add_argument("--data-dir", default=None)
     p.add_argument("--runs-dir", default="runs")
     p.add_argument("--batch", type=int, default=1,
                    help="images per forward (the reference runs one at a time)")
-    p.add_argument("--calib", type=int, default=JAX_CALIB_DEFAULT,
-                   help="calibration images for --int8 (not ported yet: raises "
-                        "when set away from its default)")
+    p.add_argument("--calib", type=int, default=8,
+                   help="calibration images for --int8 (0 = weight-only)")
     p.add_argument("--confidence", action="store_true",
                    help="KITTI road devkit submission mode: uint8 road "
                         "confidence PNGs (round(P(road)*255), named "
@@ -48,8 +48,6 @@ def main(argv=None) -> int:
                         "(binary models only)")
     args = p.parse_args(argv)
     check_unported(args)
-    if args.calib != JAX_CALIB_DEFAULT:
-        raise NotImplementedError("not ported yet: --calib (int8 calibration)")
     device = resolve_device(args.device)
 
     import numpy as np
@@ -65,7 +63,18 @@ def main(argv=None) -> int:
     dc = get_preset(args.preset).data
     # the dataset's test images: KITTI's testing/image_2, Cityscapes' val split
     ds = build_dataset(dc.dataset, args.data_dir or dc.data_dir, dc.image_size)
-    predictor = build_predictor(args, device)
+    from semanticsegmentation_tensorflow_tpu_torch.infer import quant
+
+    quant.warn_qat_fp_eval(args.checkpoint_dir, args.int8, verb="running")
+    calib, qat_scales = [], None
+    if args.int8:
+        sp, qat_scales = quant.checkpoint_act_scales(args.checkpoint_dir)
+        if qat_scales is not None:
+            print(f"int8: QAT scales from {sp}")
+        elif args.calib > 0:
+            calib = ds.test_images[:args.calib]
+    predictor = build_predictor(args, device, calib_paths=calib,
+                                act_scales=qat_scales)
     t0, n = time.perf_counter(), 0
     if args.confidence:
         out_dir = os.path.join(args.runs_dir,

@@ -33,6 +33,12 @@ whenever the validation mIoU improves. ``--vgg-weights`` imports an
 ``.npz`` of VGG16 weights (``models/vgg16.py:load_npz_weights``) before the
 EMA copy is taken. Checkpoints (``<checkpoint-dir>/ckpt_<step>.pt``) are
 read back by ``infer_image``/``serve``/``eval --checkpoint-dir``.
+``--qat`` trains quantization-aware (``infer/quant.py`` ``fake_quantize``:
+the quant-safe model kwargs, each conv's weight and input on their int8
+grids with straight-through gradients) at the activation scales of
+``<checkpoint-dir>/qat_scales.json``, which the first ``--qat`` run
+calibrates on ``--qat-calib-batches`` batches and writes; ``eval``/``test``
+``--int8`` read them. It runs on one rank.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ import tempfile
 
 # flags of the JAX CLI that the port does not implement yet: each raises
 # when set away from its default
-UNPORTED = {"shard_opt": False, "qat": False, "qat_calib_batches": 4}
+UNPORTED = {"shard_opt": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,6 +83,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="k sequential microbatches, one optimizer update")
     p.add_argument("--loss", default="ce", choices=("ce", "focal"))
     p.add_argument("--focal-gamma", type=float, default=2.0)
+    p.add_argument("--qat", action="store_true",
+                   help="quantization-aware training: fake-quantize conv "
+                        "weights (per-channel int8 grid) and inputs (the "
+                        "calibrated per-tensor grid) with straight-through "
+                        "gradients, so that --int8 serving matches the "
+                        "trained forward; typically after float training "
+                        "(--resume). Scales persist to "
+                        "<checkpoint-dir>/qat_scales.json")
+    p.add_argument("--qat-calib-batches", type=int, default=4,
+                   help="batches that calibrate the QAT activation scales "
+                        "when qat_scales.json does not exist yet")
     p.add_argument("--pallas-preprocess", action="store_true",
                    help="flip + crop + normalize with the CUDA preprocess "
                         "kernel (bit-equal to its plain version)")
@@ -242,6 +259,15 @@ def main(argv=None) -> int:
             merge_spmd_safe_kwargs,
         )
         model_kwargs = merge_spmd_safe_kwargs(cfg.model, model_kwargs)
+    if args.qat:
+        # QAT trains under the serving grid: every conv must be a module the
+        # fake quantization reaches, as int8 serving rebuilds the model
+        if world > 1:
+            raise NotImplementedError("--qat on more than one rank")
+        from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+            merge_quant_safe_kwargs,
+        )
+        model_kwargs = merge_quant_safe_kwargs(cfg.model, model_kwargs)
     # the model's total stride, from a build without storage
     stride = getattr(build_model(cfg.model, num_classes=dc.num_classes,
                                  device="meta", **model_kwargs),
@@ -360,6 +386,25 @@ def main(argv=None) -> int:
         state = ckpt.restore(state)
         if primary:
             print(f"resumed at step {state.step}")
+    if args.qat:
+        from semanticsegmentation_tensorflow_tpu_torch.infer import quant
+
+        scales_path, scales = quant.checkpoint_act_scales(tr.checkpoint_dir)
+        if scales is not None:
+            print(f"QAT: {len(scales)} activation scales from {scales_path}")
+        else:
+            batches = loader.epoch()
+            try:
+                calib = [normalize_images(b["image"], dc.mean, dc.std)
+                         for _, b in zip(range(args.qat_calib_batches), batches)]
+            finally:
+                batches.close()
+            scales = quant.calibrate_act_scales(model, calib)
+            os.makedirs(tr.checkpoint_dir, exist_ok=True)
+            quant.save_act_scales(scales_path, scales)
+            print(f"QAT: calibrated {len(scales)} activation scales -> "
+                  f"{scales_path}")
+        quant.fake_quantize(model, scales)
     if not primary:           # rank 0 alone writes checkpoints and logs
         ckpt = None
 

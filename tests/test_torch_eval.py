@@ -300,7 +300,10 @@ def test_eval_cli_guards(tmp_path, monkeypatch, capsys, extra, err, match):
     cuda raises without a card (never drops to the CPU); an orbax
     directory points at the conversion tool. --tta and --tta-scales raised
     so until test-time augmentation was ported: they now evaluate, printing
-    the JAX CLI's ``TTA eval:`` line."""
+    the JAX CLI's ``TTA eval:`` line. --int8 and --calib-batches raised so
+    until int8 was ported: --int8 now evaluates the int8 model calibrated
+    on the default 4 batches, and with --calib-batches 8 on every batch
+    there is (the JAX CLI's ``int8:`` line; 21 convs of FCN-8s)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data, ck = _eval_cli_setup(tmp_path)
     (tmp_path / "EMPTY").mkdir()
@@ -308,6 +311,11 @@ def test_eval_cli_guards(tmp_path, monkeypatch, capsys, extra, err, match):
     extra = [str(tmp_path / a) if a in ("EMPTY", "ORBAX") else a for a in extra]
     argv = ["--device", "cpu", "--model-kw", KW, "--data-dir", data,
             "--checkpoint-dir", ck] + extra
+    if match in ("--int8", "--calib-batches"):
+        assert eval_cli.main(argv + ["--int8"] * (match == "--calib-batches")) == 0
+        assert "int8: 21 convs quantized, 21 activation scales" in \
+            capsys.readouterr().out.splitlines()
+        return
     if match.startswith("--tta"):
         assert eval_cli.main(argv) == 0
         scales = "[0.75, 1.0]" if match == "--tta-scales" else "[1.0]"

@@ -168,14 +168,22 @@ def test_infer_image_cli_with_weights_file(tmp_path):
     (["--device", "cpu", "--tile-overlap", "64"], NotImplementedError),
     (["--device", "cpu", "--checkpoint-dir", "ckpt"], NotImplementedError),
 ])
-def test_cli_guards(entry, extra, err, monkeypatch, tmp_path):
+def test_cli_guards(entry, extra, err, monkeypatch, tmp_path, capsys):
     """--device cuda raises when no card is present (never drops to the
     CPU); unported flags raise before any model is built, naming the flag; a
     --checkpoint-dir of the JAX package's orbax checkpoints (step
     subdirectories) raises with the conversion hint. --tiled and
     --tile-overlap raised so until tiled inference was ported: infer_image
     now runs them (narrow, seeded weights), and serve refuses them in
-    argparse, as the JAX package's serve.py, which has neither."""
+    argparse, as the JAX package's serve.py, which has neither. --int8 and
+    --calib-dir raised so until int8 serving was ported: infer_image --int8
+    now calibrates on its image, serve --int8 is weight-only and with
+    --calib-dir calibrates on that directory's images (17 convs of a narrow
+    FCN-32s), and infer_image refuses --calib-dir in argparse, as the JAX
+    package's infer_image.py, which has no such flag."""
+    from semanticsegmentation_tensorflow_tpu_torch.infer.quant import (
+        quantized_count,
+    )
     from semanticsegmentation_tensorflow_tpu_torch.scripts import (
         infer_image, serve,
     )
@@ -185,6 +193,28 @@ def test_cli_guards(entry, extra, err, monkeypatch, tmp_path):
     (tmp_path / "ckpt" / "1").mkdir(parents=True)
     argv = extra + (["--image", "x.png"] if entry == "infer_image" else [])
     fn = infer_image.main if entry == "infer_image" else serve.make_server
+    if "--int8" in extra or "--calib-dir" in extra:
+        if entry == "infer_image" and "--calib-dir" in extra:
+            with pytest.raises(SystemExit):
+                fn(argv)
+            return
+        (tmp_path / "imgs").mkdir()
+        for name in ("x.png", "imgs/a.png", "imgs/b.png"):
+            Image.fromarray(np.random.default_rng(len(name)).integers(
+                0, 256, (45, 70, 3), np.uint8)).save(tmp_path / name)
+        narrow = ["--model", "fcn32s", "--model-kw", "fc_features=32,width_mult=0.25"]
+        if entry == "infer_image":
+            assert fn(argv + narrow) == 0
+            assert Image.open(tmp_path / "overlay.png").size == (1242, 375)
+            want = "int8: 17 activation scales"
+        else:
+            server, _ = fn(argv + narrow + ["--int8", "--port", "0", "--no-warmup"])
+            server.server_close()
+            assert quantized_count(server.predictor.model) == 17
+            want = ("int8 serving: 17 activation scales" if "imgs/" in extra
+                    else "int8 serving: 0 activation scales (weight-only)")
+        assert want in capsys.readouterr().out.splitlines()
+        return
     if extra[-1] in ("--tiled", "64"):
         if entry == "serve":
             with pytest.raises(SystemExit):

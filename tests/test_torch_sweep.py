@@ -187,14 +187,32 @@ def test_test_cli_overlays_and_confidence(cli_setup, capsys):
     (["--tiled"], SystemExit, None),
     (["--device", "cuda"], RuntimeError, "no CUDA"),
 ])
-def test_test_cli_guards(extra, err, match, monkeypatch):
-    """--int8 and --mesh (and --calib away from the JAX default 8) raise
-    before any model is built, naming the flag; a flag the JAX sweep does
-    not have fails in argparse; --device cuda without a card raises."""
+def test_test_cli_guards(extra, err, match, monkeypatch, tmp_path, capsys):
+    """--mesh raises before any model is built, naming the flag; a flag the
+    JAX sweep does not have fails in argparse; --device cuda without a card
+    raises. --int8 and --calib raised so until int8 was ported: --int8 now
+    sweeps the int8 model calibrated on the first 8 (here both) test images,
+    and --int8 --calib 4 too (the ``int8 serving:`` line, 17 convs of a
+    narrow FCN-32s; one file an image)."""
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
     from semanticsegmentation_tensorflow_tpu_torch.scripts import test as test_cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["--device", "cpu", "--data-dir", "/nonexistent", *extra]
+    if match in ("--int8", "--calib"):
+        data = generate_synthetic_kitti(str(tmp_path / "kitti"), n_train=0,
+                                        n_test=2, h=40, w=64)
+        argv = ["--device", "cpu", "--data-dir", data, "--runs-dir",
+                str(tmp_path / "runs"), "--model", "fcn32s", "--model-kw",
+                "fc_features=32,width_mult=0.25", "--int8",
+                *(a for a in extra if a != "--int8")]
+        assert test_cli.main(argv) == 0
+        out = capsys.readouterr().out.splitlines()
+        assert "int8 serving: 17 activation scales" in out
+        assert out[-1].startswith("2 images in ")
+        return
     with pytest.raises(err, match=match):
         test_cli.main(argv)
 

@@ -414,15 +414,31 @@ def test_train_cli_then_infer_image_from_its_checkpoint(tmp_path, capsys):
       "/nonexistent", "--device", "cpu"], FileNotFoundError,
      "note: --scale-jitter needs"),
 ])
-def test_train_cli_guards(argv, err, out, monkeypatch, capsys):
+def test_train_cli_guards(argv, err, out, monkeypatch, capsys, tmp_path):
     """Unported flags raise before any work, naming the flag; --device cuda
     raises without a card (never drops to the CPU); a bad --data-dir fails
     fast; --keep-best without --val-frac and a --val-frac that leaves no
     training image are usage errors; a malformed --color-jitter raises;
-    --scale-jitter under --spatial is ignored with the JAX CLI's note."""
+    --scale-jitter under --spatial is ignored with the JAX CLI's note.
+    --qat and --qat-calib-batches raised so until quantization-aware
+    training was ported: --qat now trains 2 steps (narrow FCN-32s,
+    synthetic data) after calibrating on the default 4 (here both) batches,
+    and with --qat-calib-batches 8 too, and writes qat_scales.json."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if argv[0].startswith("--qat"):
+        ck = tmp_path / "ck"
+        assert train.main(["--qat", *(a for a in argv if a != "--qat"),
+                           "--synthetic", "--device", "cpu",
+                           "--image-size", "64", "96", "--epochs", "1",
+                           "--batch-size", "4", "--model", "fcn32s", "--model-kw",
+                           "fc_features=32,width_mult=0.25",
+                           "--checkpoint-dir", str(ck)]) == 0
+        assert (ck / "qat_scales.json").exists() and (ck / "ckpt_2.pt").exists()
+        assert f"QAT: calibrated 17 activation scales -> {ck}/qat_scales.json" in \
+            capsys.readouterr().out.splitlines()
+        return
     with pytest.raises(err, match=argv[0] if err is NotImplementedError
                        else "color_jitter" if err is ValueError else None):
         train.main(argv)

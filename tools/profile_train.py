@@ -63,6 +63,10 @@ from unittest import mock
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from semanticsegmentation_tensorflow_tpu_torch.models.registry import (  # noqa: E402
+    quant_safe_kwargs,
+)
+
 MEAN, STD = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
 WORKLOADS = {
     "preset": dict(fc=1024, n=8, crop=(320, 1152), metrics=True,
@@ -110,6 +114,14 @@ WORKLOADS["preset_spmd"] = dict(WORKLOADS["preset"], model_kw={"pallas_spmd": Tr
 # the preset with its forward recomputed in the backward (train.remat)
 WORKLOADS["preset_remat"] = dict(WORKLOADS["preset"], remat=True,
                                  what=WORKLOADS["preset"]["what"] + ", remat")
+# the preset under the quant-safe kwargs (every conv a module: no fused
+# stage1), and quantization-aware training on them (train.py --qat: the
+# activation scales calibrated on two of the batch's images)
+WORKLOADS["preset_quant_safe"] = dict(
+    WORKLOADS["preset"], model_kw=quant_safe_kwargs("fcn8s"),
+    what=WORKLOADS["preset"]["what"] + ", quant-safe kwargs")
+WORKLOADS["preset_qat"] = dict(WORKLOADS["preset_quant_safe"], qat=True,
+                               what=WORKLOADS["preset"]["what"] + ", --qat")
 
 
 @contextlib.contextmanager
@@ -228,7 +240,8 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None,
     labels of ``wl["classes"]`` (default 2) resident on the card, flip and
     ``wl["crop"]`` by the preprocess kernel (``packed``) or its plain
     version (stage1 then as cuDNN convs and a max pool, SegNet's pools and
-    unpools their plain versions; U-Net has neither)."""
+    unpools their plain versions; U-Net has neither); ``wl["qat"]``: the
+    model in quantization-aware training (``infer.quant.fake_quantize``)."""
     import numpy as np
 
     from semanticsegmentation_tensorflow_tpu_torch.data.augment import Augment
@@ -255,16 +268,24 @@ def train_workload(torch, wl: dict, packed: bool = True, weights=None,
         init_params(model, torch.Generator(device=dev).manual_seed(0))
     else:
         model.load_state_dict(weights)
-    state = create_train_state(model, make_optimizer("adam", model.parameters(), 1e-4),
-                               make_lr_schedule(1e-4), seed=0)
-    aug = (make_preprocess_augment_fn(MEAN, STD, wl["crop"]) if packed
-           else Augment(partial(preprocess_normalize_plain, crop_hw=wl["crop"],
-                                mean=MEAN, std=STD), wl["crop"], True))
     rng = np.random.default_rng(0)
     batch = {"image": torch.from_numpy(rng.integers(
                  0, 256, (wl["n"], h, w, 3), np.uint8)).to(dev),
              "label": torch.from_numpy(rng.integers(
                  0, classes, (wl["n"], h, w)).astype(np.int32)).to(dev)}
+    if wl.get("qat"):
+        from semanticsegmentation_tensorflow_tpu_torch.data.augment import (
+            normalize_images,
+        )
+        from semanticsegmentation_tensorflow_tpu_torch.infer import quant
+
+        calib = [normalize_images(batch["image"][:2], MEAN, STD)]
+        quant.fake_quantize(model, quant.calibrate_act_scales(model, calib))
+    state = create_train_state(model, make_optimizer("adam", model.parameters(), 1e-4),
+                               make_lr_schedule(1e-4), seed=0)
+    aug = (make_preprocess_augment_fn(MEAN, STD, wl["crop"]) if packed
+           else Augment(partial(preprocess_normalize_plain, crop_hw=wl["crop"],
+                                mean=MEAN, std=STD), wl["crop"], True))
     step = partial(make_train_step(classes, augment_fn=aug,
                                    with_metrics=wl["metrics"],
                                    remat=wl.get("remat", False)),
