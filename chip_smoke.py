@@ -33,8 +33,7 @@ Then validated training and evaluation: ``scripts/train.py`` at
 and color jitter, 2 decode workers, EMA and a strict import of a seeded
 VGG16 archive, then ``scripts/eval.py --road-metrics`` on its checkpoint
 (raw and ``--ema``) and at ``segnet_kitti``; the eval step with the kernels
-against plain PyTorch on the trained weights; the preset step with ``remat``
-beside the one without.
+against plain PyTorch on the trained weights.
 
 Then the same two paths at the full width of the ``segnet_kitti`` preset
 (SegNet), after the SegNet stage1 tail and the argmax pool/unpool kernels
@@ -101,6 +100,16 @@ accumulator of three int8 Predictors held bit-equal; the int8 forward
 against the fake-quant one and the folded SegNet against the unfolded one
 in float32; the bf16 and int8 Predictors timed in turns and the QAT train
 step beside the plain ones.
+Then serving artifacts and per-stage remat (``export_phase``):
+``scripts/export_model.py --platforms cuda`` at ``fcn8s_kitti``,
+``segnet_kitti`` (symbolic batch), ``deeplab_kitti_dp`` (fixed batch) and
+``fcn8s_kitti --int8 --calib-dir``, each artifact served by ``serve.py
+--artifact`` (/segment and /labels equal to the in-process Predictor's
+answer), its outputs bit-equal to the in-process Predictor's, the launches
+of its own calls (kernels 1 and 2 at FCN and DeepLab, 3, 5 and 2 at SegNet)
+> 0, export and load seconds, size, and device and host ms beside the
+Predictor's; then the FCN preset step with ``remat`` (one recompute per
+stage) beside the default, its peak device memory below the default's.
 
 Any failure exits non-zero. The last three lines are the kernels' JSON
 record (each kernel's launches on the paths, error against its plain
@@ -4201,6 +4210,201 @@ def int8_phase(torch, smi: str, drive, gen) -> tuple[list[dict], dict]:
     return runs, res
 
 
+# the export phase's artifacts: (preset, export flags, the kernels the
+# artifact's own calls must launch); the int8 artifact also gets
+# --calib-dir (generated images)
+EXPORT_CASES = (
+    ("fcn8s_kitti", (), ("stage1_tail", "overlay")),
+    ("segnet_kitti", (), ("stage1_tail_segnet", "pool_argmax", "unpool", "overlay")),
+    ("deeplab_kitti_dp", (), ("stage1_tail", "overlay")),
+    ("fcn8s_kitti", ("--int8",), ("overlay",)),
+)
+
+
+def _served_predictor(torch, preset: str, extra: tuple, calib: list[str]):
+    """The in-process Predictor that ``serve``/``infer_image`` build at
+    ``preset`` with ``extra``'s flags (seeded random weights; with
+    ``--int8`` calibrated on ``calib``), the export CLI's twin."""
+    from argparse import ArgumentParser
+
+    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
+        add_model_args, build_predictor,
+    )
+
+    p = ArgumentParser()
+    add_model_args(p)
+    flags = [f for f in extra if f == "--int8"]
+    args = p.parse_args(["--preset", preset, "--device", "cuda", *flags])
+    return build_predictor(args, torch.device("cuda"), calib_paths=calib)
+
+
+def drive_artifact(torch, tmp: str, preset: str, extra: tuple, counters: dict,
+                   calib: list[str]) -> dict:
+    """One serving artifact through the user's entry points:
+    ``scripts/export_model.py --platforms cuda`` at ``preset`` (seeded random
+    weights; ``extra``: e.g. ``--int8 --calib-dir``), ``serve.py --artifact``
+    answering /segment and /labels, each response equal to the in-process
+    Predictor's answer (the same flags, ``_served_predictor``); the
+    artifact's overlay, labels and label fetch bit-equal to the Predictor's
+    at batch 1 and, with a symbolic batch, 2; the launches of the artifact's
+    own calls; export and load seconds, the file's size, and the artifact
+    against the Predictor in device ms (torch.profiler) and host ms (median
+    of 10, in turns Predictor, artifact, artifact, Predictor)."""
+    import http.client
+    import zipfile
+
+    import numpy as np
+    from PIL import Image
+
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+    from semanticsegmentation_tensorflow_tpu_torch.infer.export import (
+        ExportedPredictor,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import host_overlay
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import export_model, serve
+
+    hw = get_preset(preset).data.image_size
+    tag = preset + ("_int8" if "--int8" in extra else "")
+    path = os.path.join(tmp, f"{tag}.segx")
+    r = {}
+    t0 = time.perf_counter()
+    text = run_cli(export_model.main, ["--preset", preset, "--device", "cuda",
+                                       "--platforms", "cuda", "--out", path, *extra])
+    r["export_s"] = time.perf_counter() - t0
+    r["size_mib"] = os.path.getsize(path) / 2 ** 20
+    with zipfile.ZipFile(path) as z:
+        meta = json.loads(z.read("meta.json"))
+    if meta["platforms"] != ["cuda"] or f"wrote {path}" not in text:
+        raise AssertionError(f"export_model {preset}: {meta} {text!r}")
+    r["batch"] = meta["batch_size"] or "symbolic"
+    t0 = time.perf_counter()
+    art = ExportedPredictor(path, "cuda")
+    r["load_s"] = time.perf_counter() - t0
+    pred = _served_predictor(torch, preset, extra, calib)
+    imgs = np.stack([kitti_like(s, hw) for s in (0, 1)])
+
+    def on_artifact(fn):
+        before = {k: w.launches for k, w in counters.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        for k, w in counters.items():
+            r["artifact_launches"][k] += w.launches - before[k]
+        return out
+
+    r["artifact_launches"] = {k: 0 for k in counters}
+    for n in ((1, 2) if meta["batch_size"] is None else (1,)):
+        ov, lab = on_artifact(lambda: art(imgs[:n]))
+        want_ov, want_lab = pred(imgs[:n])
+        labels = on_artifact(lambda: art._fetch_labels(imgs[:n]))
+        if not (np.array_equal(ov, want_ov) and np.array_equal(lab, want_lab)
+                and np.array_equal(labels, pred._fetch_labels(imgs[:n]))):
+            raise AssertionError(f"{tag} artifact: batch {n} differs from the "
+                                 "in-process Predictor")
+    log(f"{tag} artifact: overlay, labels and label fetch bit-equal to the "
+        f"in-process Predictor at batch {'1 and 2' if meta['batch_size'] is None else 1}"
+        f"; launches of the artifact's calls {r['artifact_launches']}")
+
+    server, _ = serve.make_server(["--artifact", path, "--device", "cuda",
+                                   "--port", "0"])
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        png = os.path.join(tmp, f"{tag}.png")
+        Image.fromarray(imgs[0]).save(png)
+        body = open(png, "rb").read()
+        labels = pred._fetch_labels(imgs[:1])[0]
+        want = {"/segment": host_overlay(imgs[0], labels, pred._palette, pred._alpha),
+                "/labels": np.repeat(labels[..., None], 3, -1)}
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                          timeout=300)
+        req_ms = {"/segment": [], "/labels": []}
+        for route in ["/segment", "/labels"] * 3:
+            t0 = time.perf_counter()
+            conn.request("POST", route, body=body)
+            resp = conn.getresponse()
+            data = resp.read()
+            req_ms[route].append((time.perf_counter() - t0) * 1e3)
+            got = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+            if resp.status != 200 or not np.array_equal(got, want[route]):
+                raise AssertionError(f"{tag} serve --artifact {route}: HTTP "
+                                     f"{resp.status} or an answer that differs")
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    r["segment_ms"] = float(np.median(req_ms["/segment"]))
+    r["labels_ms"] = float(np.median(req_ms["/labels"]))
+
+    one = imgs[:1]
+    host = {"pred": [], "art": []}
+    for who in ("pred", "art", "art", "pred"):
+        f = pred if who == "pred" else art
+        host[who].append(host_median_ms(lambda: f._fetch_labels(one), iters=10))
+    r["predictor_labels_host_ms"] = host["pred"]
+    r["artifact_labels_host_ms"] = host["art"]
+    r["predictor_device_ms"], r["predictor_ops"] = device_ms(lambda: pred(one), iters=10)
+    r["artifact_device_ms"], r["artifact_ops"] = device_ms(lambda: art(one), iters=10)
+    log(f"{tag} artifact: export {r['export_s']:.2f} s, load {r['load_s']:.2f} s, "
+        f"{r['size_mib']:.1f} MiB, batch {r['batch']}; serve --artifact /segment "
+        f"{r['segment_ms']:.2f} ms, /labels {r['labels_ms']:.2f} ms (median of 3); "
+        f"label fetch host ms Predictor {host['pred']}, artifact {host['art']}; "
+        f"overlay call device ms Predictor {r['predictor_device_ms']:.3f} "
+        f"({r['predictor_ops']} ops), artifact {r['artifact_device_ms']:.3f} "
+        f"({r['artifact_ops']} ops)")
+    del art, pred, server
+    os.remove(path)
+    return r
+
+
+def export_phase(torch, smi: str, drive, counters: dict) -> tuple[list[dict], dict]:
+    """Serving artifacts (``infer/export.py``) and per-stage remat: each of
+    EXPORT_CASES through drive_artifact (fcn8s_kitti and segnet_kitti at a
+    symbolic batch, deeplab_kitti_dp at its fixed batch 1, fcn8s_kitti
+    ``--int8 --calib-dir`` over two generated images), each run by
+    ``drive``, with the kernels its artifact's calls must launch; then the
+    FCN preset step with ``remat`` (one recompute per stage) beside the
+    default, whose peak device memory it must stay below. Returns each
+    path's launches and the phase's numbers."""
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+
+    t_phase = time.perf_counter()
+    runs, res = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = generate_synthetic_kitti(os.path.join(tmp, "calib"), n_train=0,
+                                        n_test=2, seed=9)
+        calib_dir = os.path.join(data, "testing", "image_2")
+        calib = sorted(os.path.join(calib_dir, f) for f in os.listdir(calib_dir))
+        for preset, flags, need in EXPORT_CASES:
+            extra = flags + (("--calib-dir", calib_dir) if "--int8" in flags else ())
+            r, launches = drive(f"{preset} {' '.join(flags)} artifact".replace("  ", " "),
+                                drive_artifact, torch, tmp, preset, extra, counters,
+                                calib if flags else [])
+            runs.append(launches)
+            missing = [k for k in need if not r["artifact_launches"][k]]
+            if missing:
+                raise AssertionError(f"{preset} {flags} artifact: not launched by "
+                                     f"its calls: {missing}")
+            res[preset + ("_int8" if flags else "")] = r
+            torch.cuda.empty_cache()
+    res["remat"] = time_train(torch, smi, "preset_remat")
+    res["default"] = time_train(torch, smi, "preset")
+    for r in (res["remat"], res["default"]):
+        r.pop("by_op", None)
+    rm, df = res["remat"], res["default"]
+    log(f"preset step, per-stage remat beside the default: peak {rm['peak_gib']:.3f} "
+        f"vs {df['peak_gib']:.3f} GiB, {rm['host_ms']:.2f} vs {df['host_ms']:.2f} "
+        f"ms/step host, device {rm['device_ms']:.2f} vs {df['device_ms']:.2f} | {smi}")
+    if not rm["peak_gib"] < df["peak_gib"]:
+        raise AssertionError("remat: the preset step's peak memory did not fall")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"export phase: {res['phase_s']:.1f} s")
+    log("export timings: " + json.dumps(res))
+    return runs, res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--grid-rank"]:     # a rank of check_grid's phase
         rank, world, store, job, out = sys.argv[2:7]
@@ -4323,8 +4527,8 @@ def main() -> int:
 
     # validated training (--val-frac, --keep-best, both jitters, decode
     # workers, a strict VGG16 import) and the eval CLI at fcn8s_kitti, the
-    # eval CLI at segnet_kitti, the eval step held against plain PyTorch, and
-    # the preset step with remat beside the one without
+    # eval CLI at segnet_kitti and the eval step held against plain PyTorch
+    # (the preset step with remat beside the one without: export_phase)
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         val_run, val_launches = drive("validated training and eval",
@@ -4343,19 +4547,15 @@ def main() -> int:
         plain_eval = check_eval_against_plain(torch, val_run["data"], val_run["ckpt"],
                                               val_run["eval"])
     torch.cuda.empty_cache()
-    remat = time_train(torch, smi, "preset_remat")
-    no_remat = time_train(torch, smi, "preset")
     log(f"eval img/s by the CLI's clock after the model build (40 images, batch "
         f"4): fcn8s_kitti {val_run['eval']['img_per_s']:.2f}, --ema "
         f"{val_run['eval_ema']['img_per_s']:.2f}, segnet_kitti "
         f"{seg_eval['img_per_s']:.2f}; validation {val_run['val_seconds']:.3f} s "
-        f"per epoch (10 images); preset step with remat {remat['host_ms']:.2f} "
-        f"ms/step, peak {remat['peak_gib']:.2f} GiB, without "
-        f"{no_remat['host_ms']:.2f} ms/step, {no_remat['peak_gib']:.2f} GiB | {smi}")
+        f"per epoch (10 images) | {smi}")
     log(f"validated training and eval phase: {time.perf_counter() - t_phase:.1f} s")
     log("eval timings: " + json.dumps(dict(
         {k: v for k, v in val_run.items() if k not in ("data", "ckpt")},
-        segnet_eval=seg_eval, plain=plain_eval, remat=remat, no_remat=no_remat)))
+        segnet_eval=seg_eval, plain=plain_eval)))
     torch.cuda.empty_cache()
 
     # --spatial: at one rank through train.main (kernel 1c, no single-device
@@ -4447,6 +4647,7 @@ def main() -> int:
     bn_runs, bn = bn_phase(torch, smi, drive)
     tta_runs, _ = tta_tiled_phase(torch, smi, drive)
     int8_runs, _ = int8_phase(torch, smi, drive, gen)
+    export_runs, _ = export_phase(torch, smi, drive, counters)
 
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, sweep_launches,
@@ -4456,7 +4657,7 @@ def main() -> int:
                                         w_infer_launches, w_train_launches,
                                         w_seg_launches, *spatial_runs, *dl_runs,
                                         *unet_runs, *bn_runs, *tta_runs,
-                                        *int8_runs)
+                                        *int8_runs, *export_runs)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

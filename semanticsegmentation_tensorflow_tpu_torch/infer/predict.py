@@ -47,6 +47,23 @@ def inference_form(model: nn.Module, device) -> nn.Module:
                     memory_format=torch.channels_last).eval()
 
 
+def padded_logits(model: nn.Module, image_u8: torch.Tensor, mean: torch.Tensor,
+                  std: torch.Tensor, stride: int) -> torch.Tensor:
+    """[N,H,W,3] u8 -> padded [N,Hp,Wp,C] f32 logits, contiguous: normalize,
+    edge-pad to ``stride``, forward. The Predictor and the exported programs
+    (``infer/export.py``) both run it."""
+    x = pad_to_multiple(normalize_images(image_u8, mean, std), stride)
+    return model(x).contiguous()
+
+
+def label_map(logits: torch.Tensor, image_size: Sequence[int]) -> torch.Tensor:
+    """Padded logits -> the [N,H,W] label map of the image (ties to the
+    lowest class), uint8 up to 256 classes, int32 beyond."""
+    logits = crop_to(logits, *image_size)
+    return labels_from_logits(logits).to(
+        torch.uint8 if logits.shape[-1] <= 256 else torch.int32)
+
+
 class Predictor:
     """Forward + overlay for a fixed image size on an explicit ``device``.
 
@@ -95,9 +112,8 @@ class Predictor:
     @torch.inference_mode()
     def _padded_logits(self, image_u8: torch.Tensor) -> torch.Tensor:
         """[N,H,W,3] u8 on the device -> padded [N,Hp,Wp,C] f32 logits."""
-        x = normalize_images(image_u8, self._mean, self._std)
-        x = pad_to_multiple(x, self._stride)
-        return self.model(x).contiguous()
+        return padded_logits(self.model, image_u8, self._mean, self._std,
+                             self._stride)
 
     @torch.inference_mode()
     def _fwd(self, image_u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -109,10 +125,7 @@ class Predictor:
     def _packed_labels(self, image_u8: torch.Tensor) -> torch.Tensor:
         """[N,H,W,3] u8 on the device -> the label map packed on the device
         (1 bit/px for 2 classes, a nibble up to 16, raw beyond)."""
-        logits = crop_to(self._padded_logits(image_u8), *self.image_size)
-        labels = labels_from_logits(logits)
-        labels = labels.to(torch.uint8 if logits.shape[-1] <= 256
-                           else torch.int32)
+        labels = label_map(self._padded_logits(image_u8), self.image_size)
         return labelpack.pack_labels(labels, self._pack_mode)
 
     def _fetch_labels(self, image_u8) -> np.ndarray:

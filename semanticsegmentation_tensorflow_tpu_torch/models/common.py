@@ -269,6 +269,31 @@ def frozen_batch_stats() -> Iterator[None]:
         _FROZEN_STATS.pop()
 
 
+_REGIONS: list = []
+
+
+@contextlib.contextmanager
+def remat_regions(wrap) -> Iterator[None]:
+    """Within it, every :func:`region` of a model's forward runs as
+    ``wrap(fn, *args)``: the rematerializing train step (``train/step.py``)
+    passes a wrap that recomputes the region in the backward."""
+    _REGIONS.append(wrap)
+    try:
+        yield
+    finally:
+        _REGIONS.pop()
+
+
+def region(fn, *args):
+    """``fn(*args)``: one stage of a model (a VGG16 stage, the fc6/fc7 head,
+    a SegNet or U-Net block, the ASPP head), the unit that a train step with
+    ``remat`` recomputes in the backward (:func:`remat_regions`). Regions
+    do not nest."""
+    if _REGIONS:
+        return _REGIONS[-1](fn, *args)
+    return fn(*args)
+
+
 def _sum_over(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     """``tensors`` (f32) summed over ``group`` by one all-reduce."""
     flat = torch.cat([t.reshape(-1) for t in tensors])

@@ -20,7 +20,7 @@ import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    BatchNorm, Conv, conv_nhwc, upsample_bilinear,
+    BatchNorm, Conv, conv_nhwc, region, upsample_bilinear,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import VGG16
 from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import spatial_sum
@@ -162,6 +162,8 @@ class DeepLabASPP(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """``generator``: the dropout masks' source in ``train()`` mode."""
-        x = self.aspp(self.vgg16(x, generator)["conv7"])
+        """``generator``: the dropout masks' source in ``train()`` mode. The
+        ASPP head is one :func:`region` (the unit a train step with
+        ``remat`` recomputes), after the backbone's."""
+        x = region(self.aspp, self.vgg16(x, generator)["conv7"])
         return upsample_bilinear(self.head(x).float(), self.output_stride)

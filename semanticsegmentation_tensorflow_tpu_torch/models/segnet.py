@@ -13,7 +13,9 @@ import torch
 import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
-from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, ConvBlock
+from semanticsegmentation_tensorflow_tpu_torch.models.common import (
+    Conv, ConvBlock, region,
+)
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import (
     VGG16_STAGES,
 )
@@ -82,14 +84,23 @@ class SegNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        """Each encoder stage with its pool and each unpool with its decoder
+        stage is one :func:`region` (the unit a train step with ``remat``
+        recomputes)."""
         indices = []
         for i in range(1, len(VGG16_STAGES) + 1):
-            block = getattr(self, f"enc{i}")
-            if i == 1 and self.fused_stage1:
-                x, idx = block(x)
-            else:
-                x, idx = max_pool_with_argmax(block(x), 2)
+            x, idx = region(self._encode, i, x)
             indices.append(idx)
         for i in range(len(VGG16_STAGES), 0, -1):
-            x = getattr(self, f"dec{i}")(max_unpool(x, indices[i - 1], 2))
+            x = region(self._decode, i, x, indices[i - 1])
         return self.head(x).float()
+
+    def _encode(self, i: int, x: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        block = getattr(self, f"enc{i}")
+        if i == 1 and self.fused_stage1:
+            return block(x)
+        return max_pool_with_argmax(block(x), 2)
+
+    def _decode(self, i: int, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"dec{i}")(max_unpool(x, idx, 2))

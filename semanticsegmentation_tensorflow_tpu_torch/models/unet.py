@@ -24,7 +24,9 @@ import torch
 import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
-from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv, ConvBlock
+from semanticsegmentation_tensorflow_tpu_torch.models.common import (
+    Conv, ConvBlock, region,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import ConvTranspose
 from semanticsegmentation_tensorflow_tpu_torch.ops.pool import max_pool
 
@@ -69,15 +71,23 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator`` is accepted for the train step's call and unused
-        (U-Net has no dropout)."""
+        (U-Net has no dropout). Each down stage with its pool, the
+        bottleneck and each up stage is one :func:`region` (the unit a
+        train step with ``remat`` recomputes)."""
         skips = []
         for i in range(self.depth):
-            x = getattr(self, f"down{i}")(x)
-            skips.append(x)
-            x = max_pool(x, 2)
-        x = self.bottleneck(x)
+            skip, x = region(self._down, i, x)
+            skips.append(skip)
+        x = region(self.bottleneck, x)
         for i in reversed(range(self.depth)):
-            x = getattr(self, f"up{i}")(x)
-            x = torch.cat([skips[i].to(x.dtype), x], -1)
-            x = getattr(self, f"upconv{i}")(x)
+            x = region(self._up, i, x, skips[i])
         return self.head(x).float()
+
+    def _down(self, i: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        skip = getattr(self, f"down{i}")(x)
+        return skip, max_pool(skip, 2)
+
+    def _up(self, i: int, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = getattr(self, f"up{i}")(x)
+        x = torch.cat([skip.to(x.dtype), x], -1)
+        return getattr(self, f"upconv{i}")(x)

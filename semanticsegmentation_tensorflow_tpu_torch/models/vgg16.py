@@ -17,7 +17,7 @@ import torch.nn as nn
 from semanticsegmentation_tensorflow_tpu_torch import convert
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    Conv, ConvBlock, dropout,
+    Conv, ConvBlock, dropout, region,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import (
     PooledConvBlock, Stage1,
@@ -120,10 +120,18 @@ class VGG16(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None
                 ) -> dict[str, torch.Tensor]:
+        """Each stage and the fc6/fc7 head is one :func:`region` (the unit
+        a train step with ``remat`` recomputes)."""
         ends: dict[str, torch.Tensor] = {}
         for i in range(1, len(VGG16_STAGES) + 1):
-            x = getattr(self, f"stage{i}")(x)
+            x = region(getattr(self, f"stage{i}"), x)
             ends[f"pool{i}"] = x
+        ends["conv7"] = region(self._head, x, generator)
+        return ends
+
+    def _head(self, x: torch.Tensor,
+              generator: torch.Generator | None) -> torch.Tensor:
+        """fc6 (7x7) and fc7 (1x1), each with its relu and dropout."""
         drop = dict(training=self.training, generator=generator)
         if self.winograd_fc6:
             if spatial_grid() is not None:
@@ -135,9 +143,7 @@ class VGG16(nn.Module):
         else:
             x = torch.relu(self.conv6(x))
         x = dropout(x, self.dropout_rate, **drop)
-        x = dropout(torch.relu(self.conv7(x)), self.dropout_rate, **drop)
-        ends["conv7"] = x
-        return ends
+        return dropout(torch.relu(self.conv7(x)), self.dropout_rate, **drop)
 
 
 def _is_backbone(flax_path: str) -> bool:

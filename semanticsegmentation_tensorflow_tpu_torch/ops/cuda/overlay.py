@@ -8,7 +8,10 @@ package's reference in ``ops/overlay.py``), imported here as
 
 ``argmax_colormap_overlay_cuda`` launches the kernel for CUDA tensors (or
 raises) and takes the plain version only for tensors on the CPU.
-``argmax_colormap_overlay_cuda.launches`` counts kernel launches.
+``argmax_colormap_overlay_cuda.launches`` counts kernel launches. It runs
+the registered torch op ``segport::overlay``, whose implementation the
+dispatcher picks by the tensors' device when the op runs, also inside an
+exported program (``infer/export.py``).
 """
 
 from __future__ import annotations
@@ -39,13 +42,27 @@ def argmax_colormap_overlay_cuda(image_u8: torch.Tensor, logits: torch.Tensor,
             or logits.shape[2] < w:
         raise ValueError(f"logits {tuple(logits.shape)} do not cover the "
                          f"image {tuple(image_u8.shape)}")
-    if image_u8.device.type == "cpu":
-        return argmax_colormap_overlay_plain(
-            image_u8, logits[:, :h, :w], palette, alpha, blend_class0)
-    if image_u8.device.type != "cuda":
+    if image_u8.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no overlay kernel for device {image_u8.device}")
+    return torch.ops.segport.overlay(
+        image_u8, logits, palette_tensor(palette, image_u8.device), float(alpha),
+        bool(blend_class0))
+
+
+@torch.library.custom_op("segport::overlay", mutates_args=(), device_types="cpu")
+def _overlay_op(image_u8: torch.Tensor, logits: torch.Tensor,
+                palette: torch.Tensor, alpha: float, blend_class0: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    n, h, w, _ = image_u8.shape
+    return argmax_colormap_overlay_plain(image_u8, logits[:, :h, :w], palette,
+                                         alpha, blend_class0)
+
+
+@_overlay_op.register_kernel("cuda")
+def _overlay_cuda(image_u8, logits, palette, alpha, blend_class0):
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
 
+    n, h, w, _ = image_u8.shape
     c = logits.shape[-1]
     if image_u8.dtype != torch.uint8 or image_u8.shape[-1] != 3:
         raise TypeError(f"image must be [N,H,W,3] uint8, got "
@@ -62,7 +79,7 @@ def argmax_colormap_overlay_cuda(image_u8: torch.Tensor, logits: torch.Tensor,
     if n * h * w >= 2 ** 31:
         raise ValueError(f"{n}x{h}x{w} pixels: the kernel indexes pixels in "
                          "32 bits")
-    pal = palette_tensor(palette, image_u8.device).contiguous()
+    pal = palette.contiguous()
     if tuple(pal.shape) != (c, 3):
         raise ValueError(f"palette must be [{c},3], got {tuple(pal.shape)}")
     lib = build.lib()
@@ -78,6 +95,13 @@ def argmax_colormap_overlay_cuda(image_u8: torch.Tensor, logits: torch.Tensor,
     build.check(err, "seg_overlay")
     argmax_colormap_overlay_cuda.launches += 1
     return out, labels
+
+
+@_overlay_op.register_fake
+def _(image_u8, logits, palette, alpha, blend_class0):
+    n, h, w, _ = image_u8.shape
+    return (torch.empty_like(image_u8, memory_format=torch.contiguous_format),
+            image_u8.new_empty((n, h, w), dtype=torch.int32))
 
 
 argmax_colormap_overlay_cuda.launches = 0

@@ -19,12 +19,19 @@ All three only select, so the kernels equal their plain versions bit for
 bit. :class:`MaxPoolArgmax` and :class:`MaxUnpool` are the autograd
 Functions over them (the ``jax.custom_vjp``s of ``ops/pool.py``); the index
 takes no gradient. Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. The two forwards are registered torch ops,
+``segport::pool_argmax`` and ``segport::unpool``: the dispatcher picks the
+plain version or the launch by the tensors' device when the op runs, also
+inside an exported program (``infer/export.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.library import (
+    register_plain_autograd,
+)
 
 _U8 = torch.uint8
 
@@ -79,14 +86,11 @@ def _check_even(t: torch.Tensor) -> None:
                          f"{tuple(t.shape)}")
 
 
-def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    """True for CUDA tensors, False for CPU ones (the plain version); any
-    other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
+def _check_device(t: torch.Tensor, what: str) -> None:
+    """Raise for a device other than the CPU (the plain version) and CUDA
+    (the kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} kernel for device {t.device}")
-    return True
 
 
 def _cuda_in(t: torch.Tensor, name: str, dtype: torch.dtype) -> torch.Tensor:
@@ -125,9 +129,20 @@ def _launch(name: str, *args) -> None:
 
 def pool_argmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(pooled, idx) of the 2x2/2 max pool; see :func:`pool_argmax_plain`.
-    CUDA: bf16 NHWC, C a multiple of 8, H and W even."""
-    if not _on_cuda(x, "pool"):
-        return pool_argmax_plain(x)
+    CUDA: bf16 NHWC, C a multiple of 8, H and W even. Runs the op
+    ``segport::pool_argmax``."""
+    _check_device(x, "pool")
+    return torch.ops.segport.pool_argmax(x)
+
+
+@torch.library.custom_op("segport::pool_argmax", mutates_args=(),
+                         device_types="cpu")
+def _pool_argmax_op(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return pool_argmax_plain(x)
+
+
+@_pool_argmax_op.register_kernel("cuda")
+def _pool_argmax_cuda(x):
     _check_even(x)
     x = _cuda_in(x, "x", torch.bfloat16)
     n, h, w, c = x.shape
@@ -138,11 +153,32 @@ def pool_argmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return out, idx
 
 
+@_pool_argmax_op.register_fake
+def _(x):
+    _check_even(x)
+    n, h, w, c = x.shape
+    out = x.new_empty((n, h // 2, w // 2, c))
+    return out, out.new_empty(out.shape, dtype=_U8)
+
+
+register_plain_autograd(_pool_argmax_op, pool_argmax_plain)
+
+
 def unpool(pooled: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Place-or-zero into the 2x2 windows; see :func:`unpool_plain`. CUDA:
-    bf16 NHWC ``pooled``, C a multiple of 8, u8 ``idx`` of its shape."""
-    if not _on_cuda(pooled, "unpool"):
-        return unpool_plain(pooled, idx)
+    bf16 NHWC ``pooled``, C a multiple of 8, u8 ``idx`` of its shape. Runs
+    the op ``segport::unpool``."""
+    _check_device(pooled, "unpool")
+    return torch.ops.segport.unpool(pooled, idx)
+
+
+@torch.library.custom_op("segport::unpool", mutates_args=(), device_types="cpu")
+def _unpool_op(pooled: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return unpool_plain(pooled, idx)
+
+
+@_unpool_op.register_kernel("cuda")
+def _unpool_cuda(pooled, idx):
     pooled = _cuda_in(pooled, "pooled", torch.bfloat16)
     n, hp, wp, c = pooled.shape
     idx = _pooled_index(idx, pooled.shape, pooled.device)
@@ -152,11 +188,21 @@ def unpool(pooled: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@_unpool_op.register_fake
+def _(pooled, idx):
+    n, hp, wp, c = pooled.shape
+    return pooled.new_empty((n, 2 * hp, 2 * wp, c))
+
+
+register_plain_autograd(_unpool_op, unpool_plain)
+
+
 def unpool_bwd(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The gradient at each window's index; see :func:`unpool_bwd_plain`.
     CUDA: ``g`` is cast to bf16 (NHWC, H and W even), ``idx`` u8 of the
     pooled shape."""
-    if not _on_cuda(g, "unpool backward"):
+    _check_device(g, "unpool backward")
+    if g.device.type == "cpu":
         return unpool_bwd_plain(g, idx)
     _check_even(g)
     g = _cuda_in(g.to(torch.bfloat16), "g", torch.bfloat16)

@@ -26,6 +26,13 @@ tensors on the CPU; for CUDA tensors each launches its kernel or raises:
 the backward, :class:`SegNetStage1Tail` over the SegNet forward and the same
 backward. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
+The two inference forwards are registered torch ops, ``segport::stage1_tail``
+and ``segport::stage1_tail_segnet`` (``torch.library.custom_op``): the
+dispatcher picks the CPU implementation (the plain version) or the CUDA one
+(the launch, which counts it) by the tensors' device when the op runs, so an
+exported program (``infer/export.py``) that calls them launches the kernel on
+the card. Their fake implementations give the outputs' shapes and dtypes.
+
 The halo mode (kernel 1c, the port of the same two Pallas calls with
 ``spmd=True``: ``fused_stage1_tail(..., spmd=True)`` and
 ``fused_segnet_stage1_tail(..., spmd=True)``) serves an image whose rows are
@@ -50,6 +57,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.library import (
+    register_plain_autograd,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
     pool_argmax_plain,
 )
@@ -264,14 +274,18 @@ def _check(z1: torch.Tensor, k2: torch.Tensor,
             raise ValueError("z1, k2 and b2 must be on one device")
 
 
+def _check_device(z1: torch.Tensor, what: str) -> None:
+    """Raise for a device other than the CPU (the plain version) and
+    CUDA (the kernel)."""
+    if z1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} for device {z1.device}")
+
+
 def _on_cuda(z1: torch.Tensor, what: str) -> bool:
     """True for CUDA tensors, False for CPU ones (the plain version);
     any other device raises."""
-    if z1.device.type == "cpu":
-        return False
-    if z1.device.type != "cuda":
-        raise ValueError(f"no {what} for device {z1.device}")
-    return True
+    _check_device(z1, what)
+    return z1.device.type == "cuda"
 
 
 def _check_like(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -323,13 +337,40 @@ def stage1_tail(z1: torch.Tensor, k2: torch.Tensor,
 
     CUDA: z1 must be bf16, contiguous NHWC, C one of 16/32/48/64, H and W
     even. k2 and b2 may be f32 (the port's params); they are cast to bf16.
-    The kernel reads k2 in ``torch.channels_last`` memory.
+    The kernel reads k2 in ``torch.channels_last`` memory. Runs the op
+    ``segport::stage1_tail``.
     """
-    if not _on_cuda(z1, "stage1 tail"):
-        return stage1_tail_plain(z1, k2, b2)
+    _check_device(z1, "stage1 tail")
+    return torch.ops.segport.stage1_tail(z1, k2, b2)
+
+
+def _pooled_like(z1: torch.Tensor, dtype=None) -> torch.Tensor:
+    """An empty [N,ceil(H/2),ceil(W/2),C] tensor: the fake outputs."""
+    n, h, w, c = z1.shape
+    return z1.new_empty((n, (h + 1) // 2, (w + 1) // 2, c),
+                        dtype=dtype or z1.dtype)
+
+
+@torch.library.custom_op("segport::stage1_tail", mutates_args=(),
+                         device_types="cpu")
+def _stage1_tail_op(z1: torch.Tensor, k2: torch.Tensor,
+                    b2: torch.Tensor) -> torch.Tensor:
+    return stage1_tail_plain(z1, k2, b2).contiguous()
+
+
+@_stage1_tail_op.register_kernel("cuda")
+def _stage1_tail_cuda(z1, k2, b2):
     out, _ = _forward(z1, k2, b2, with_codes=False)
     stage1_tail.launches += 1
     return out
+
+
+@_stage1_tail_op.register_fake
+def _(z1, k2, b2):
+    return _pooled_like(z1)
+
+
+register_plain_autograd(_stage1_tail_op, stage1_tail_plain)
 
 
 def stage1_tail_train(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor
@@ -347,12 +388,32 @@ def stage1_tail_segnet(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """SegNet's stage1 tail: (pooled, u8 idx) as
     :func:`stage1_tail_segnet_plain` defines them; on CUDA as
-    :func:`stage1_tail` takes its inputs."""
-    if not _on_cuda(z1, "stage1 tail"):
-        return stage1_tail_segnet_plain(z1, k2, b2)
+    :func:`stage1_tail` takes its inputs. Runs the op
+    ``segport::stage1_tail_segnet``."""
+    _check_device(z1, "stage1 tail")
+    return torch.ops.segport.stage1_tail_segnet(z1, k2, b2)
+
+
+@torch.library.custom_op("segport::stage1_tail_segnet", mutates_args=(),
+                         device_types="cpu")
+def _stage1_tail_segnet_op(z1: torch.Tensor, k2: torch.Tensor, b2: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    return stage1_tail_segnet_plain(z1, k2, b2)
+
+
+@_stage1_tail_segnet_op.register_kernel("cuda")
+def _stage1_tail_segnet_cuda(z1, k2, b2):
     out, idx = _forward(z1, k2, b2, with_codes=True, segnet=True)
     stage1_tail_segnet.launches += 1
     return out, idx
+
+
+@_stage1_tail_segnet_op.register_fake
+def _(z1, k2, b2):
+    return _pooled_like(z1), _pooled_like(z1, torch.uint8)
+
+
+register_plain_autograd(_stage1_tail_segnet_op, stage1_tail_segnet_plain)
 
 
 def stage1_tail_bwd(g: torch.Tensor, out: torch.Tensor, codes: torch.Tensor,

@@ -27,7 +27,10 @@ sums; the bias is x's dtype, added in float32 before the relu.
 ``WinogradConvBiasRelu`` and ``WinogradConv3x3`` are the autograd Functions
 (the ``jax.custom_vjp``s); dw = G^T dU G runs in PyTorch after the kernel,
 as ``_dw_from_du`` runs in XLA. Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``. The forward is the registered torch op
+``segport::winograd_fwd``: the dispatcher picks the plain version or the
+launch by the tensors' device when the op runs, also inside an exported
+program (``infer/export.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.library import (
+    register_plain_autograd,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
     VARIANTS, combine, device_table, rot180_swap, transform_kernel,
 )
@@ -153,14 +159,11 @@ def winograd_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    """True for CUDA tensors, False for CPU ones (the plain version); any
-    other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
+def _check_device(t: torch.Tensor, what: str) -> None:
+    """Raise for a device other than the CPU (the plain version) and CUDA
+    (the kernel)."""
+    if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} kernel for device {t.device}")
-    return True
 
 
 def _nhwc_bf16(t: torch.Tensor, name: str, shape=None) -> torch.Tensor:
@@ -198,8 +201,20 @@ def winograd_fwd(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor | None,
     bf16."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {EPILOGUES}, got {epilogue!r}")
-    if not _on_cuda(x, "Winograd"):
-        return winograd_fwd_plain(x, u, b, o, variant, epilogue)
+    _check_device(x, "Winograd")
+    return torch.ops.segport.winograd_fwd(x, u, b, o, variant, epilogue)
+
+
+@torch.library.custom_op("segport::winograd_fwd", mutates_args=(),
+                         device_types="cpu")
+def _winograd_fwd_op(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor | None,
+                     o: torch.Tensor | None, variant: str,
+                     epilogue: str) -> torch.Tensor:
+    return winograd_fwd_plain(x, u, b, o, variant, epilogue).contiguous()
+
+
+@_winograd_fwd_op.register_kernel("cuda")
+def _winograd_fwd_cuda(x, u, b, o, variant, epilogue):
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
 
     x = _nhwc_bf16(x, "x")
@@ -238,12 +253,22 @@ def winograd_fwd(x: torch.Tensor, u: torch.Tensor, b: torch.Tensor | None,
     return out
 
 
+@_winograd_fwd_op.register_fake
+def _(x, u, b, o, variant, epilogue):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, h, w, u.shape[2]))
+
+
+register_plain_autograd(_winograd_fwd_op, winograd_fwd_plain)
+
+
 def winograd_wgrad(x: torch.Tensor, g: torch.Tensor, o: torch.Tensor | None,
                    variant: str) -> tuple[torch.Tensor, torch.Tensor]:
     """The weight gradient (dU, db), float32; see
     :func:`winograd_wgrad_plain`. CUDA: x bf16 NHWC as for
     :func:`winograd_fwd`, g cast to bf16, o (when given) g's shape."""
-    if not _on_cuda(x, "Winograd weight gradient"):
+    _check_device(x, "Winograd weight gradient")
+    if x.device.type == "cpu":
         return winograd_wgrad_plain(x, g, o, variant)
     from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
 

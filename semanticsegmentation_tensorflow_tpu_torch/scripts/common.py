@@ -12,8 +12,8 @@ import sys
 import torch
 
 # flags of the JAX package's serving CLIs that the port does not implement
-# yet (by their argparse names); scripts/test.py has only --mesh of them
-UNPORTED_FLAGS = ("mesh", "artifact")
+# yet (by their argparse names)
+UNPORTED_FLAGS = ("mesh",)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -26,8 +26,7 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def add_model_args(p: argparse.ArgumentParser,
-                   unported: tuple[str, ...] = UNPORTED_FLAGS) -> None:
+def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default="fcn8s_kitti")
     p.add_argument("--model", default=None)
     p.add_argument("--model-kw", default=None,
@@ -51,7 +50,7 @@ def add_model_args(p: argparse.ArgumentParser,
                    help="post-training int8 forward (per-channel weights, "
                         "per-tensor activations; infer/quant.py), BatchNorm "
                         "folded first")
-    for flag in unported:
+    for flag in UNPORTED_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"), default=None,
                        nargs="?", const=True, help="not ported yet (raises)")
 

@@ -4,6 +4,14 @@ label map) out. Same request contract as the JAX package's scripts/serve.py.
     python -m semanticsegmentation_tensorflow_tpu_torch.scripts.serve \
         --preset fcn8s_kitti --weights fcn8s.pt --port 8500 \
         [--int8 [--calib-dir calib_images/]]
+    python -m semanticsegmentation_tensorflow_tpu_torch.scripts.serve \
+        --artifact fcn8s.segx --device cuda --port 8500
+
+``--artifact`` serves a ``.segx`` file of the port's
+``scripts/export_model.py`` (``infer/export.py`` ExportedPredictor): no
+model code, the programs of ``--device``'s platform; ``--preset``,
+``--model``, ``--model-kw``, ``--weights``, ``--checkpoint-dir`` and
+``--alpha`` are ignored, as by the JAX package's server.
 
     curl -s -X POST --data-binary @image.png localhost:8500/segment > out.png
     curl -s -X POST --data-binary @image.png localhost:8500/labels > labels.png
@@ -108,6 +116,10 @@ def make_server(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__)
     add_model_args(p)
+    p.add_argument("--artifact", default=None,
+                   help="serve a .segx artifact (scripts/export_model.py) "
+                        "instead of a preset and weights: ignores --preset/"
+                        "--model/--model-kw/--weights/--checkpoint-dir/--alpha")
     p.add_argument("--calib-dir", default=None,
                    help="directory of images (its first 16 png/jpg/jpeg) to "
                         "calibrate --int8's activation scales on; without it "
@@ -131,15 +143,25 @@ def make_server(argv=None):
         encode_png,
     )
 
-    calib = []
-    if args.int8 and args.calib_dir:
-        import glob
-        import os
+    if args.artifact:
+        if args.int8:
+            raise ValueError("--int8 quantizes a checkpoint; export the "
+                             "artifact with --int8 instead")
+        from semanticsegmentation_tensorflow_tpu_torch.infer.export import (
+            ExportedPredictor,
+        )
 
-        calib = sorted(q for ext in ("png", "jpg", "jpeg")
-                       for q in glob.glob(os.path.join(args.calib_dir,
-                                                       f"*.{ext}")))[:16]
-    predictor = build_predictor(args, device, calib_paths=calib)
+        predictor = ExportedPredictor(args.artifact, device)
+    else:
+        calib = []
+        if args.int8 and args.calib_dir:
+            import glob
+            import os
+
+            calib = sorted(q for ext in ("png", "jpg", "jpeg")
+                           for q in glob.glob(os.path.join(args.calib_dir,
+                                                           f"*.{ext}")))[:16]
+        predictor = build_predictor(args, device, calib_paths=calib)
     if args.warmup:  # pay the kernel and segio builds, cuDNN setup
         hs, ws = predictor.image_size
         dummy = np.zeros((hs, ws, 3), np.uint8)
@@ -156,7 +178,7 @@ def make_server(argv=None):
 def main(argv=None) -> int:
     server, args = make_server(argv)
     host, port = server.server_address[:2]
-    print(f"serving {args.preset} on http://{host}:{port} "
+    print(f"serving {args.artifact or args.preset} on http://{host}:{port} "
           "(POST /segment | /labels, GET /healthz)", flush=True)
     try:
         server.serve_forever()

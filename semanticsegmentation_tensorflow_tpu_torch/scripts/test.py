@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     )
 
     p = argparse.ArgumentParser(description=__doc__)
-    add_model_args(p, unported=("mesh",))
+    add_model_args(p)
     p.add_argument("--data-dir", default=None)
     p.add_argument("--runs-dir", default="runs")
     p.add_argument("--batch", type=int, default=1,

@@ -15,12 +15,18 @@ gradient and the confusion matrix get one ``all_reduce(SUM)`` over the
 world before the single divide, so the grid step equals the single-process
 step up to summation order and the update is the same on every rank.
 
-``remat`` recomputes the model's forward in the backward
-(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` with
-``nothing_saveable``): the dropout generator's state is saved before the
-forward and put back for the recompute, so the recompute draws the same
+``remat`` recomputes the model's forward in the backward, one stage at a
+time (``torch.utils.checkpoint`` around each of the model's
+``models.common.region`` calls: VGG16's stages and its fc6/fc7 head,
+SegNet's and U-Net's blocks, DeepLab's ASPP head; the counterpart of
+``jax.checkpoint`` with ``nothing_saveable``): only the regions' inputs and
+outputs stay alive from the forward, and the backward rebuilds one region's
+activations at a time. The dropout generator's state is saved before each
+region and put back for its recompute, so the recompute draws the same
 masks, and the recompute leaves BatchNorm's running statistics alone
-(``models.common.frozen_batch_stats``). The eval step
+(``models.common.frozen_batch_stats``). On a grid that splits rows a
+region's recompute re-runs its halo exchanges in the backward, in the same
+order on every rank. The eval step
 (:func:`make_eval_step`) runs the forward in ``eval()`` mode without
 gradients and draws from no generator.
 
@@ -48,7 +54,7 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    average_batch_stats, frozen_batch_stats,
+    average_batch_stats, frozen_batch_stats, remat_regions,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import labels_from_logits
 from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import use_grid
@@ -151,14 +157,21 @@ def _replay(generator: torch.Generator, saved: torch.Tensor):
 
 def _remat_forward(model, image: torch.Tensor,
                    generator: torch.Generator) -> torch.Tensor:
-    """``model(image, generator=generator)`` with no activation kept for
-    the backward: it is recomputed there. ``preserve_rng_state`` restores
-    only the global generators, so the dropout generator's state is saved
-    here and replayed for the recompute."""
-    saved = generator.get_state()
-    return checkpoint(model, image, generator=generator, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(),
-                                          _replay(generator, saved)))
+    """``model(image, generator=generator)`` keeping, of each region
+    (``models.common.region``), only its inputs and outputs for the
+    backward: the rest is recomputed there, region by region.
+    ``preserve_rng_state`` restores only the global generators, so the
+    dropout generator's state is saved before each region and replayed for
+    its recompute."""
+
+    def wrap(fn, *args):
+        saved = generator.get_state()
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _replay(generator, saved)))
+
+    with remat_regions(wrap):
+        return model(image, generator=generator)
 
 
 def make_eval_step(num_classes: int, mesh=None,

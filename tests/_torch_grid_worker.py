@@ -95,7 +95,8 @@ def run_ops(sc: dict) -> dict:
 
 def run_step(sc: dict) -> dict:
     """``steps`` train steps of a model on a ``data x spatial`` grid from the
-    given weights and global batch (SGD; ``classes`` classes, default 2;
+    given weights and global batch (SGD; ``remat`` as the scenario says;
+    ``classes`` classes, default 2;
     with ``stride``, the rows split at it, unevenly where they must); the losses, the last confusion
     matrix, checksums of the parameters and of the buffers (BatchNorm's
     running statistics) on every rank, and on rank 0 the first step's
@@ -113,7 +114,8 @@ def run_step(sc: dict) -> dict:
     stride = sc.get("stride", 1)
     if "stride" in sc:              # the rows split at the model's stride
         grid = grid.at_height(h, stride)
-    step = make_train_step(classes, mesh=grid, augment_fn=aug)
+    step = make_train_step(classes, mesh=grid, augment_fn=aug,
+                           remat=sc.get("remat", False))
     local = {k: v[grid.images(n)][:, grid.rows(h, stride)].contiguous()
              for k, v in b.items()}
     losses, grads = [], None

@@ -558,3 +558,92 @@ def test_stage1_halo_exact_with_ties_on_card(gen, case):
     leaves = [t.clone().requires_grad_() for t in (z1, k2, b2, b1)]
     grads = torch.autograd.grad(Stage1TailHalo.apply(*leaves), leaves, cot)
     assert all(torch.equal(a, b.to(a.dtype)) for a, b in zip(grads, got))
+
+
+def _op_cases(gen):
+    """(op, args, plain, counter) of each registered op at a small shape,
+    on integer-valued inputs: every sum is exact on both sides."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
+
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    z1, k2, b2 = (t.to(**bf) for t in int_case(2, 12, 40, 64, seed=3))
+    x = torch.randint(-2, 3, (2, 16, 24, 64), generator=gen, device="cuda").bfloat16()
+    pooled, idx = pool_argmax_plain(x)
+    img = torch.randint(0, 256, (2, 37, 50, 3), generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    logits = torch.randint(-3, 4, (2, 64, 64, 5), generator=gen, device="cuda").float()
+    pal = torch.as_tensor(CITYSCAPES_PALETTE[:5], dtype=torch.float32, device="cuda")
+    wx = torch.randint(-2, 3, (2, 8, 12, 64), generator=gen, device="cuda").bfloat16()
+    wt = torch.randint(-1, 2, (64, 64, 3, 3), generator=gen, device="cuda").float()
+    u = cw.u_for(wt, "f2", torch.bfloat16)
+    wb = torch.randint(-1, 2, (64,), generator=gen, device="cuda").bfloat16()
+    ops = torch.ops.segport
+    return {
+        "stage1_tail": (ops.stage1_tail, (z1, k2, b2), stage1_tail_plain, stage1_tail),
+        "stage1_tail_segnet": (ops.stage1_tail_segnet, (z1, k2, b2),
+                               stage1_tail_segnet_plain, stage1_tail_segnet),
+        "pool_argmax": (ops.pool_argmax, (x,), pool_argmax_plain, pool_argmax),
+        "unpool": (ops.unpool, (pooled, idx), unpool_plain, unpool),
+        "overlay": (ops.overlay, (img, logits, pal, 0.7, True),
+                    lambda i, lg, p, a, b: argmax_colormap_overlay_plain(
+                        i, lg[:, :37, :50], p, a, b), argmax_colormap_overlay_cuda),
+        "winograd_fwd": (ops.winograd_fwd, (wx, u, wb, None, "f2", "bias_relu"),
+                         cw.winograd_fwd_plain, cw.winograd_fwd),
+    }
+
+
+@pytest.mark.parametrize("name", ["stage1_tail", "stage1_tail_segnet", "pool_argmax",
+                                  "unpool", "overlay", "winograd_fwd"])
+def test_registered_op_on_card_launches_and_equals_plain(gen, name):
+    """Each ``segport::`` op on CUDA tensors launches its kernel (the
+    wrapper's counter, bumped in the op's CUDA implementation, goes up by
+    one) and equals its plain version bit for bit on exact inputs; an input
+    the kernel refuses (float32 where it takes bf16 or u8) raises instead of
+    taking the plain version."""
+    op, args, plain, counter = _op_cases(gen)[name]
+    before = counter.launches
+    got = op(*args)
+    assert counter.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = plain(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.is_contiguous() and torch.equal(g, w)
+    bad = (args[0].float(),) + tuple(args[1:])
+    with pytest.raises((TypeError, ValueError)):
+        op(*bad)
+    assert counter.launches == before + 1
+
+
+def test_exported_program_on_card_launches_the_kernels(gen, tmp_path):
+    """A narrow FCN-8s and SegNet exported on the card (``infer/export.py``)
+    answer bit for bit as their Predictors on the card, and their calls
+    launch the stage1, pool/unpool and overlay kernels."""
+    from semanticsegmentation_tensorflow_tpu_torch.infer import (
+        ExportedPredictor, Predictor, export_model,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+
+    img = np.random.default_rng(0).integers(0, 256, (2, 40, 70, 3), np.uint8)
+    for name, kw, counters in (
+            ("fcn8s", dict(fc_features=32, width_mult=0.25),
+             (stage1_tail, argmax_colormap_overlay_cuda)),
+            ("segnet", dict(width_mult=0.25),
+             (stage1_tail_segnet, pool_argmax, unpool, argmax_colormap_overlay_cuda))):
+        model = build_model(name, 2, device="cuda", **kw)
+        init_params(model, torch.Generator(device="cuda").manual_seed(0))
+        path = str(tmp_path / f"{name}.segx")
+        twin = build_model(name, 2, device="cuda", **kw)
+        twin.load_state_dict(model.state_dict())
+        meta = export_model(twin, (40, 70), path, platforms=("cuda",))
+        assert meta["batch_mode"] == "symbolic"
+        art = ExportedPredictor(path, "cuda")
+        before = [c.launches for c in counters]
+        ov, lab = art(img)
+        labels = art._fetch_labels(img)
+        assert all(c.launches > b for c, b in zip(counters, before)), name
+        pred = Predictor(model, (40, 70), device="cuda")
+        want_ov, want_lab = pred(img)
+        assert np.array_equal(ov, want_ov) and np.array_equal(lab, want_lab)
+        assert np.array_equal(labels, pred._fetch_labels(img))

@@ -476,6 +476,10 @@ def grid_runs(tmp_path_factory):
         step_sc("dropout_1x2", "fcn8s", 1, 2, drop_sd, drop_batch, DROP_KW,
                 augment=True),
         step_sc("deeplab_1x2", "deeplab", 1, 2, dl_sd, dl_batch, DL_KW),
+        step_sc("dropout_1x2_remat", "fcn8s", 1, 2, drop_sd, drop_batch, DROP_KW,
+                augment=True, remat=True),
+        step_sc("deeplab_1x2_remat", "deeplab", 1, 2, dl_sd, dl_batch, DL_KW,
+                remat=True),
         *(step_sc(f"{name}_1x2", u["model"], 1, 2, usds[name], ubatches[name], u["kw"],
                   stride=u["stride"], classes=u["classes"])
           for name, u in UNEVEN.items()),
@@ -712,6 +716,21 @@ def test_grid_deeplab_step_matches_single_process(grid_runs, name):
         assert err <= 1e-4, (k, err.item())
     for k, p in want["params"].items():
         torch.testing.assert_close(got["params"][k], p, rtol=0, atol=3e-6, msg=k)
+
+
+@pytest.mark.parametrize("name", ["dropout_1x2", "deeplab_1x2"])
+def test_grid_remat_step_equals_the_grid_step(grid_runs, name):
+    """``remat`` on a 1x2 grid (one recompute per stage, each re-running
+    its halo exchanges, and DeepLab's image mean over the ranks, in the
+    backward): the same losses, first gradients and parameters as the grid
+    step without it, bit for bit, on both ranks."""
+    plain, remat = _ranks(grid_runs, name), _ranks(grid_runs, f"{name}_remat")
+    for a, b in zip(plain, remat):
+        assert a["losses"] == b["losses"] and a["checksum"] == b["checksum"]
+    for k, g in plain[0]["grads"].items():
+        assert torch.equal(remat[0]["grads"][k], g), k
+    for k, p in plain[0]["params"].items():
+        assert torch.equal(remat[0]["params"][k], p), k
 
 
 @pytest.mark.parametrize("name", list(UNEVEN))

@@ -14,8 +14,11 @@ weights, warmed up) answers ``--requests`` POSTs of one generated KITTI-like
 PNG (375x1242) on each endpoint over one keep-alive connection; the number is
 the median client wall per request (PNG decode, forward, packed-label fetch,
 host blend, PNG encode, the HTTP round trip). Each response is checked: its
-pixels equal the Predictor's answer for the image. Prints a table with the
-card's name and power limit and writes JSON. Imports nothing of JAX.
+pixels equal the Predictor's answer for the image. Then the in-process
+Predictor's own host ms (median of 20 calls after a warm-up, each ending in
+the device->host copy): its label fetch (``predictor_labels``) and its
+overlay call (``predictor_overlay``). Prints a table with the card's name
+and power limit and writes JSON. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -101,6 +104,16 @@ def worker(root: str, presets: list[str], requests: int) -> dict:
                 res[f"{preset} {path}"] = {"ms": statistics.median(ts[1:]),
                                            "ms_all": ts[1:], "bytes": size}
             conn.close()
+            for key, fn in (("predictor_labels", lambda: pred._fetch_labels(img[None])),
+                            ("predictor_overlay", lambda: pred(img))):
+                fn()
+                ts = []
+                for _ in range(20):
+                    t0 = time.perf_counter()
+                    fn()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                res[f"{preset} {key}"] = {"ms": statistics.median(ts), "ms_all": ts,
+                                          "bytes": 0}
         finally:
             server.shutdown()
             server.server_close()
