@@ -4405,10 +4405,354 @@ def export_phase(torch, smi: str, drive, counters: dict) -> tuple[list[dict], di
     return runs, res
 
 
+def launch_counters() -> dict:
+    """Every kernel wrapper by its counter's name (each adds one to its
+    ``launches`` where it launches its kernel)."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
+        argmax_colormap_overlay_cuda,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
+        pool_argmax, unpool, unpool_bwd,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        preprocess_normalize,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+        stage1_tail, stage1_tail_bwd, stage1_tail_halo, stage1_tail_halo_bwd,
+        stage1_tail_segnet, stage1_tail_train,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
+        winograd_fwd, winograd_wgrad,
+    )
+
+    return {"stage1_tail": stage1_tail, "stage1_tail_train": stage1_tail_train,
+            "stage1_tail_bwd": stage1_tail_bwd,
+            "preprocess_normalize": preprocess_normalize,
+            "overlay": argmax_colormap_overlay_cuda,
+            "stage1_tail_segnet": stage1_tail_segnet,
+            "pool_argmax": pool_argmax, "unpool": unpool,
+            "unpool_bwd": unpool_bwd, "winograd_fwd": winograd_fwd,
+            "winograd_wgrad": winograd_wgrad, "stage1_tail_halo": stage1_tail_halo,
+            "stage1_tail_halo_bwd": stage1_tail_halo_bwd}
+
+
+# the multi-rank phase's ZeRO-1 steps: fcn8s_kitti_parity (fc 4096, ~134 M
+# parameters) at full width, 8 images of 384x1248 a rank, Adam 1e-4
+MULTIRANK_N = 8
+
+
+def _multirank_zero1(torch, rank: int, world: int) -> dict:
+    """One rank's ZeRO-1 check: two Adam steps of the replicated data-grid
+    step, then two of the ``shard_opt`` step, from the same seeded weights
+    on this rank's 8 images (cuDNN deterministic, so that two runs of one
+    step are comparable bit for bit); the parameters after each, each
+    run's ms for its second step (CUDA events), optimizer bytes and peak
+    device memory, and every kernel's launches over each run's steps."""
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import _road_scene
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import (
+        preprocess as cuda_preprocess,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import make_grid
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        create_train_state, make_lr_schedule, make_optimizer, shard_state_zero1,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+
+    dev = torch.device("cuda", 0)
+    grid = make_grid(world, 1)
+    rng = np.random.default_rng(40 + rank)
+    imgs, lbls = zip(*(_road_scene(rng, *PADDED_HW) for _ in range(MULTIRANK_N)))
+    batch = {"image": torch.from_numpy(np.stack(imgs)).to(dev),
+             "label": torch.from_numpy(np.stack(lbls)).to(dev)}
+    aug = cuda_preprocess.make_preprocess_augment_fn(MEAN, STD, None)
+    wrappers = launch_counters()
+
+    def fresh(shard):
+        model = build_model("fcn8s", 2, device=dev,
+                            **get_preset("fcn8s_kitti_parity").model_kwargs)
+        init_params(model, torch.Generator(device=dev).manual_seed(3))
+        st = create_train_state(model, make_optimizer("adam", model.parameters(), 1e-4),
+                                make_lr_schedule(1e-4), seed=0)
+        return shard_state_zero1(st, grid) if shard else st
+
+    res = {}
+    for kind in ("replicated", "zero1"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = fresh(kind == "zero1")
+        step = make_train_step(2, mesh=grid, augment_fn=aug,
+                               shard_opt=kind == "zero1")
+        for w in wrappers.values():
+            w.launches = 0
+        losses = [step(st, batch)["loss"].item()]
+        ms = cuda_ms(lambda: losses.append(step(st, batch)["loss"].item()),
+                     iters=1, warmup=0)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        params = {k: p.detach().cpu() for k, p in st.model.named_parameters()}
+        opt_bytes = sum(v.numel() * v.element_size()
+                        for s in st.optimizer.state.values() for v in s.values()
+                        if torch.is_tensor(v))
+        res[kind] = dict(losses=losses, params=params, opt_bytes=opt_bytes, ms=ms,
+                         peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                         launches=launches)
+        del st, step
+    a, b = res["replicated"], res["zero1"]
+    differ = [k for k, v in a["params"].items() if not torch.equal(v, b["params"][k])]
+    out = {"bit_equal": not differ and a["losses"] == b["losses"], "differ": differ[:5],
+           "losses": a["losses"], "zero1_losses": b["losses"],
+           "checksum": sum(v.double().sum().item() for v in b["params"].values())}
+    for kind in res:
+        out.update({f"{kind}_{k}": res[kind][k]
+                    for k in ("opt_bytes", "ms", "peak_gib", "launches")})
+    return out
+
+
+def multirank_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
+    """One rank of the multi-rank phase (``chip_smoke.py --multirank-rank``):
+    gloo on cuda:0, then the ZeRO-1 check (``_multirank_zero1``) and the
+    job's entry-point calls with ``--distributed`` (the group is up, so
+    ``initialize_distributed`` finds it), each with the kernels' launches
+    counted around it and this rank's output kept."""
+    import contextlib
+    import datetime
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path[:0] = [REPO]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    torch.cuda.set_device(0)
+    spec = torch.load(job)
+    res = {"zero1": _multirank_zero1(torch, rank, world), "calls": {}}
+    wrappers = launch_counters()
+    for name, (script, argv) in spec["calls"].items():
+        torch.cuda.empty_cache()
+        main = importlib.import_module(f"{PKG}.scripts.{script}").main
+        for w in wrappers.values():
+            w.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main([*argv, "--distributed"])
+        res["calls"][name] = {"rc": rc, "out": buf.getvalue(),
+                              "s": time.perf_counter() - t0,
+                              "launches": {k: w.launches for k, w in wrappers.items()}}
+    torch.save(res, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def check_replicas(torch) -> dict:
+    """``Predictor(mesh=[cuda:0, cuda:0])`` (one replica of fcn8s_kitti at
+    full width per device, a ragged batch padded to the replica count by
+    repeating its last image) against the one-device Predictor on the same
+    weights at batches 1, 2 and 3: overlays, labels, fetched label maps
+    and road confidence bit-equal to the one-device Predictor's on each
+    replica's part (cuDNN picks its algorithms by batch size, so one call
+    on 2 images and two on 1 each may round bf16 otherwise); each replica's
+    device ms beside the one-device Predictor's."""
+    import copy
+
+    import numpy as np
+
+    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+
+    from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
+
+    dev = torch.device("cuda", 0)
+    model = build_model("fcn8s", 2, device=dev,
+                        **get_preset("fcn8s_kitti").model_kwargs)
+    init_params(model, torch.Generator(device=dev).manual_seed(6))
+    one = Predictor(copy.deepcopy(model), IMAGE_HW, device=dev)
+    two = Predictor(model, IMAGE_HW, device=dev, mesh=[dev, dev])
+    rng = np.random.default_rng(8)
+    def by_parts(fn, imgs):
+        """``fn`` of the one-device Predictor on each replica's part."""
+        x = np.concatenate([imgs, np.repeat(imgs[-1:], len(imgs) % 2, 0)])
+        k = len(x) // 2
+        outs = [fn(x[i * k:(i + 1) * k]) for i in range(2)]
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        return tuple(np.concatenate(o)[:len(imgs)] for o in zip(*outs))
+
+    for n in (1, 2, 3):
+        imgs = np.stack([kitti_like(int(s)) for s in rng.integers(0, 1000, n)])
+        for what, a, b in (("call", by_parts(one, imgs), two(imgs)),
+                           ("labels", by_parts(one._fetch_labels, imgs),
+                            (two._fetch_labels(imgs),)),
+                           ("confidence", by_parts(one.confidence, imgs),
+                            (two.confidence(imgs),))):
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"replicas: {what} at batch {n} differs from "
+                                     "one device on the same parts")
+    x = torch.from_numpy(kitti_like(1)[None]).to(dev)
+    ms_one = cuda_ms(lambda: one._fwd(x), iters=10)
+    ms_rep = cuda_ms(lambda: two._replicas[0]._fwd(x), iters=10)
+    return {"ms_one_device": ms_one, "ms_replica": ms_rep}
+
+
+def multirank_phase(torch, smi: str, drive) -> tuple[list[dict], dict]:
+    """The multi-rank leftovers, with two gloo ranks sharing cuda:0 (this
+    script re-run as ``--multirank-rank``; two ranks on one card over gloo,
+    whose collectives pass through host memory: a path check, not a
+    multi-GPU number). ZeRO-1: each rank's two replicated and two
+    ``shard_opt`` steps at fcn8s_kitti_parity bit-equal, its optimizer bytes
+    about half, kernels 1, 1b and 4 launched; then the ranks' entry points:
+    ``train --shard-opt`` (one step of 16 at fcn8s_kitti), ``train --qat
+    --pallas-preprocess`` (one step, calibrated on one global batch of 16)
+    and ``eval --distributed --road-metrics`` (batch 4) on the --shard-opt
+    run's checkpoint over the 16 generated images. Then the replicas
+    (check_replicas, run by ``drive``) and the one-process references,
+    with the ranks' deterministic cuDNN: the QAT scales equal to one
+    process's calibration on the same global batches, the eval's metric lines
+    (from the confusion matrix and road histogram) equal to one process's
+    at batch 2, which runs the forwards of the ranks' batch 4 shards, the
+    loss within 1e-3. Returns the launches of the paths and the numbers."""
+    from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
+        generate_synthetic_kitti,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.infer import quant
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import (
+        eval as eval_cli, train as train_cli,
+    )
+
+    t_phase = time.perf_counter()
+    res: dict = {}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data = generate_synthetic_kitti(os.path.join(tmp, "kitti"), n_train=16,
+                                        n_test=1, seed=12)
+        base = ["--preset", "fcn8s_kitti", "--data-dir", data, "--device", "cuda",
+                "--epochs", "1", "--batch-size", "16", "--pallas-preprocess"]
+        zck, qck = os.path.join(tmp, "zero1_ck"), os.path.join(tmp, "qat_ck")
+        ev = ["--preset", "fcn8s_kitti", "--data-dir", data, "--device", "cuda",
+              "--checkpoint-dir", zck, "--road-metrics"]
+        calls = {"shard_opt": ("train", [*base, "--shard-opt", "--checkpoint-dir", zck]),
+                 "qat": ("train", [*base, "--qat", "--qat-calib-batches", "1",
+                                   "--checkpoint-dir", qck]),
+                 "eval": ("eval", [*ev, "--batch-size", "4"])}
+        job = os.path.join(tmp, "multirank_job.pt")
+        torch.save({"calls": calls}, job)
+        store = os.path.join(tmp, "multirank_store")
+        outs = [os.path.join(tmp, f"multirank_rank{r}.pt") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--multirank-rank", str(r), "2", store, job, outs[r]])
+                 for r in range(2)]
+        try:
+            _wait_ranks(procs)
+        finally:
+            _kill_ranks(procs)
+        res["replicas"], launches = drive("replicas", check_replicas, torch)
+        runs.append(launches)
+        missing = [k for k in ("stage1_tail", "overlay") if not launches[k]]
+        if missing:
+            raise AssertionError(f"not launched by the replicas: {missing}")
+        ranks = [torch.load(o) for o in outs]
+        for r, rk in enumerate(ranks):
+            z = rk["zero1"]
+            if not z["bit_equal"]:
+                raise AssertionError(f"rank {r}: ZeRO-1 differs from the replicated "
+                                     f"step: losses {z['losses']} vs "
+                                     f"{z['zero1_losses']}, params {z['differ']}")
+            half = z["zero1_opt_bytes"] / z["replicated_opt_bytes"]
+            if not 0.45 < half < 0.55:
+                raise AssertionError(f"rank {r}: ZeRO-1 optimizer bytes {half:.3f} "
+                                     "of the replicated run's")
+            missing = [k for k in ("stage1_tail_train", "stage1_tail_bwd",
+                                   "preprocess_normalize") if not z["zero1_launches"][k]]
+            if missing:
+                raise AssertionError(f"rank {r}: not launched by the ZeRO-1 steps: "
+                                     f"{missing}")
+            for name, c in rk["calls"].items():
+                if c["rc"] != 0:
+                    raise AssertionError(f"rank {r}: {name} returned {c['rc']}")
+        if ranks[0]["zero1"]["checksum"] != ranks[1]["zero1"]["checksum"]:
+            raise AssertionError("ZeRO-1: the ranks' parameters differ")
+        calls0 = ranks[0]["calls"]
+        print(calls0["shard_opt"]["out"] + calls0["qat"]["out"] + calls0["eval"]["out"],
+              end="")
+        if "ZeRO-1: optimizer state sharded over 2 devices" not in calls0["shard_opt"]["out"]:
+            raise AssertionError("train --shard-opt printed no ZeRO-1 line")
+        for name, need in (("shard_opt", ("stage1_tail_train", "stage1_tail_bwd",
+                                          "preprocess_normalize")),
+                           ("qat", ("preprocess_normalize",)),
+                           ("eval", ("stage1_tail",))):
+            missing = [k for k in need if not calls0[name]["launches"][k]]
+            if missing:
+                raise AssertionError(f"{name} on two ranks: not launched {missing}")
+        runs.extend({k: sum(rk["calls"][name]["launches"][k] for rk in ranks)
+                     for k in ranks[0]["calls"][name]["launches"]}
+                    for name in calls)
+        runs.extend(rk["zero1"]["zero1_launches"] for rk in ranks)
+        # the one-process references, with the ranks' deterministic cuDNN
+        torch.backends.cudnn.deterministic = True
+        try:
+            one_q = os.path.join(tmp, "qat_one")
+            run_cli(train_cli.main, [*calls["qat"][1][:-1], one_q])
+            one_ev = run_cli(eval_cli.main, [*ev, "--batch-size", "2"])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        got = quant.load_act_scales(os.path.join(qck, "qat_scales.json"))
+        want = quant.load_act_scales(os.path.join(one_q, "qat_scales.json"))
+        if got != want:
+            rel = max((abs(got[k] - want[k]) / want[k] for k in set(got) & set(want)),
+                      default=None)
+            raise AssertionError(f"QAT scales on two ranks differ from one process's: "
+                                 f"layers {sorted(set(got) ^ set(want))} apart, worst "
+                                 f"relative {rel}")
+        two_ev = calls0["eval"]["out"]
+
+        def lines(text):
+            return [x.split(" iou=")[1] if x.startswith("loss=") else x
+                    for x in text.splitlines() if x.startswith(("loss=", "kitti-road:"))]
+
+        a, b = parse_eval(two_ev), parse_eval(one_ev)
+        if lines(two_ev) != lines(one_ev) or a["miou"] != b["miou"] \
+                or a["pixel_acc"] != b["pixel_acc"] or abs(a["loss"] - b["loss"]) > 1e-3:
+            raise AssertionError(f"eval --distributed {lines(two_ev)} {a} vs one "
+                                 f"process {lines(one_ev)} {b}")
+        z = ranks[0]["zero1"]
+        res.update(zero1={k: z[k] for k in z if k not in ("differ", "checksum")},
+                   zero1_rank1_peak_gib=(ranks[1]["zero1"]["replicated_peak_gib"],
+                                         ranks[1]["zero1"]["zero1_peak_gib"]),
+                   qat_scales_equal=True,
+                   eval_two_ranks=a, eval_one=b,
+                   call_s={k: c["s"] for k, c in calls0.items()})
+    log(f"ZeRO-1 at fcn8s_kitti_parity, 2 gloo ranks on cuda:0, 8 images of "
+        f"384x1248 a rank: bit-equal to the replicated step; optimizer "
+        f"{z['zero1_opt_bytes'] / 1e9:.3f} vs {z['replicated_opt_bytes'] / 1e9:.3f} GB "
+        f"a rank; {z['zero1_ms']:.1f} vs {z['replicated_ms']:.1f} ms/step; peak "
+        f"{z['zero1_peak_gib']:.2f} vs {z['replicated_peak_gib']:.2f} GiB (rank 0) | {smi}")
+    log(f"QAT scales on two ranks equal one process's; eval --distributed "
+        f"metrics equal one process's; "
+        f"replicas {res['replicas']['ms_replica']:.3f} vs one device "
+        f"{res['replicas']['ms_one_device']:.3f} ms | {smi}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"multirank phase: {res['phase_s']:.1f} s")
+    log("multirank timings: " + json.dumps(res))
+    return runs, res
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--grid-rank"]:     # a rank of check_grid's phase
         rank, world, store, job, out = sys.argv[2:7]
         return grid_rank(int(rank), int(world), store, job, out)
+    if sys.argv[1:2] == ["--multirank-rank"]:     # a rank of multirank_phase
+        rank, world, store, job, out = sys.argv[2:7]
+        return multirank_rank(int(rank), int(world), store, job, out)
     try:
         import torch
     except ImportError:
@@ -4421,22 +4765,7 @@ def main() -> int:
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]  # the package, profile_train
     try:
         from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
-        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
-            argmax_colormap_overlay_cuda,
-        )
-        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
-            preprocess_normalize,
-        )
-        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.pool import (
-            pool_argmax, unpool, unpool_bwd,
-        )
-        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-            stage1_tail, stage1_tail_bwd, stage1_tail_halo, stage1_tail_halo_bwd,
-            stage1_tail_segnet, stage1_tail_train,
-        )
-        from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.winograd import (
-            winograd_fwd, winograd_wgrad,
-        )
+        counters = launch_counters()
     except ImportError as e:
         print(f"chip_smoke: the port package is missing ({e}); run from the "
               "repository root", file=sys.stderr)
@@ -4474,16 +4803,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     halo = check_stage1_halo(torch, gen)
     torch.cuda.empty_cache()
-
-    counters = {"stage1_tail": stage1_tail, "stage1_tail_train": stage1_tail_train,
-                "stage1_tail_bwd": stage1_tail_bwd,
-                "preprocess_normalize": preprocess_normalize,
-                "overlay": argmax_colormap_overlay_cuda,
-                "stage1_tail_segnet": stage1_tail_segnet,
-                "pool_argmax": pool_argmax, "unpool": unpool,
-                "unpool_bwd": unpool_bwd, "winograd_fwd": winograd_fwd,
-                "winograd_wgrad": winograd_wgrad, "stage1_tail_halo": stage1_tail_halo,
-                "stage1_tail_halo_bwd": stage1_tail_halo_bwd}
 
     def drive(path, fn, *args):
         """Run one main path with every launch counter at 0 just before it
@@ -4648,6 +4967,7 @@ def main() -> int:
     tta_runs, _ = tta_tiled_phase(torch, smi, drive)
     int8_runs, _ = int8_phase(torch, smi, drive, gen)
     export_runs, _ = export_phase(torch, smi, drive, counters)
+    multirank_runs, _ = multirank_phase(torch, smi, drive)
 
     def total(*keys):
         return sum(runs[k] for runs in (infer_launches, sweep_launches,
@@ -4657,7 +4977,8 @@ def main() -> int:
                                         w_infer_launches, w_train_launches,
                                         w_seg_launches, *spatial_runs, *dl_runs,
                                         *unet_runs, *bn_runs, *tta_runs,
-                                        *int8_runs, *export_runs)
+                                        *int8_runs, *export_runs,
+                                        *multirank_runs)
                    for k in keys)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

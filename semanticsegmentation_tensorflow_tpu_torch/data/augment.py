@@ -18,11 +18,13 @@ flip and crop) only when the jitter is on, so with both off the
 generator's stream is unchanged.
 
 Under an active grid of several ranks (``parallel/mesh.py``) each rank holds
-its images and rows of the global batch: the flips are drawn for the global
-batch from the shared generator and each rank keeps its images', so the grid
-step equals the single-process step. A grid trains without crop (the JAX
-package's ``scripts/train.py:265-269``); flip and normalize need no
-neighbouring row, so the preprocess kernel runs on each rank's rows.
+its images and rows of the global batch: the flips and crop offsets are
+drawn for the global batch from the shared generator and each rank keeps
+its images', so the grid step equals the single-process step. A grid that
+splits rows trains without crop (the JAX package's
+``scripts/train.py:262-269``; a data grid crops each rank's images, as the
+JAX 1-D mesh does); flip and normalize need no neighbouring row, so the
+preprocess kernel runs on each rank's rows.
 """
 
 from __future__ import annotations
@@ -230,8 +232,8 @@ class Augment:
         mine = slice(None) if grid is None else grid.images(n * data)
         if self.scales and spatial > 1:
             raise ValueError("scale jitter needs whole images (no spatial grid)")
-        if data * spatial > 1 and self.crop_size is not None:
-            raise ValueError("a grid of ranks trains without random crop")
+        if spatial > 1 and self.crop_size is not None:
+            raise ValueError("a grid that splits rows trains without random crop")
         scale = (sample_scale_params(generator, self.scales, h, w)
                  if self.scales else None)
         color = (tuple(t[mine] for t in sample_color_params(

@@ -7,10 +7,17 @@ reads the padded logits in place, so the crop is free), the label map,
 bit-packed on the device for the fetch (``_fetch_labels``: the serving path
 and the sweep, which blend on the host), or the road confidence
 (``confidence``). Only uint8 crosses the host boundary.
+
+With ``mesh`` (a list of devices, the counterpart of the JAX Predictor's
+one-process data mesh) the Predictor holds one replica of the model per
+device, pads a ragged batch to the device count by repeating its last
+image, runs each equal part on its device (all parts enqueued before any
+result is fetched), and joins the results in order.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Iterable, Iterator, Sequence
@@ -33,6 +40,9 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.overlay import (
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.shape import (
     crop_to, pad_to_multiple,
+)
+from semanticsegmentation_tensorflow_tpu_torch.parallel.replicas import (
+    mesh_from, run_on_replicas,
 )
 
 
@@ -76,14 +86,23 @@ class Predictor:
     dtype and channels_last). The caller's module then holds bf16
     parameters, an inference-only form; to keep the f32 ones (for training,
     or to save them), pass a copy. A BatchNorm model runs on its running
-    statistics."""
+    statistics.
+
+    ``mesh``: devices to hold a replica each (module docstring), ``device``
+    the first of them; one device is the plain Predictor."""
 
     def __init__(self, model: nn.Module, image_size: tuple[int, int], *,
                  device, mean: Sequence[float] = (123.68, 116.779, 103.939),
                  std: Sequence[float] = (58.393, 57.12, 57.375),
                  overlay_palette: np.ndarray = KITTI_OVERLAY_PALETTE,
-                 alpha: float = 0.5):
-        self.device = torch.device(device)
+                 alpha: float = 0.5, mesh: Sequence | None = None):
+        mesh = mesh_from(device, mesh)
+        self.device = mesh[0]
+        # the other replicas copy the caller's model before it is cast
+        self._replicas = [Predictor(copy.deepcopy(model), image_size, device=d,
+                                    mean=mean, std=std,
+                                    overlay_palette=overlay_palette, alpha=alpha)
+                          for d in mesh[1:]]
         self.model = inference_form(model, self.device)
         self.image_size = tuple(image_size)
         self._stride = getattr(model, "total_stride", 32)
@@ -128,12 +147,31 @@ class Predictor:
         labels = label_map(self._padded_logits(image_u8), self.image_size)
         return labelpack.pack_labels(labels, self._pack_mode)
 
+    @property
+    def mesh_size(self) -> int:
+        """The devices holding a replica (1 without a mesh)."""
+        return 1 + len(self._replicas)
+
+    def _map(self, fn, image_u8) -> list[np.ndarray]:
+        """``fn(predictor, x)`` -> device tensors, over the replicas
+        (``parallel/replicas.py``: a ragged batch padded by repeating its
+        last image, one part per replica); the results fetched, joined in
+        order and cut to the real batch."""
+        outs, n = run_on_replicas(lambda p, x: fn(p, p._to_device(x)),
+                                  [self, *self._replicas],
+                                  [p._mean.device for p in (self, *self._replicas)],
+                                  image_u8, pad=True)
+        if len(outs) == 1:
+            return [t.cpu().numpy() for t in outs[0]]
+        return [np.concatenate([o[j].cpu().numpy() for o in outs])[:n]
+                for j in range(len(outs[0]))]
+
     def _fetch_labels(self, image_u8) -> np.ndarray:
         """[N,H,W,3] u8 (numpy, or a tensor on the device) -> [N,H,W] label
         map: forward, pack on the device, fetch, unpack on the host."""
-        packed = self._packed_labels(self._to_device(image_u8))
-        return labelpack.unpack_labels(packed.cpu().numpy(),
-                                       self.image_size[1], self._pack_mode)
+        packed = self._map(lambda p, x: (p._packed_labels(x),), image_u8)[0]
+        return labelpack.unpack_labels(packed, self.image_size[1],
+                                       self._pack_mode)
 
     @torch.inference_mode()
     def confidence(self, image_u8: np.ndarray) -> np.ndarray:
@@ -145,19 +183,22 @@ class Predictor:
             raise ValueError("confidence maps need a binary (num_classes=2) "
                              "model")
         squeeze = image_u8.ndim == 3
-        x = self._to_device(image_u8[None] if squeeze else image_u8)
+        out = self._map(lambda p, x: (p._confidence(x),),
+                        image_u8[None] if squeeze else image_u8)[0]
+        return out[0] if squeeze else out
+
+    @torch.inference_mode()
+    def _confidence(self, x: torch.Tensor) -> torch.Tensor:
         logits = crop_to(self._padded_logits(x), *self.image_size)
         p = torch.softmax(logits.float(), dim=-1)[..., 1]
-        out = torch.round(p * 255.0).to(torch.uint8).cpu().numpy()
-        return out[0] if squeeze else out
+        return torch.round(p * 255.0).to(torch.uint8)
 
     def __call__(self, image_u8: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """[H,W,3] or [N,H,W,3] uint8 -> (overlay u8, labels i32), same rank."""
         squeeze = image_u8.ndim == 3
         if squeeze:
             image_u8 = image_u8[None]
-        overlay, labels = self._fwd(self._to_device(image_u8))
-        overlay, labels = overlay.cpu().numpy(), labels.cpu().numpy()
+        overlay, labels = self._map(lambda p, x: p._fwd(x), image_u8)
         return (overlay[0], labels[0]) if squeeze else (overlay, labels)
 
     def predict_file(self, path: str) -> tuple[np.ndarray, np.ndarray]:

@@ -55,11 +55,14 @@ def flax_path(module_name: str) -> str:
 
 
 def _recorded_forward(model: nn.Module, batches: Iterable[torch.Tensor],
-                      record) -> int:
+                      record, grid=None) -> int:
     """Run ``model`` in eval mode without gradients over ``batches``,
     calling ``record(path, input)`` before every call of a conv of exactly
     one of ``_QUANTIZED``'s types. Returns the batch count; the model's mode
-    is restored."""
+    is restored. ``grid``: the active grid of the forwards
+    (``parallel.mesh.use_grid``), where each batch is this rank's share."""
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import use_grid
+
     hooks = []
     for name, m in model.named_modules():
         if type(m) in _QUANTIZED:
@@ -70,7 +73,7 @@ def _recorded_forward(model: nn.Module, batches: Iterable[torch.Tensor],
     model.eval()
     n = 0
     try:
-        with torch.no_grad():
+        with torch.no_grad(), use_grid(grid):
             for x in batches:
                 model(x)
                 n += 1
@@ -123,21 +126,35 @@ def quantize_model(model: nn.Module, act_scales: dict[str, float] | None = None,
     return model
 
 
-def calibrate_act_scales(model: nn.Module, batches: Iterable[torch.Tensor]
-                         ) -> dict[str, float]:
+def calibrate_act_scales(model: nn.Module, batches: Iterable[torch.Tensor],
+                         grid=None) -> dict[str, float]:
     """Per-tensor activation scales: ``amax(|conv input|) / 127`` over the
     calibration ``batches`` (normalized, stride-padded model input), 1.0
     where a conv's amax is 0: the JAX function at its default margin of 1,
     which every caller there uses. The maxima stay on the device until the
-    end."""
+    end.
+
+    With a ``grid`` of ranks (``parallel.mesh.Grid``) each batch is this
+    rank's images and rows of a global batch and the forward runs with the
+    grid active; each rank records the maxima of its own inputs (a halo row
+    is a copy of a row another rank holds, and a conv module's input holds
+    none), then one MAX all-reduce over the world gives every rank the
+    scales one process computes over the global batches."""
     amax: dict[str, torch.Tensor] = {}
 
     def record(path, x):
         a = x.detach().float().abs().amax()
         amax[path] = torch.maximum(amax[path], a) if path in amax else a
 
-    if _recorded_forward(model, batches, record) == 0:
+    if _recorded_forward(model, batches, record, grid) == 0:
         raise ValueError("calibration needs at least one batch")
+    if grid is not None and grid.world > 1:
+        import torch.distributed as dist
+
+        keys = sorted(amax)
+        flat = torch.stack([amax[k] for k in keys])
+        dist.all_reduce(flat, op=dist.ReduceOp.MAX)
+        amax = dict(zip(keys, flat.unbind()))
     return {k: float(v) / 127.0 if float(v) > 0 else 1.0
             for k, v in amax.items()}
 
@@ -204,13 +221,13 @@ def fold_batchnorm(state_dict: dict[str, torch.Tensor],
 def quantize_for_inference(model: nn.Module,
                            calib_batches: Iterable[torch.Tensor] | None,
                            act_scales: dict[str, float] | None = None,
-                           ) -> tuple[nn.Module, dict[str, float]]:
+                           grid=None) -> tuple[nn.Module, dict[str, float]]:
     """One-call post-training quantization, in place: BatchNorm folded
     first (so calibration sees, and the int8 grid scales, the folded
     weights), then the activation scales (``act_scales`` as given, e.g. a
-    QAT run's; else calibrated on ``calib_batches``; none, weight-only,
-    without batches), then :func:`quantize_model`. Returns ``(model,
-    scales)``."""
+    QAT run's; else calibrated on ``calib_batches``, this rank's shares on
+    a ``grid``; none, weight-only, without batches), then
+    :func:`quantize_model`. Returns ``(model, scales)``."""
     from semanticsegmentation_tensorflow_tpu_torch.convert import (
         transposed_weights,
     )
@@ -221,7 +238,7 @@ def quantize_for_inference(model: nn.Module,
     if act_scales is not None:
         scales = dict(act_scales)
     else:
-        scales = (calibrate_act_scales(model, calib_batches)
+        scales = (calibrate_act_scales(model, calib_batches, grid)
                   if calib_batches is not None else {})
     return quantize_model(model, scales), scales
 

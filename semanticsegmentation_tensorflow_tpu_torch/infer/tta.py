@@ -123,7 +123,8 @@ def make_tta_eval_step(num_classes: int, scales: Sequence[float] = (1.0,),
         if mesh is not None and mesh.world > 1:
             ce_sum, valid_sum, cm, hist = _all_reduce_sums(ce_sum, valid_sum,
                                                            cm, hist)
-        out = {"loss": ce_sum / valid_sum.clamp(min=1.0), "cm": cm, "pred": pred}
+        out = {"loss": ce_sum / valid_sum.clamp(min=1.0), "cm": cm, "pred": pred,
+               "ce_sum": ce_sum, "valid_sum": valid_sum}
         if hist is not None:
             out["road_hist"] = hist
         return out

@@ -12,10 +12,11 @@ once, before any collective, with its values taken in this order:
    ``RANK``).
 
 The backend is NCCL for CUDA ranks and gloo for CPU ranks. The port's
-collectives are ``all_reduce`` and ``barrier`` only, which gloo also takes
-for CUDA tensors, so a test may run gloo ranks that share one GPU
-(``chip_smoke.py``'s grid phase). Collectives time out after
-``TIMEOUT_S``.
+collectives are ``all_reduce`` (SUM; MAX for the QAT calibration),
+``all_gather`` (ZeRO-1's fresh parameter slices and its checkpoint's
+moments) and ``barrier``, which gloo also takes for CUDA tensors, so a test
+may run gloo ranks that share one GPU (``chip_smoke.py``'s grid and
+multi-rank phases). Collectives time out after ``TIMEOUT_S``.
 """
 
 from __future__ import annotations

@@ -126,6 +126,22 @@ def make_grid(data: int, spatial: int = 1) -> Grid:
     return Grid(data, spatial, rank, spatial_group, data_group)
 
 
+def zero1_spec(param, grid: Grid, transposed: bool = False) -> int | None:
+    """The axis along which ZeRO-1 shards ``param``'s optimizer state over
+    the grid's data ranks, or None where it stays replicated (the
+    counterpart of the JAX ``zero1_spec``). JAX shards a leaf's last axis,
+    which in flax's layouts is the output-channel axis; here that is dim 0
+    of an OIHW conv weight and of a bias or BatchNorm vector, dim 1 of a
+    transposed conv's [Cin, Cout, kh, kw] weight (``transposed``). As
+    there, the axis shards when it is at least ``grid.data`` long and
+    divides by it; a 0-d leaf stays replicated."""
+    if param.dim() == 0:
+        return None
+    axis = 1 if transposed and param.dim() == 4 else 0
+    size, n = param.shape[axis], grid.data
+    return axis if size >= n and size % n == 0 else None
+
+
 def check_rows(h: int, spatial: int, stride: int = 32) -> None:
     """Raise unless a padded image height ``h`` divides into blocks of the
     model's total ``stride``, at least one for each of ``spatial`` ranks

@@ -1,7 +1,7 @@
 """Shared CLI pieces of the port's entry points: device selection, the
-model flags, and building a Predictor from a preset plus weights (a
-state_dict file, or the port's own training checkpoints), int8-quantized
-with ``--int8`` (``infer/quant.py``)."""
+model flags, ``--mesh``'s devices, and building a Predictor from a preset
+plus weights (a state_dict file, or the port's own training checkpoints),
+int8-quantized with ``--int8`` (``infer/quant.py``)."""
 
 from __future__ import annotations
 
@@ -10,11 +10,6 @@ import os
 import sys
 
 import torch
-
-# flags of the JAX package's serving CLIs that the port does not implement
-# yet (by their argparse names)
-UNPORTED_FLAGS = ("mesh",)
-
 
 def resolve_device(name: str) -> torch.device:
     """``--device`` -> torch.device. A CUDA device with no card raises: the
@@ -50,17 +45,24 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
                    help="post-training int8 forward (per-channel weights, "
                         "per-tensor activations; infer/quant.py), BatchNorm "
                         "folded first")
-    for flag in UNPORTED_FLAGS:
-        p.add_argument("--" + flag.replace("_", "-"), default=None,
-                       nargs="?", const=True, help="not ported yet (raises)")
 
 
-def check_unported(args: argparse.Namespace) -> None:
-    used = [f for f in UNPORTED_FLAGS if getattr(args, f, None) is not None]
-    if used:
-        raise NotImplementedError(
-            "not ported yet: "
-            + ", ".join("--" + f.replace("_", "-") for f in used))
+def mesh_devices(device: torch.device) -> list[torch.device] | None:
+    """``--mesh`` in one process: every visible device of ``device``'s type
+    (each CUDA card; the CPU is one device), ``device`` first (its index
+    filled in: ``cuda`` is the current card), or None where that is one
+    device, as the JAX CLIs' ``len(jax.devices()) > 1`` check: the flag then
+    changes nothing."""
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.replicas import indexed
+
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    first = indexed(device)
+    return [first] + [torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count()) if i != first.index]
+
+
+def check_model_args(args: argparse.Namespace) -> None:
     if args.checkpoint_dir is not None and args.weights:
         raise ValueError("pass --weights or --checkpoint-dir, not both")
     if args.ema and args.checkpoint_dir is None:
@@ -141,9 +143,11 @@ def build_served_model(args: argparse.Namespace, device: torch.device, *,
     return model, dc
 
 
-def build_predictor(args: argparse.Namespace, device: torch.device, **int8):
+def build_predictor(args: argparse.Namespace, device: torch.device, *,
+                    mesh=None, **int8):
     """:func:`build_served_model` (``int8``: its quantization arguments) ->
-    Predictor, painting with the preset
+    Predictor (one replica on each of ``mesh``'s devices, when given),
+    painting with the preset
     dataset's palette (Cityscapes' 19 colours for ``unet_cityscapes``; the
     JAX CLIs pass KITTI's two-colour palette whatever the model, which
     paints every class above 0 green)."""
@@ -155,4 +159,4 @@ def build_predictor(args: argparse.Namespace, device: torch.device, **int8):
     model, dc = build_served_model(args, device, **int8)
     return Predictor(model, dc.image_size, device=device, mean=dc.mean,
                      std=dc.std, overlay_palette=overlay_palette(dc.dataset),
-                     alpha=args.alpha)
+                     alpha=args.alpha, mesh=mesh)

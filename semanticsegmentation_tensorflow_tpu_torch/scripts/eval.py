@@ -21,8 +21,21 @@ probabilities with the plain one's, at each of ``--tta-scales`` (default
 (``infer/quant.py``: BatchNorm folded, per-channel int8 weights, per-tensor
 activations at the checkpoint's ``qat_scales.json`` where a ``--qat`` run
 wrote one, else calibrated on the first ``--calib-batches`` batches, 0:
-weight-only). The JAX CLI's multi-device flags parse with their defaults
-and raise ``NotImplementedError`` when set away from them.
+weight-only).
+
+``--distributed`` evaluates on a process group (``parallel/launch.py``:
+``--coordinator``, ``--num-processes``, ``--process-id`` or the env), one
+device each, with ``--mesh`` implied: the batch, rounded up to a multiple
+of the ranks, shards over a 1-D data grid, each rank evaluates its images,
+and one SUM all-reduce a batch makes the confusion matrix (so the metrics)
+the one-process eval's; ``--int8`` calibrates each rank's share with one MAX
+all-reduce. Rank 0 prints. ``--mesh`` in one process runs one replica of
+the model on each visible card (``train/step.py`` ``replicate_eval_step``,
+the sums added); on one device it changes nothing.
+
+    torchrun --nproc-per-node 2 -m \
+        semanticsegmentation_tensorflow_tpu_torch.scripts.eval \
+        --distributed --data-dir data_road --checkpoint-dir ckpts
 """
 
 from __future__ import annotations
@@ -30,15 +43,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-# the JAX CLI's flags that the port does not implement yet, with their
-# argparse settings there
-UNPORTED = (("--mesh", dict(action="store_true")),
-            ("--distributed", dict(action="store_true")),
-            ("--coordinator", dict(default=None)),
-            ("--num-processes", dict(type=int, default=None)),
-            ("--process-id", dict(type=int, default=None)))
-
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__,
@@ -76,15 +80,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="calibration batches for --int8 (0 = weight-only)")
     p.add_argument("--device", default="cuda",
                    help="torch device; cuda raises without a card")
-    for flag, kw in UNPORTED:
-        p.add_argument(flag, help="not ported yet (raises)", **kw)
-    args = p.parse_args(argv)
-    dests = {flag: flag[2:].replace("-", "_") for flag, _ in UNPORTED}
-    used = [flag for flag, dest in dests.items()
-            if getattr(args, dest) != p.get_default(dest)]
-    if used:
-        raise NotImplementedError(f"not ported yet: {', '.join(used)}")
-    return args
+    p.add_argument("--mesh", action="store_true",
+                   help="shard eval batches over the ranks (1-D data grid, "
+                        "summed confusion matrix) or, in one process, over "
+                        "every visible card: metrics exact incl. the "
+                        "wrap-padded final batch (valid=0 rows)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process eval: join a torch.distributed "
+                        "process group first (implies --mesh; see "
+                        "scripts/train.py)")
+    p.add_argument("--coordinator", default=None, help="rank 0's host:port")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
@@ -104,8 +112,12 @@ def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
         build_model, merge_quant_safe_kwargs,
     )
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.launch import (
+        barrier, initialize_distributed, is_primary, local_device,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import make_grid
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
-        load_checkpoint_weights, resolve_device,
+        load_checkpoint_weights, mesh_devices, resolve_device,
     )
     from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
         checkpoint_steps,
@@ -113,9 +125,22 @@ def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.train.metrics import (
         SegMetrics, kitti_road_metrics,
     )
-    from semanticsegmentation_tensorflow_tpu_torch.train.step import make_eval_step
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import (
+        make_eval_step, replicate_eval_step,
+    )
 
     device = resolve_device(args.device)
+    world = 1
+    if args.distributed:
+        proc, world = initialize_distributed(args.coordinator,
+                                             args.num_processes,
+                                             args.process_id, device=device)
+        device = local_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        args.mesh = True
+        print(f"distributed: process {proc}/{world}")
+    log = print if is_primary() else (lambda *a, **k: None)
     cfg = get_preset(args.preset)
     dc = cfg.data
     name = args.model or cfg.model
@@ -124,32 +149,45 @@ def main(argv=None) -> int:
         model_kwargs = merge_quant_safe_kwargs(name, model_kwargs)
     model = build_model(name, num_classes=dc.num_classes, device=device,
                         **model_kwargs)
+    barrier()   # every rank is up before any reads the checkpoint
     model.load_state_dict(load_checkpoint_weights(args.checkpoint_dir, args.ema,
                                                   device))
     model.eval()
     t0 = time.perf_counter()
-    print(f"evaluating checkpoint step {checkpoint_steps(args.checkpoint_dir)[-1]}"
-          + (" (EMA params)" if args.ema else ""))
+    log(f"evaluating checkpoint step {checkpoint_steps(args.checkpoint_dir)[-1]}"
+        + (" (EMA params)" if args.ema else ""))
 
     split = args.split or ("val" if dc.dataset == "cityscapes" else "train")
     ds = build_dataset(dc.dataset, args.data_dir or dc.data_dir, dc.image_size,
                        split=split)
     n_images = len(ds.train_images)
-    print(f"evaluating split={split!r} ({n_images} images)")
+    log(f"evaluating split={split!r} ({n_images} images)")
+
+    grid, devices = None, None
+    if world > 1:
+        grid = make_grid(world, 1)
+    elif args.mesh:
+        devices = mesh_devices(device)
+    shards = grid.data if grid is not None else len(devices or [device])
+    if args.batch_size % shards:
+        args.batch_size += (-args.batch_size) % shards
+        log(f"note: --batch-size rounded up to {args.batch_size} "
+            "(must be a mesh multiple)")
 
     def make_loader():
         return BatchLoader(ds, args.batch_size,
                            pad_multiple=getattr(model, "total_stride", 32),
-                           device=device, drop_remainder=False)
+                           device=device, drop_remainder=False, mesh=grid)
 
     loader = make_loader()
-    quant.warn_qat_fp_eval(args.checkpoint_dir, args.int8, verb="evaluating")
+    if is_primary():
+        quant.warn_qat_fp_eval(args.checkpoint_dir, args.int8, verb="evaluating")
     if args.int8:
         calib = None
         scales_path, qat_scales = quant.checkpoint_act_scales(args.checkpoint_dir)
         if qat_scales is not None:
             # a QAT run persisted its training grid: evaluate on it
-            print(f"int8: QAT scales from {scales_path}")
+            log(f"int8: QAT scales from {scales_path}")
         elif args.calib_batches > 0:
             batches = make_loader().epoch()   # its own order, as JAX's
             try:
@@ -158,12 +196,15 @@ def main(argv=None) -> int:
             finally:
                 batches.close()
         model, scales = quant.quantize_for_inference(model, calib,
-                                                     act_scales=qat_scales)
-        print(f"int8: {quant.quantized_count(model)} convs quantized, "
-              f"{len(scales)} activation scales"
-              + (" (weight-only)" if not scales else ""))
+                                                     act_scales=qat_scales,
+                                                     grid=grid)
+        log(f"int8: {quant.quantized_count(model)} convs quantized, "
+            f"{len(scales)} activation scales"
+            + (" (weight-only)" if not scales else ""))
+    if grid is not None or devices:
+        log(f"mesh eval over {shards} devices")
     if args.road_metrics and dc.num_classes != 2:
-        print("note: --road-metrics needs a binary model; ignored")
+        log("note: --road-metrics needs a binary model; ignored")
         args.road_metrics = False
     if args.tta or args.tta_scales:
         from semanticsegmentation_tensorflow_tpu_torch.infer.tta import (
@@ -171,11 +212,17 @@ def main(argv=None) -> int:
         )
         scales = (tuple(float(s) for s in args.tta_scales.split(","))
                   if args.tta_scales else (1.0,))
-        print(f"TTA eval: scales={list(scales)} flip=True")
+        log(f"TTA eval: scales={list(scales)} flip=True")
         eval_step = make_tta_eval_step(dc.num_classes, scales=scales, flip=True,
-                                       road_hist=args.road_metrics)
+                                       road_hist=args.road_metrics, mesh=grid)
     else:
-        eval_step = make_eval_step(dc.num_classes, road_hist=args.road_metrics)
+        eval_step = make_eval_step(dc.num_classes, road_hist=args.road_metrics,
+                                   mesh=grid)
+    if devices:
+        import copy
+
+        eval_step = replicate_eval_step(
+            eval_step, [model] + [copy.deepcopy(model).to(d) for d in devices[1:]])
 
     metrics = SegMetrics(dc.num_classes, device)
     road_hist = (torch.zeros((2, 256), dtype=torch.int64, device=device)
@@ -188,16 +235,16 @@ def main(argv=None) -> int:
             road_hist += out["road_hist"]
     s = {k: v.tolist() for k, v in metrics.summary().items()}
     dt = time.perf_counter() - t0
-    print(f"loss={float(s['loss']):.4f} miou={float(s['miou']):.4f} "
-          f"pixel_acc={float(s['pixel_acc']):.4f} iou={s['iou']}")
+    log(f"loss={float(s['loss']):.4f} miou={float(s['miou']):.4f} "
+        f"pixel_acc={float(s['pixel_acc']):.4f} iou={s['iou']}")
     if road_hist is not None:
         m = kitti_road_metrics(road_hist)
-        print("kitti-road: "
-              f"MaxF={m['maxf']:.4f} AP={m['ap']:.4f} "
-              f"PRE={m['precision']:.4f} REC={m['recall']:.4f} "
-              f"FPR={m['fpr']:.4f} FNR={m['fnr']:.4f} "
-              f"@tau={m['threshold']:.3f}")
-    print(f"{n_images} images in {dt:.2f}s ({n_images / dt:.2f} img/s)")
+        log("kitti-road: "
+            f"MaxF={m['maxf']:.4f} AP={m['ap']:.4f} "
+            f"PRE={m['precision']:.4f} REC={m['recall']:.4f} "
+            f"FPR={m['fpr']:.4f} FNR={m['fnr']:.4f} "
+            f"@tau={m['threshold']:.3f}")
+    log(f"{n_images} images in {dt:.2f}s ({n_images / dt:.2f} img/s)")
     return 0
 
 

@@ -26,7 +26,7 @@ import sys
 
 def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
-        add_model_args, build_served_model, check_unported, resolve_device,
+        add_model_args, build_served_model, check_model_args, resolve_device,
     )
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     p.add_argument("--calib", type=int, default=16,
                    help="max calibration images read from --calib-dir")
     args = p.parse_args(argv)
-    check_unported(args)
+    check_model_args(args)
     device = resolve_device(args.device)
 
     from semanticsegmentation_tensorflow_tpu_torch.data.palette import (

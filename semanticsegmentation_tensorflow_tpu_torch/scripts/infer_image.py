@@ -21,7 +21,7 @@ import numpy as np
 
 def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
-        add_model_args, build_predictor, build_served_model, check_unported,
+        add_model_args, build_predictor, build_served_model, check_model_args,
         resolve_device,
     )
 
@@ -37,7 +37,7 @@ def main(argv=None) -> int:
     p.add_argument("--tile-overlap", type=int, default=None,
                    help="overlap in px between tiles (default: tile/4)")
     args = p.parse_args(argv)
-    check_unported(args)
+    check_model_args(args)
     device = resolve_device(args.device)
 
     from PIL import Image

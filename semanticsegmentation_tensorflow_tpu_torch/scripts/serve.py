@@ -11,7 +11,10 @@ label map) out. Same request contract as the JAX package's scripts/serve.py.
 ``scripts/export_model.py`` (``infer/export.py`` ExportedPredictor): no
 model code, the programs of ``--device``'s platform; ``--preset``,
 ``--model``, ``--model-kw``, ``--weights``, ``--checkpoint-dir`` and
-``--alpha`` are ignored, as by the JAX package's server.
+``--alpha`` are ignored, as by the JAX package's server. ``--mesh`` serves
+each request batch from one replica of the model on each visible card
+(``infer/predict.py``; a single image is padded to the card count); on one
+device it changes nothing, and an artifact serves on one device.
 
     curl -s -X POST --data-binary @image.png localhost:8500/segment > out.png
     curl -s -X POST --data-binary @image.png localhost:8500/labels > labels.png
@@ -111,11 +114,16 @@ def make_server(argv=None):
     ``stats``. Returns (server, args); the caller runs
     ``server.serve_forever()`` and closes it."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
-        add_model_args, build_predictor, check_unported, resolve_device,
+        add_model_args, build_predictor, check_model_args, mesh_devices,
+        resolve_device,
     )
 
     p = argparse.ArgumentParser(description=__doc__)
     add_model_args(p)
+    p.add_argument("--mesh", action="store_true",
+                   help="serve each request batch from one replica of the "
+                        "model on each visible card (single images are "
+                        "padded to the card count)")
     p.add_argument("--artifact", default=None,
                    help="serve a .segx artifact (scripts/export_model.py) "
                         "instead of a preset and weights: ignores --preset/"
@@ -130,7 +138,7 @@ def make_server(argv=None):
                    default=True,
                    help="run one request's pipeline before accepting requests")
     args = p.parse_args(argv)
-    check_unported(args)
+    check_model_args(args)
     device = resolve_device(args.device)
 
     import numpy as np
@@ -161,7 +169,10 @@ def make_server(argv=None):
             calib = sorted(q for ext in ("png", "jpg", "jpeg")
                            for q in glob.glob(os.path.join(args.calib_dir,
                                                            f"*.{ext}")))[:16]
-        predictor = build_predictor(args, device, calib_paths=calib)
+        mesh = mesh_devices(device) if args.mesh else None
+        if mesh:
+            print(f"mesh serving over {len(mesh)} devices")
+        predictor = build_predictor(args, device, calib_paths=calib, mesh=mesh)
     if args.warmup:  # pay the kernel and segio builds, cuDNN setup
         hs, ws = predictor.image_size
         dummy = np.zeros((hs, ws, 3), np.uint8)

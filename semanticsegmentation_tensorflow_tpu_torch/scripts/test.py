@@ -10,6 +10,9 @@ package's scripts/test.py, which reads KITTI's layout for every preset.
 ``--int8`` sweeps with the int8 model (``infer/quant.py``): its activation
 scales are the checkpoint's ``qat_scales.json`` where a ``--qat`` run wrote
 one, else calibrated on the first ``--calib`` test images (0: weight-only).
+``--mesh`` runs each batch on one replica of the model per visible card
+(``--batch`` rounded up to a multiple of the cards); on one device it
+changes nothing.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ def devkit_name(image_path: str) -> str:
 
 def main(argv=None) -> int:
     from semanticsegmentation_tensorflow_tpu_torch.scripts.common import (
-        add_model_args, build_predictor, check_unported, resolve_device,
+        add_model_args, build_predictor, check_model_args, mesh_devices,
+        resolve_device,
     )
 
     p = argparse.ArgumentParser(description=__doc__)
@@ -46,9 +50,20 @@ def main(argv=None) -> int:
                         "confidence PNGs (round(P(road)*255), named "
                         "um_000000 -> um_road_000000) instead of overlays "
                         "(binary models only)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard each batch over every visible card (one "
+                        "replica of the model each); pair with --batch >= "
+                        "the card count")
     args = p.parse_args(argv)
-    check_unported(args)
+    check_model_args(args)
     device = resolve_device(args.device)
+    mesh = mesh_devices(device) if args.mesh else None
+    if mesh:
+        print(f"mesh inference over {len(mesh)} devices")
+        if args.batch % len(mesh):
+            args.batch += (-args.batch) % len(mesh)
+            print(f"note: --batch rounded up to {args.batch} "
+                  "(must be a mesh multiple)")
 
     import numpy as np
     from PIL import Image
@@ -74,7 +89,7 @@ def main(argv=None) -> int:
         elif args.calib > 0:
             calib = ds.test_images[:args.calib]
     predictor = build_predictor(args, device, calib_paths=calib,
-                                act_scales=qat_scales)
+                                act_scales=qat_scales, mesh=mesh)
     t0, n = time.perf_counter(), 0
     if args.confidence:
         out_dir = os.path.join(args.runs_dir,

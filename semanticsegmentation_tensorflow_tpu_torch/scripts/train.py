@@ -38,7 +38,12 @@ the quant-safe model kwargs, each conv's weight and input on their int8
 grids with straight-through gradients) at the activation scales of
 ``<checkpoint-dir>/qat_scales.json``, which the first ``--qat`` run
 calibrates on ``--qat-calib-batches`` batches and writes; ``eval``/``test``
-``--int8`` read them. It runs on one rank.
+``--int8`` read them. On a grid the calibration takes every rank's share of
+the global batches and one MAX all-reduce (so the scales are one process's
+on the same batches); rank 0 writes the file and every rank reads it after
+a barrier. ``--shard-opt`` shards the optimizer's moments over a 1-D data
+grid (ZeRO-1, ``train/state.py`` ``shard_state_zero1``); it is ignored with
+a note under ``--spatial`` and silently on one rank, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -48,11 +53,6 @@ import dataclasses
 import os
 import sys
 import tempfile
-
-# flags of the JAX CLI that the port does not implement yet: each raises
-# when set away from its default
-UNPORTED = {"shard_opt": False}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
@@ -141,27 +141,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rank 0's host:port")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    for name, default in UNPORTED.items():
-        flag = "--" + name.replace("_", "-")
-        if isinstance(default, bool):
-            p.add_argument(flag, action="store_true", help="not ported yet")
-        else:
-            p.add_argument(flag, type=type(default), default=default,
-                           help="not ported yet")
+    p.add_argument("--shard-opt", action="store_true",
+                   help="ZeRO-1: shard the optimizer moments over the 1-D "
+                        "data grid (each rank updates its slice, then the "
+                        "parameters are all-gathered)")
     return p
 
 
-def parse_args(argv=None):
-    args = build_parser().parse_args(argv)
-    used = sorted("--" + k.replace("_", "-") for k, d in UNPORTED.items()
-                  if getattr(args, k) != d)
-    if used:
-        raise NotImplementedError(f"not ported yet: {', '.join(used)}")
-    return args
-
-
 def main(argv=None) -> int:
-    args = parse_args(argv)
+    args = build_parser().parse_args(argv)
     error = build_parser().error
     if args.keep_best and not args.val_frac:
         error("--keep-best needs --val-frac")
@@ -262,8 +250,6 @@ def main(argv=None) -> int:
     if args.qat:
         # QAT trains under the serving grid: every conv must be a module the
         # fake quantization reaches, as int8 serving rebuilds the model
-        if world > 1:
-            raise NotImplementedError("--qat on more than one rank")
         from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
             merge_quant_safe_kwargs,
         )
@@ -381,7 +367,9 @@ def main(argv=None) -> int:
                                tr.learning_rate, tr.weight_decay)
     state = create_train_state(model, optimizer, lr_fn, tr.seed,
                                ema_decay=args.ema_decay)
-    ckpt = CheckpointManager(tr.checkpoint_dir)
+    # rank 0 alone writes checkpoints; under ZeRO-1 every rank takes part
+    # in gathering the moments
+    ckpt = CheckpointManager(tr.checkpoint_dir, write=primary)
     if args.resume:
         state = ckpt.restore(state)
         if primary:
@@ -390,8 +378,12 @@ def main(argv=None) -> int:
         from semanticsegmentation_tensorflow_tpu_torch.infer import quant
 
         scales_path, scales = quant.checkpoint_act_scales(tr.checkpoint_dir)
+        # every rank has looked for the file before rank 0 can write it, so
+        # all of them take the same branch (and meet at the same barriers)
+        barrier()
         if scales is not None:
-            print(f"QAT: {len(scales)} activation scales from {scales_path}")
+            if primary:
+                print(f"QAT: {len(scales)} activation scales from {scales_path}")
         else:
             batches = loader.epoch()
             try:
@@ -399,14 +391,28 @@ def main(argv=None) -> int:
                          for _, b in zip(range(args.qat_calib_batches), batches)]
             finally:
                 batches.close()
-            scales = quant.calibrate_act_scales(model, calib)
-            os.makedirs(tr.checkpoint_dir, exist_ok=True)
-            quant.save_act_scales(scales_path, scales)
-            print(f"QAT: calibrated {len(scales)} activation scales -> "
-                  f"{scales_path}")
+            scales = quant.calibrate_act_scales(model, calib, grid=grid)
+            if primary:
+                os.makedirs(tr.checkpoint_dir, exist_ok=True)
+                quant.save_act_scales(scales_path, scales)
+            barrier()      # every rank then trains on the file's scales
+            scales = quant.load_act_scales(scales_path)
+            if primary:
+                print(f"QAT: calibrated {len(scales)} activation scales -> "
+                      f"{scales_path}")
         quant.fake_quantize(model, scales)
-    if not primary:           # rank 0 alone writes checkpoints and logs
-        ckpt = None
+    shard_opt = False
+    if grid is not None:
+        shard_opt = args.shard_opt and grid.spatial == 1
+        if args.shard_opt and not shard_opt and primary:
+            print("note: --shard-opt needs the 1-D data mesh; ignored")
+        if shard_opt:
+            from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+                shard_state_zero1,
+            )
+            state = shard_state_zero1(state, grid)
+            if primary:
+                print(f"ZeRO-1: optimizer state sharded over {grid.data} devices")
 
     logger = MetricsLogger(os.path.join(tr.checkpoint_dir, "logs")) if primary \
         else None
@@ -427,7 +433,7 @@ def main(argv=None) -> int:
     step_fn = make_train_step(dc.num_classes, mesh=grid, augment_fn=aug,
                               remat=tr.remat, class_weights=class_weights,
                               grad_accum=args.grad_accum, loss=args.loss,
-                              focal_gamma=args.focal_gamma)
+                              focal_gamma=args.focal_gamma, shard_opt=shard_opt)
     val_fn = best_ckpt = None
     if val_ds is not None:
         vgrid = grid if grid is not None and grid.spatial == 1 else None
@@ -448,9 +454,9 @@ def main(argv=None) -> int:
             s = m.summary()
             return {"val_loss": float(s["loss"]), "val_miou": float(s["miou"])}
 
-        if args.keep_best and primary:
+        if args.keep_best:
             best_ckpt = CheckpointManager(os.path.join(tr.checkpoint_dir, "best"),
-                                          max_to_keep=1)
+                                          max_to_keep=1, write=primary)
     try:
         state, summary = train(
             state, step_fn, loader.epoch, epochs=tr.epochs,

@@ -7,7 +7,12 @@ whole; the oldest beyond ``max_to_keep`` are deleted. A checkpoint holds the
 model parameters and buffers (a BatchNorm model's running statistics, the
 JAX package's ``batch_stats``), the optimizer state, the step, both
 generator states and the EMA parameters when tracked: resuming continues
-the run bit for bit (given the same batches).
+the run bit for bit (given the same batches). A checkpoint does not depend
+on ZeRO-1 (``train/state.py`` ``Zero1``), as the JAX package's orbax
+checkpoints of global arrays do not: ``save`` gathers the whole moments
+(every rank calls it; a manager with ``write=False`` only takes part in
+that gather) and ``restore`` slices them for a sharded run, so a run
+resumes with or without ``--shard-opt`` whichever way it was saved.
 """
 
 from __future__ import annotations
@@ -37,16 +42,21 @@ def checkpoint_path(directory: str, step: int) -> str:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 write: bool = True):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.write = write
 
-    def save(self, state: TrainState) -> str:
+    def save(self, state: TrainState) -> str | None:
+        optimizer = state.optimizer_state_dict()   # collective under ZeRO-1
+        if not self.write:
+            return None
         os.makedirs(self.directory, exist_ok=True)
         payload = {
             "step": state.step,
             "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "optimizer": optimizer,
             "aug_gen": state.aug_gen.get_state(),
             "dropout_gen": state.dropout_gen.get_state(),
         }
@@ -83,7 +93,7 @@ class CheckpointManager:
                           "run does not track them (no --ema-decay): EMA "
                           "tracking stops here", stacklevel=2)
         state.model.load_state_dict(ckpt["model"])
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.load_optimizer_state_dict(ckpt["optimizer"])
         state.aug_gen.set_state(ckpt["aug_gen"].cpu())
         state.dropout_gen.set_state(ckpt["dropout_gen"].cpu())
         if state.ema_params:

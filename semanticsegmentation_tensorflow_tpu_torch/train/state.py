@@ -166,7 +166,9 @@ class TrainState:
     and the EMA copy of the parameters (empty when ``ema_decay`` is 0; the
     parameters only: BatchNorm's running statistics are buffers, served
     live beside the EMA parameters, as the JAX package's
-    ``train/state.py:37-48`` keeps ``batch_stats`` out of its EMA)."""
+    ``train/state.py:37-48`` keeps ``batch_stats`` out of its EMA), and
+    ``zero1`` where :func:`shard_state_zero1` put the optimizer over this
+    rank's slices (None: the optimizer holds the whole parameters)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -176,19 +178,38 @@ class TrainState:
     step: int = 0
     ema_decay: float = 0.0
     ema_params: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    zero1: Zero1 | None = None
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def optimizer_state_dict(self) -> dict:
+        """The optimizer's state_dict over the whole parameters: under
+        ZeRO-1 the moments gathered from every data rank (a collective:
+        every rank calls it), so that a checkpoint does not depend on the
+        sharding."""
+        sd = self.optimizer.state_dict()
+        return sd if self.zero1 is None else self.zero1.gather_state(sd)
+
+    def load_optimizer_state_dict(self, sd: dict) -> None:
+        """Load a whole-parameter optimizer state_dict, this rank's slice
+        of each moment under ZeRO-1."""
+        self.optimizer.load_state_dict(
+            sd if self.zero1 is None else self.zero1.slice_state(sd))
+
     def apply_gradients(self) -> None:
         """One optimizer update from the accumulated ``.grad``s at the
-        schedule's rate for this step, then the EMA update
+        schedule's rate for this step (under ZeRO-1 on this rank's slices,
+        then the fresh slices gathered), then the EMA update
         ``e * d + p * (1 - d)`` and ``step += 1``."""
         lr = self.lr_fn(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        self.optimizer.step()
+        if self.zero1 is None:
+            self.optimizer.step()
+        else:
+            self.zero1.step(self.optimizer)
         if self.ema_params:
             d = self.ema_decay
             with torch.no_grad():
@@ -196,6 +217,148 @@ class TrainState:
                     e = self.ema_params[name]
                     e.copy_(e * d + p * (1.0 - d))
         self.step += 1
+
+
+class Zero1:
+    """ZeRO-1 over a data grid (the JAX ``_zero1_apply_gradients``): the
+    optimizer runs over one leaf per parameter, in the model's order: this
+    rank's slice of each parameter that :func:`parallel.mesh.zero1_spec`
+    shards, the parameter itself where it stays replicated. Its moments
+    are then 1/``data`` of the sharded leaves. A slice along dim 0 is a
+    view of the parameter, so the update lands in place and the gather
+    writes the other ranks' slices beside it with no buffer; a transposed
+    conv's dim-1 slice is a copy. Every optimizer the port builds is
+    elementwise, so updating a slice equals slicing the whole update."""
+
+    def __init__(self, model: nn.Module, grid):
+        from semanticsegmentation_tensorflow_tpu_torch.convert import (
+            transposed_weights,
+        )
+        from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import (
+            zero1_spec,
+        )
+
+        self.grid = grid
+        self.n, self.index = grid.data, grid.data_index
+        transposed = transposed_weights(model)
+        self.params: list[nn.Parameter] = []
+        self.axes: list[int | None] = []
+        self.leaves: list[torch.Tensor] = []
+        for name, p in model.named_parameters():
+            axis = (zero1_spec(p, grid, name in transposed)
+                    if self.n > 1 else None)
+            self.params.append(p)
+            self.axes.append(axis)
+            if axis is None:
+                self.leaves.append(p)
+            else:
+                mine = self._mine(p.detach(), axis)
+                self.leaves.append(mine if axis == 0 else mine.clone())
+
+    def _mine(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        k = t.shape[axis] // self.n
+        return t.narrow(axis, self.index * k, k)
+
+    @torch.no_grad()
+    def step(self, optimizer: torch.optim.Optimizer) -> None:
+        """Each sharded leaf takes this rank's slice of its gradient (the
+        gradients already summed over the world), the optimizer steps, and
+        an all_gather over the data ranks writes every rank's fresh slices
+        into the parameters."""
+        for p, axis, leaf in zip(self.params, self.axes, self.leaves):
+            if axis is None:
+                continue
+            if axis:              # a copy: this step's values first
+                leaf.copy_(self._mine(p, axis))
+            leaf.grad = (None if p.grad is None
+                         else self._mine(p.grad, axis).contiguous())
+        optimizer.step()
+        for leaf, axis in zip(self.leaves, self.axes):
+            if axis is not None:      # a view would keep the step's gradients
+                leaf.grad = None
+        self._gather([(p, a, leaf) for p, a, leaf in
+                      zip(self.params, self.axes, self.leaves) if a is not None])
+
+    def _gather(self, items: list[tuple[torch.Tensor, int, torch.Tensor]]) -> None:
+        """One ``all_gather`` over the data ranks per item: every other
+        rank's ``part`` into its slot of ``full`` along ``axis``, straight
+        into the slot where it is contiguous (dim 0), else through a
+        buffer; this rank's own slot receives into a buffer (a leaf may be
+        a view of that slot) and is copied only where it is not the leaf."""
+        import torch.distributed as dist
+
+        with torch.profiler.record_function("zero1_all_gather"):
+            for full, axis, part in items:
+                k = full.shape[axis] // self.n
+                slots = [full.narrow(axis, r * k, k) for r in range(self.n)]
+                outs = [slot if axis == 0 and r != self.index
+                        else torch.empty_like(part)
+                        for r, slot in enumerate(slots)]
+                dist.all_gather(outs, part.contiguous(),
+                                group=self.grid.data_group)
+                for slot, out in zip(slots, outs):
+                    if out is not slot and slot.data_ptr() != part.data_ptr():
+                        slot.copy_(out)
+
+    def _moments(self, sd: dict, shape_of) -> list[tuple[int, str, int]]:
+        """(param index, state key, axis) of every moment of a sharded
+        leaf in an optimizer state_dict: the tensors shaped as
+        ``shape_of(i)`` (a step count is not)."""
+        out = []
+        for i, (p, axis) in enumerate(zip(self.params, self.axes)):
+            if axis is None:
+                continue
+            for key, v in sd["state"].get(i, {}).items():
+                if torch.is_tensor(v) and tuple(v.shape) == tuple(shape_of(i)):
+                    out.append((i, key, axis))
+        return out
+
+    def slice_state(self, sd: dict) -> dict:
+        """A whole-parameter optimizer state_dict -> this rank's."""
+        state = {i: dict(s) for i, s in sd["state"].items()}
+        for i, key, axis in self._moments(sd, lambda i: self.params[i].shape):
+            state[i][key] = self._mine(state[i][key], axis).clone()
+        return dict(sd, state=state)
+
+    def gather_state(self, sd: dict) -> dict:
+        """This rank's optimizer state_dict -> the whole-parameter one
+        (every rank's slices, by one all_gather; every rank calls it)."""
+        state = {i: dict(s) for i, s in sd["state"].items()}
+        items = []
+        for i, key, axis in self._moments(sd, lambda i: self.leaves[i].shape):
+            full = torch.empty(self.params[i].shape, dtype=state[i][key].dtype,
+                               device=state[i][key].device)
+            items.append((full, axis, state[i][key]))
+            state[i][key] = full
+        self._gather(items)
+        return dict(sd, state=state)
+
+
+def shard_state_zero1(state: TrainState, grid) -> TrainState:
+    """ZeRO-1 for ``state`` on a data grid (the JAX ``shard_state_zero1``):
+    its optimizer is rebuilt over :class:`Zero1`'s leaves with the same
+    class, hyperparameters and implementation, and takes this rank's slice
+    of any state the old one held (e.g. after a restore). In place; returns
+    ``state``. The parameters, EMA and generators stay whole on every
+    rank."""
+    if grid is None or grid.spatial != 1:
+        raise ValueError("shard_opt=True (ZeRO-1) requires a 1-D data mesh")
+    if state.zero1 is not None:
+        raise ValueError("the state is sharded for ZeRO-1 already")
+    import inspect
+
+    old = state.optimizer
+    zero1 = Zero1(state.model, grid)
+    accepted = inspect.signature(type(old).__init__).parameters
+    kw = {k: v for k, v in old.defaults.items() if k in accepted}
+    if isinstance(old, MomentDtypeOptimizer):
+        kw.update(kind=old.kind, mu_dtype=old.mu_dtype)
+    new = type(old)(zero1.leaves, **kw)
+    sd = old.state_dict()
+    if sd["state"]:
+        new.load_state_dict(zero1.slice_state(sd))
+    state.optimizer, state.zero1 = new, zero1
+    return state
 
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,

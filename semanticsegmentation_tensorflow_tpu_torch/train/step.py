@@ -38,6 +38,16 @@ images and the step ends with the running statistics averaged over the
 ranks (JAX's ``lax.pmean``, ``:275``); on a grid that splits rows the
 statistics are the world's already (``models.common.BatchNorm``).
 
+``shard_opt`` (ZeRO-1, a data-only grid; the JAX ``_zero1_apply_gradients``):
+after the same all-reduce and divide, each rank updates its slice of every
+parameter that ``parallel.mesh.zero1_spec`` shards, from its slice of the
+optimizer's moments, one all_gather writes the fresh slices into every
+rank's parameters, and the EMA updates after it (``train.state.Zero1``).
+The update equals the replicated step's bit for bit.
+
+:func:`replicate_eval_step` runs an eval step over one model replica per
+device of one process (the serving CLIs' one-process ``--mesh``).
+
 Batch contract (leading dim = batch): image [N,H,W,3] (uint8 with an
 augment function, or float32 already normalized), label [N,H,W] class ids,
 valid [N,H,W] bool (optional).
@@ -79,9 +89,10 @@ def make_train_step(num_classes: int, mesh=None,
     ``state`` in place. ``mesh``: a ``parallel.mesh.Grid`` (module
     docstring); the batch holds this rank's images and rows. ``remat``:
     recompute the forward in the backward (module docstring).
-    ``shard_opt`` is not ported yet and raises."""
-    if shard_opt:
-        raise NotImplementedError("shard_opt is not ported yet")
+    ``shard_opt``: ZeRO-1 on a data-only grid (module docstring); the step
+    takes a state that ``train.state.shard_state_zero1`` prepared."""
+    if shard_opt and (mesh is None or mesh.spatial > 1):
+        raise ValueError("shard_opt=True (ZeRO-1) requires a 1-D data mesh")
     if loss == "ce":
         loss_sum_fn = softmax_cross_entropy_sum
     elif loss == "focal":
@@ -92,6 +103,11 @@ def make_train_step(num_classes: int, mesh=None,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def step(state: TrainState, batch: dict) -> dict:
+        if shard_opt != (state.zero1 is not None):
+            raise ValueError("shard_opt=True needs a state prepared by "
+                             "shard_state_zero1" if shard_opt else
+                             "a state sharded by shard_state_zero1 needs a "
+                             "step built with shard_opt=True")
         n = batch["label"].shape[0]
         if n % grad_accum:
             raise ValueError(f"grad_accum={grad_accum} must divide the batch {n}")
@@ -214,12 +230,44 @@ def make_eval_step(num_classes: int, mesh=None,
             ce_sum, valid_sum, cm, hist = _all_reduce_sums(ce_sum, valid_sum,
                                                            cm, hist)
         out = {"loss": ce_sum / valid_sum.clamp(min=1.0), "cm": cm,
-               "pred": pred}
+               "pred": pred, "ce_sum": ce_sum, "valid_sum": valid_sum}
         if hist is not None:
             out["road_hist"] = hist
         return out
 
     return step
+
+
+def replicate_eval_step(step: Callable, models: list) -> Callable:
+    """An eval step (:func:`make_eval_step`, ``infer.tta.make_tta_eval_step``)
+    over one replica of the model per device, in one process (``--mesh``):
+    the batch, a multiple of the replica count, cut into one part per
+    replica (``parallel.replicas.run_on_replicas``), then the sums added on
+    the first device: the confusion matrix and the road histogram exactly,
+    the loss as the summed CE over the summed valid count; ``pred`` joined
+    in order. The ``state`` argument is ignored."""
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.replicas import (
+        run_on_replicas,
+    )
+
+    devices = [next(m.parameters()).device for m in models]
+
+    def run(_state, batch: dict) -> dict:
+        outs, _ = run_on_replicas(step, models, devices, batch)
+        first = outs[0]["cm"].device
+
+        def total(key):
+            return sum(o[key].to(first) for o in outs)
+
+        ce_sum, valid_sum = total("ce_sum"), total("valid_sum")
+        out = {"loss": ce_sum / valid_sum.clamp(min=1.0), "cm": total("cm"),
+               "pred": torch.cat([o["pred"].to(first) for o in outs]),
+               "ce_sum": ce_sum, "valid_sum": valid_sum}
+        if "road_hist" in outs[0]:
+            out["road_hist"] = total("road_hist")
+        return out
+
+    return run
 
 
 def _all_reduce_sums(ce_sum, valid_sum, cm, hist):

@@ -117,6 +117,36 @@ def test_augment_draws_from_its_generator():
                              (24, 40), MEAN, STD)
 
 
+@pytest.mark.parametrize("kernel", [False, True], ids=["plain", "preprocess"])
+def test_augment_crops_each_data_rank_of_the_global_batch(kernel):
+    """On a data grid (2 ranks, each its half of a global batch of 4) the
+    flips and crop offsets are drawn for the global batch and each rank
+    crops its own images: rank r's augmented batch equals images 2r, 2r+1
+    of the one-process augment, bit for bit (the plain augment and the
+    preprocess kernel's plain version); a grid that splits rows refuses the
+    crop."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.preprocess import (
+        make_preprocess_augment_fn,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import (
+        Grid, use_grid,
+    )
+
+    make = make_preprocess_augment_fn if kernel else make_augment_fn
+    aug = make(MEAN, STD, crop_size=(24, 40))
+    tb = {k: torch.from_numpy(v) for k, v in _batch(n=4, seed=3).items()}
+    whole = aug(torch.Generator().manual_seed(9), tb)
+    for rank in range(2):
+        with use_grid(Grid(data=2, spatial=1, rank=rank)):
+            mine = aug(torch.Generator().manual_seed(9),
+                       {k: v[2 * rank:2 * rank + 2] for k, v in tb.items()})
+        for k in whole:
+            assert torch.equal(mine[k], whole[k][2 * rank:2 * rank + 2]), (rank, k)
+    with use_grid(Grid(data=1, spatial=2, rank=0)), \
+            pytest.raises(ValueError, match="splits rows"):
+        aug(torch.Generator().manual_seed(9), tb)
+
+
 def test_synthetic_dataset_and_loader_match_jax(tmp_path):
     """The same seed writes the same synthetic KITTI tree; the port's
     dataset decodes it as the JAX package's does; BatchLoader's host

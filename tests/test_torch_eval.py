@@ -223,6 +223,38 @@ def test_loop_validation_keeps_training_bit_for_bit(tmp_path):
     assert torch.equal(a.dropout_gen.get_state(), b.dropout_gen.get_state())
 
 
+@pytest.mark.parametrize("tta", [False, True], ids=["plain", "tta"])
+def test_replicated_eval_step_equals_one_device(tta):
+    """``replicate_eval_step`` (eval.py's one-process ``--mesh``: one replica
+    of the model per device, the batch cut into one equal part each, the
+    sums added) over two CPU replicas against the step on the whole batch:
+    the confusion matrix, the road histogram and the predictions exact,
+    the loss within rtol 1e-6 (two partial sums); a batch that does not
+    divide over the replicas raises."""
+    import copy
+
+    from semanticsegmentation_tensorflow_tpu_torch.infer.tta import (
+        make_tta_eval_step,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.step import (
+        replicate_eval_step,
+    )
+
+    model = port_fcn("fcn8s")
+    init_params(model, torch.Generator().manual_seed(2))
+    step = (make_tta_eval_step(2, scales=(0.75, 1.0), road_hist=True) if tta
+            else make_eval_step(2, road_hist=True))
+    b = _uint8_batches(1, seed=4, n=4, hw=(32, 64))[0]
+    b = dict(b, image=normalize_images(b["image"], MEAN, STD))
+    want = step(model, b)
+    got = replicate_eval_step(step, [model, copy.deepcopy(model)])(None, b)
+    for k in ("cm", "road_hist", "pred"):
+        assert torch.equal(got[k], want[k]), k
+    np.testing.assert_allclose(got["loss"].item(), want["loss"].item(), rtol=1e-6)
+    with pytest.raises(ValueError, match="replicas"):
+        replicate_eval_step(step, [model] * 3)(None, b)
+
+
 def _eval_cli_setup(tmp_path):
     """A synthetic KITTI set of 5 images (batch 2 wrap-pads the last) and a
     port checkpoint with EMA params that differ from the raw ones."""
@@ -303,8 +335,17 @@ def test_eval_cli_guards(tmp_path, monkeypatch, capsys, extra, err, match):
     the JAX CLI's ``TTA eval:`` line. --int8 and --calib-batches raised so
     until int8 was ported: --int8 now evaluates the int8 model calibrated
     on the default 4 batches, and with --calib-batches 8 on every batch
-    there is (the JAX CLI's ``int8:`` line; 21 convs of FCN-8s)."""
+    there is (the JAX CLI's ``int8:`` line; 21 convs of FCN-8s). --mesh and
+    the process-group flags raised so until multi-rank eval was ported:
+    --mesh now evaluates on the one device there is, printing no ``mesh
+    eval`` line (the JAX CLI's one-device case), and --distributed with
+    --coordinator, --num-processes or --process-id missing raises before
+    any work, naming what is missing (the run on gloo ranks is a scenario
+    of tests/test_torch_spatial.py)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k in ("SEG_COORDINATOR", "SEG_NUM_PROCESSES", "SEG_PROCESS_ID",
+              "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
     data, ck = _eval_cli_setup(tmp_path)
     (tmp_path / "EMPTY").mkdir()
     (tmp_path / "ORBAX" / "7").mkdir(parents=True)
@@ -315,6 +356,17 @@ def test_eval_cli_guards(tmp_path, monkeypatch, capsys, extra, err, match):
         assert eval_cli.main(argv + ["--int8"] * (match == "--calib-batches")) == 0
         assert "int8: 21 convs quantized, 21 activation scales" in \
             capsys.readouterr().out.splitlines()
+        return
+    if match == "--mesh":
+        assert eval_cli.main(argv) == 0
+        out = capsys.readouterr().out
+        assert "loss=" in out and "mesh eval" not in out
+        return
+    if match in ("--distributed", "--coordinator", "--num-processes",
+                 "--process-id"):
+        missing = "world size" if match == "--coordinator" else "coordinator"
+        with pytest.raises(ValueError, match=missing):
+            eval_cli.main(argv + ["--distributed"] * (match != "--distributed"))
         return
     if match.startswith("--tta"):
         assert eval_cli.main(argv) == 0

@@ -135,6 +135,98 @@ def test_serve_round_trip_matches_predictor(predictors):
         thread.join(timeout=30)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_predictor_replicas_equal_one_device(n):
+    """``Predictor(mesh=[cpu, cpu])`` (the one-process data mesh: a replica
+    of the model on each device, a ragged batch padded to the replica count
+    by repeating its last image): the overlay, the labels, the fetched
+    label map (from numpy and from a tensor on the first device) and the
+    road confidence bit-equal to the one-device Predictor's."""
+    import copy
+
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+
+    model = port_fcn("fcn8s")
+    init_params(model, torch.Generator().manual_seed(4))
+    one = Predictor(copy.deepcopy(model), IMAGE_HW, device="cpu")
+    two = Predictor(model, IMAGE_HW, device="cpu", mesh=["cpu", "cpu"])
+    assert (one.mesh_size, two.mesh_size) == (1, 2)
+    imgs = np.random.default_rng(n).integers(0, 256, (n, *IMAGE_HW, 3), np.uint8)
+    for a, b in zip(one(imgs), two(imgs)):
+        np.testing.assert_array_equal(a, b)
+    for x in (imgs, torch.from_numpy(imgs)):
+        np.testing.assert_array_equal(one._fetch_labels(x), two._fetch_labels(x))
+    np.testing.assert_array_equal(one.confidence(imgs), two.confidence(imgs))
+    np.testing.assert_array_equal(one(imgs[0])[1], two(imgs[0])[1])
+    with pytest.raises(ValueError, match="start with"):
+        Predictor(port_fcn("fcn8s"), IMAGE_HW, device="cpu", mesh=["meta", "cpu"])
+
+
+@pytest.mark.parametrize("name,want", [("cuda", ("cuda:0", "cuda:1")),
+                                       ("cuda:1", ("cuda:1", "cuda:0"))])
+def test_mesh_devices_start_at_the_predictors_device(monkeypatch, name, want):
+    """On a host with two cards (``torch.cuda``'s count and current card
+    patched; no card is touched), ``--mesh``'s devices for ``--device
+    cuda`` (the default) and ``cuda:1`` start at that card, index filled
+    in, and pass the Predictor's device check: the constructor gets as far
+    as casting the model (stubbed, on a meta model). A mesh that starts at
+    another card raises."""
+    from semanticsegmentation_tensorflow_tpu_torch.infer import predict
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
+    from semanticsegmentation_tensorflow_tpu_torch.scripts.common import mesh_devices
+
+    class Cast(Exception):
+        pass
+
+    def cast(model, device):
+        raise Cast(device)
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(predict, "inference_form", cast)
+    device = torch.device(name)
+    mesh = mesh_devices(device)
+    assert mesh == [torch.device(d) for d in want]
+    model = build_model("fcn32s", 2, device="meta", fc_features=32, width_mult=0.25)
+    with pytest.raises(Cast):
+        Predictor(model, IMAGE_HW, device=device, mesh=mesh)
+    with pytest.raises(ValueError, match="start with"):
+        Predictor(model, IMAGE_HW, device=device, mesh=mesh[::-1])
+
+
+def test_serve_cli_mesh_answers_segment(capsys):
+    """``serve.py --mesh --device cpu``: one device, so the flag changes
+    nothing (no ``mesh serving`` line, as the JAX CLI on one device) and
+    /segment answers with the overlay of a Predictor on the same seeded
+    weights."""
+    from semanticsegmentation_tensorflow_tpu_torch.scripts import serve
+
+    server, _ = serve.make_server(["--mesh", "--device", "cpu", "--model", "fcn32s",
+                                   "--model-kw", "fc_features=32,width_mult=0.25",
+                                   "--port", "0", "--no-warmup"])
+    assert "mesh serving" not in capsys.readouterr().out
+    pred = server.predictor
+    assert pred.mesh_size == 1
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    img = np.random.default_rng(3).integers(0, 256, (*pred.image_size, 3), np.uint8)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                          timeout=120)
+        conn.request("POST", "/segment", body=_png(img))
+        r = conn.getresponse()
+        assert r.status == 200
+        got = np.asarray(Image.open(io.BytesIO(r.read())))
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    labels = pred._fetch_labels(img[None])[0]
+    np.testing.assert_array_equal(got, host_overlay(img, labels, pred._palette,
+                                                    pred._alpha))
+
+
 def test_infer_image_cli_with_weights_file(tmp_path):
     """--weights loads a port state_dict; the CLI's overlay equals the
     Predictor's on the same image (resized to the preset's 375x1242; a

@@ -13,6 +13,12 @@ grid of ranks) against the JAX package on the CPU, in float32.
   against the port's own single-process step (gradients, dropout on);
 * BatchNorm on the grid (U-Net 2x1 and 1x2 with uneven rows, DeepLab 2x2)
   against the JAX package's 1-D ``shard_map`` mesh and its 2-D mesh;
+* ZeRO-1 (``shard_opt``) on 2 and 4 data ranks against the replicated grid
+  step (bit for bit), the JAX package's ``shard_opt`` step and its
+  ``zero1_spec``, and checkpoints that resume across the two;
+* the CLIs on two ranks: ``train --qat`` on a data and a spatial grid and
+  ``eval --distributed`` (plain and ``--tta``) against one process,
+  ``train --shard-opt`` on both grids;
 * ``pallas_spmd`` on one process, the registry's SPMD-safe kwargs, the
   loader's grid slices, and the train CLI's ``--spatial`` at one rank.
 
@@ -43,6 +49,7 @@ from semanticsegmentation_tensorflow_tpu.ops.pallas.stage1 import (
 )
 from semanticsegmentation_tensorflow_tpu.parallel.mesh import (
     make_mesh, make_mesh_2d, replicate, shard_batch,
+    shard_state_zero1 as jax_shard_zero1, zero1_spec as jax_zero1_spec,
 )
 from semanticsegmentation_tensorflow_tpu.train.state import (
     TrainState as JaxTrainState, create_train_state as jax_state,
@@ -58,6 +65,7 @@ from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
     generate_synthetic_kitti,
 )
 from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
+from semanticsegmentation_tensorflow_tpu_torch.infer import quant as pq
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
     bn_fed_biases, conv_nhwc, init_params,
 )
@@ -78,9 +86,14 @@ from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import Grid, make_g
 from semanticsegmentation_tensorflow_tpu_torch.train.state import (
     create_train_state, make_lr_schedule, make_optimizer,
 )
+from semanticsegmentation_tensorflow_tpu_torch.train.checkpoint import (
+    CheckpointManager, load_weights,
+)
 from semanticsegmentation_tensorflow_tpu_torch.train.step import (
     make_eval_step, make_train_step,
 )
+
+import torch_parity  # noqa: F401  (one intra-op thread in this process)
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "_torch_grid_worker.py")
@@ -116,6 +129,16 @@ BN = {"unet_bn": dict(model="unet", hw=(20, 32), stride=4, classes=19,
                          kw=dict(DL_KW, dropout_rate=0.0, use_bn=True))}
 BN_GRIDS = {"unet_bn_2x1": ("unet_bn", 2, 1), "unet_bn_1x2": ("unet_bn", 1, 2),
             "deeplab_bn_2x2": ("deeplab_bn", 2, 2)}
+# ZeRO-1 on the FCN at the tests' SMALL widths (torch_parity.SMALL), two
+# steps of batch 4 at 32x64: Adam on 2 and 4 data ranks, and AdamW with
+# weight decay, grad_accum=2 and EMA on 2
+Z1_KW = dict(fc_features=32, width_mult=0.25, dropout_rate=0.0)
+Z1 = {"zero1_adam_w2": dict(world=2, opt="adam", wd=0.0, ema=0.0, grad_accum=1),
+      "zero1_adam_w4": dict(world=4, opt="adam", wd=0.0, ema=0.0, grad_accum=1),
+      "zero1_adamw_w2": dict(world=2, opt="adamw", wd=0.01, ema=0.9, grad_accum=2)}
+# the CLIs on two ranks: a narrow FCN-32s on generated KITTI images
+NARROW = ["--model", "fcn32s", "--model-kw", "fc_features=32,width_mult=0.25",
+          "--device", "cpu"]
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +352,7 @@ def _launch(tmp, tag, world, scenarios):
     job = os.path.join(tmp, f"{tag}.job")
     torch.save({"scenarios": scenarios}, job)
     store = os.path.join(tmp, f"{tag}.store")
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [(os.path.join(tmp, f"{tag}.{r}.pt"), subprocess.Popen(
         [sys.executable, WORKER, job, str(r), str(world), store,
          os.path.join(tmp, f"{tag}.{r}.pt")], env=env,
@@ -425,6 +448,102 @@ def _single_steps(state, batch, steps=2, augment=None, classes=2):
             "params": state.model.state_dict()}
 
 
+def _zero1_setup(tmp):
+    """The port's seeded FCN at Z1_KW, the global batch, and each Z1
+    case's gloo scenario (its checkpoints under ``tmp``)."""
+    model = build_model("fcn8s", 2, device="cpu", dtype=torch.float32, **Z1_KW)
+    init_params(model, torch.Generator().manual_seed(7))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _batch(4, (32, 64), 30)
+    scs = {name: dict(name=name, kind="zero1", model="fcn8s", kw=Z1_KW,
+                      state_dict=sd, batch=batch, lr=LR, steps=2, tmp=tmp,
+                      **{k: v for k, v in z.items() if k != "world"})
+           for name, z in Z1.items()}
+    return sd, batch, scs
+
+
+def _jax_zero1(sd, batch, z):
+    """Two steps of the JAX package's ZeRO-1 step (``shard_state_zero1``,
+    ``make_train_step(shard_opt=True)``) on ``make_mesh`` over the first
+    ``world`` host devices, from the port's weights: the loss, the params,
+    and the flax paths whose optimizer state ``zero1_spec`` shards."""
+    jm = jax_build("fcn8s", num_classes=2, dtype=jnp.float32, **Z1_KW)
+    meta = build_model("fcn8s", 2, device="meta", **Z1_KW)
+    flat = convert.from_state_dict(sd, meta)
+    params = convert.to_variables(flat)["params"]
+    tx = jax_optimizer(z["opt"], LR, weight_decay=z["wd"])
+    mesh = make_mesh(jax.devices()[:z["world"]])
+    st = jax_shard_zero1(JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+        batch_stats={}, rng=jax.random.key(0), apply_fn=jm.apply, tx=tx,
+        ema_decay=z["ema"],
+        ema_params=jax.tree.map(jnp.array, params) if z["ema"] else {}), mesh)
+    step = jax_train_step(2, mesh=mesh, shard_opt=True, state=st,
+                          grad_accum=z["grad_accum"])
+    b = shard_batch({k: v.numpy() for k, v in batch.items()}, mesh)
+    for _ in range(2):
+        st, out = step(st, b)
+    st = jax.device_get(st)
+    sharded = {k for k, v in flat.items() if tuple(jax_zero1_spec(v, mesh))}
+    return float(out["loss"]), convert.flatten_params(st.params), sharded
+
+
+def _qat_argv(data, ck, spatial):
+    """``train --qat`` on two ranks' worth of work: a data grid (64x96,
+    batch 4, two epochs of one step) or --spatial 2 (192x96, so that fc6's
+    7x7 has 3 rows a rank at stride 32; batch 2, one epoch of two steps);
+    one calibration batch."""
+    size = (["--image-size", "192", "96", "--batch-size", "2", "--spatial", "2",
+             "--epochs", "1"] if spatial else
+            ["--image-size", "64", "96", "--batch-size", "4", "--epochs", "2"])
+    return [*NARROW, "--data-dir", data, *size, "--qat", "--qat-calib-batches",
+            "1", "--checkpoint-dir", ck]
+
+
+def _cli_setup(tmp):
+    """Generated KITTI images, a seeded checkpoint of the narrow FCN-32s
+    for eval, and the entry-point calls that the two ranks' ``cli``
+    scenario makes with ``--distributed`` and one process without."""
+    data = generate_synthetic_kitti(os.path.join(tmp, "kitti"), n_train=4,
+                                    n_test=1, h=64, w=96, seed=0)
+    model = build_model("fcn32s", 2, device="cpu", fc_features=32, width_mult=0.25)
+    init_params(model, torch.Generator().manual_seed(5))
+    ck0 = os.path.join(tmp, "ck0")
+    CheckpointManager(ck0).save(create_train_state(
+        model, make_optimizer("adam", model.parameters(), LR), make_lr_schedule(LR),
+        seed=0))
+    ev = [*NARROW, "--data-dir", data, "--checkpoint-dir", ck0, "--batch-size", "2"]
+    small = ["--image-size", "64", "96", "--batch-size", "4", "--epochs", "1"]
+    calls = {"qat_data": ("train", _qat_argv(data, os.path.join(tmp, "qd"), False)),
+             "qat_spatial": ("train", _qat_argv(data, os.path.join(tmp, "qs"), True)),
+             "qat_nomesh": ("train", ["--no-mesh",
+                                      *_qat_argv(data, os.path.join(tmp, "qn"), False)]),
+             "eval": ("eval", [*ev, "--road-metrics"]),
+             "eval_tta": ("eval", [*ev, "--tta"]),
+             "shard_opt_data": ("train", [*NARROW, "--data-dir", data, *small,
+                                          "--shard-opt", "--checkpoint-dir",
+                                          os.path.join(tmp, "zd")]),
+             "shard_opt_spatial": ("train", [
+                 *NARROW, "--data-dir", data, "--image-size", "192", "96",
+                 "--batch-size", "2", "--epochs", "1", "--spatial", "2",
+                 "--shard-opt", "--checkpoint-dir", os.path.join(tmp, "zs")])}
+    return data, calls
+
+
+def _one_process(script, argv):
+    """An entry point's main in this process; its standard output."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(
+        f"semanticsegmentation_tensorflow_tpu_torch.scripts.{script}").main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(argv) == 0
+    return buf.getvalue()
+
+
 @pytest.fixture(scope="module")
 def grid_runs(tmp_path_factory):
     """Starts the gloo ranks (one world of 2, one of 4), computes the JAX
@@ -456,6 +575,11 @@ def grid_runs(tmp_path_factory):
         ubatches[name] = _batch(4, u["hw"], 10 + i, u["classes"])
     bn = {name: (*_bn_setup(name, 20 + i), _batch(4, u["hw"], 20 + i, u["classes"]))
           for i, (name, u) in enumerate(BN.items())}
+    z1_sd, z1_batch, z1_scs = _zero1_setup(tmp)
+    data, calls = _cli_setup(tmp)
+    cli = dict(name="cli", kind="cli",
+               calls=[(script, [*argv, "--distributed"])
+                      for script, argv in calls.values()])
 
     def bn_sc(grid):
         name, data, spatial = BN_GRIDS[grid]
@@ -486,14 +610,16 @@ def grid_runs(tmp_path_factory):
         _uneven_ops_job(),
         dict(name="eval_2x1", kind="eval", model="fcn8s", state_dict=sds["fcn8s"],
              batch=eval_batch, kw=fk),
-        bn_sc("unet_bn_2x1"), bn_sc("unet_bn_1x2")])
+        bn_sc("unet_bn_2x1"), bn_sc("unet_bn_1x2"),
+        *(sc for name, sc in z1_scs.items() if Z1[name]["world"] == 2), cli])
     four = _launch(tmp, "w4", 4, [
         step_sc("fcn8s_2x2", "fcn8s", 2, 2, sds["fcn8s"], batches["fcn8s"], fk),
         step_sc("segnet_2x2", "segnet", 2, 2, sds["segnet"], batches["segnet"], sk),
         step_sc("deeplab_1x4", "deeplab", 1, 4, dl_sd, dl_batch, DL_KW),
-        bn_sc("deeplab_bn_2x2")])
+        bn_sc("deeplab_bn_2x2"), z1_scs["zero1_adam_w4"]])
     try:
         jax_out = {}
+        fcn_mesh_state = jax.tree.map(jnp.array, js["fcn8s"])  # the steps donate
         for name, st in js.items():
             step = jax_train_step(2)
             b = {k: jnp.asarray(v.numpy()) for k, v in batches[name].items()}
@@ -509,7 +635,7 @@ def grid_runs(tmp_path_factory):
             jax_out[name] = (float(out["loss"]), np.asarray(out["cm"]),
                              convert.flatten_params(st.params))
         mesh = make_mesh(jax.devices()[:2])
-        st = replicate(_jax_fcn_state("fcn8s", FCN_HW), mesh)
+        st = replicate(fcn_mesh_state, mesh)
         step = jax_train_step(2, mesh=mesh)
         b = shard_batch({k: v.numpy() for k, v in batches["fcn8s"].items()}, mesh)
         for _ in range(2):
@@ -538,9 +664,20 @@ def grid_runs(tmp_path_factory):
             single[name] = _single_steps(_port_state(u["model"], sd, u["classes"],
                                                      **u["kw"]),
                                          batch, classes=u["classes"])
+        for name, z in Z1.items():
+            jax_out[name] = _jax_zero1(z1_sd, z1_batch, z)
+        one = {}
+        for name in ("qat_data", "qat_spatial", "eval", "eval_tta"):
+            script, argv = calls[name]
+            if script == "train":
+                argv = [*argv[:-1], argv[-1] + "_one"]
+            one[name] = _one_process(script, argv)
     finally:
         ranks2, ranks4 = _collect(two), _collect(four)
-    return {"jax": jax_out, "single": single, "w2": ranks2, "w4": ranks4}
+    return {"jax": jax_out, "single": single, "w2": ranks2, "w4": ranks4,
+            "cli": dict(zip(calls, ranks2[0]["cli"]["outputs"])),
+            "cli_rank1": dict(zip(calls, ranks2[1]["cli"]["outputs"])),
+            "one": one, "tmp": tmp}
 
 
 def test_boundary_rows_on_uneven_ranks_are_the_neighbours_rows(grid_runs):
@@ -834,6 +971,160 @@ def test_grid_eval_step_matches_single_process(grid_runs):
         np.testing.assert_allclose(r["loss"], want["loss"].item(), rtol=1e-6)
         assert torch.equal(r["pred"], want["pred"][2 * i:2 * i + 2])
     assert want["road_hist"].sum() == want["cm"].sum()
+
+
+def _zero1_ranks(grid_runs, name):
+    return [r[name] for r in grid_runs["w4" if name.endswith("w4") else "w2"]]
+
+
+@pytest.mark.parametrize("name", list(Z1))
+def test_zero1_step_equals_the_replicated_grid_step(grid_runs, name):
+    """ZeRO-1 on a data grid of 2 or 4 ranks: after two steps the losses,
+    the parameters, the EMA and the moments gathered from every rank equal
+    the replicated grid step's bit for bit (the same summed gradients into
+    an elementwise optimizer, each rank on its slice), every rank ends with
+    the same parameters, each rank's Adam moments of a sharded leaf are
+    1/world of the leaf, and its moment bytes about 1/world of the
+    replicated run's (the unsharded leaves are the score layers' few)."""
+    world = Z1[name]["world"]
+    ranks = _zero1_ranks(grid_runs, name)
+    for r in ranks:
+        assert r["zero1_losses"] == r["replicated_losses"]
+        assert r["zero1_checksum"] == r["replicated_checksum"] == \
+            ranks[0]["zero1_checksum"]
+        assert all(full == world * mine for full, mine in r["shard_sizes"])
+        assert r["zero1_bytes"] < r["replicated_bytes"] / world * 1.01
+    runs = ranks[0]["runs"]
+    want, got = runs["replicated"], runs["zero1"]
+    for key in ("params", "ema"):
+        assert set(got[key]) == set(want[key])
+        for k, v in want[key].items():
+            assert torch.equal(got[key][k], v), (key, k)
+    for i, st in want["optimizer"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(torch.as_tensor(got["optimizer"]["state"][i][k]),
+                               torch.as_tensor(v)), (i, k)
+
+
+@pytest.mark.parametrize("name", list(Z1))
+def test_zero1_step_matches_jax_shard_opt(grid_runs, name):
+    """Against the JAX package's ZeRO-1 step (``shard_state_zero1``,
+    ``make_train_step(shard_opt=True)``) on as many host devices, from the
+    same weights and batch: the loss within rtol 2e-5 and the parameters
+    within rtol 3e-4 / atol 3e-6 (test_grid_step_matches_jax's FCN bounds),
+    and the port shards the optimizer state of exactly the leaves whose
+    flax paths ``zero1_spec`` shards (the output-channel axis)."""
+    loss, params, sharded = grid_runs["jax"][name]
+    got = _zero1_ranks(grid_runs, name)[0]
+    np.testing.assert_allclose(got["zero1_losses"][-1], loss, rtol=2e-5)
+    meta = build_model("fcn8s", 2, device="meta", **Z1_KW)
+    assert {convert.flax_key(k) for k in got["sharded"]} == sharded
+    mine = convert.from_state_dict(got["runs"]["zero1"]["params"], meta)
+    assert set(mine) == set(params)
+    for k, w in params.items():
+        np.testing.assert_allclose(mine[k], np.asarray(w), rtol=3e-4, atol=3e-6,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(Z1))
+def test_zero1_checkpoints_resume_either_way(grid_runs, name):
+    """A checkpoint holds the whole moments whatever the sharding: one step
+    of the replicated run saved and resumed as ZeRO-1, and one of the
+    ZeRO-1 run resumed replicated, each then one more step, end bit-equal
+    to two uninterrupted steps (parameters, EMA, moments, the loss)."""
+    ranks = _zero1_ranks(grid_runs, name)
+    runs = ranks[0]["runs"]
+    for kind in ("resumed_zero1", "resumed_replicated"):
+        for r in ranks:
+            assert r[f"{kind}_losses"] == r["replicated_losses"][1:]
+        for key in ("params", "ema"):
+            for k, v in runs["replicated"][key].items():
+                assert torch.equal(runs[kind][key][k], v), (kind, key, k)
+        for i, st in runs["replicated"]["optimizer"]["state"].items():
+            for k, v in st.items():
+                assert torch.equal(torch.as_tensor(runs[kind]["optimizer"]["state"][i][k]),
+                                   torch.as_tensor(v)), (kind, i, k)
+
+
+def _final(out: str) -> dict:
+    import ast
+
+    (line,) = [x for x in out.splitlines() if x.startswith("final: ")]
+    return ast.literal_eval(line[len("final: "):])
+
+
+@pytest.mark.parametrize("kind", ["data", "spatial", "nomesh"])
+def test_qat_cli_on_two_ranks_matches_one_process(grid_runs, kind):
+    """``train --qat --distributed`` on a 2x1 data grid and a 1x2 spatial
+    grid against the same command in one process: the calibration (each
+    rank its images or rows, one MAX all-reduce) writes the same
+    qat_scales.json bit for bit, the final loss within rtol 1e-6, and the
+    parameters after two Adam steps within 10 % of the one-process run's
+    update from the seeded init (Adam's first updates are lr * g / |g|, so
+    another summation order moves a near-zero gradient's element by up to
+    lr; a wrong scale or halo row moves the loss). With ``--no-mesh`` each
+    rank trains the whole batch on its own (no collective in the
+    calibration): the ranks still meet at the same barriers around
+    qat_scales.json, and rank 0's run is the data run's one process."""
+    name = f"qat_{kind}"
+    rc, out = grid_runs["cli"][name]
+    assert rc == 0 and "QAT: calibrated 17 activation scales" in out
+    assert {"spatial": "mesh=data1xspatial2", "data": "mesh=1d-data2",
+            "nomesh": "ranks=2 mesh=none"}[kind] in out
+    assert grid_runs["cli_rank1"][name] == (0, "")
+    tmp = grid_runs["tmp"]
+    ck = os.path.join(tmp, {"spatial": "qs", "data": "qd", "nomesh": "qn"}[kind])
+    one_ck = os.path.join(tmp, "qs_one" if kind == "spatial" else "qd_one")
+    one_out = grid_runs["one"]["qat_spatial" if kind == "spatial" else "qat_data"]
+    assert pq.load_act_scales(os.path.join(ck, "qat_scales.json")) == \
+        pq.load_act_scales(os.path.join(one_ck, "qat_scales.json"))
+    np.testing.assert_allclose(_final(out)["loss"], _final(one_out)["loss"], rtol=1e-6)
+    init = build_model("fcn32s", 2, device="cpu", fc_features=32, width_mult=0.25)
+    init_params(init, torch.Generator().manual_seed(0))
+    w0, got, want = init.state_dict(), load_weights(ck), load_weights(one_ck)
+    dist = sum(((got[k] - want[k]) ** 2).sum() for k in want).sqrt()
+    update = sum(((want[k] - w0[k]) ** 2).sum() for k in want).sqrt()
+    assert dist <= 0.1 * update, (dist.item(), update.item())
+
+
+@pytest.mark.parametrize("tta", [False, True], ids=["plain", "tta"])
+def test_eval_cli_on_two_ranks_matches_one_process(grid_runs, tta):
+    """``eval --distributed`` on two ranks (batch 2, one image a rank, the
+    world's sums a batch) against the same eval in one process: rank 0
+    prints the same metric lines (the IoUs and pixel accuracy from the
+    confusion matrix, the road devkit's line from the histogram, the loss
+    at its 4 decimals), after ``mesh eval over 2 devices``; rank 1 prints
+    only its process line."""
+    name = "eval_tta" if tta else "eval"
+    rc, out = grid_runs["cli"][name]
+    lines = out.splitlines()
+    assert rc == 0 and lines[0] == "distributed: process 0/2"
+    assert "mesh eval over 2 devices" in lines
+    assert grid_runs["cli_rank1"][name] == (0, "distributed: process 1/2\n")
+
+    def metrics(text):
+        return [x for x in text.splitlines()
+                if x.startswith(("loss=", "kitti-road:", "TTA eval:"))]
+
+    want = metrics(grid_runs["one"][name])
+    assert len(want) == 2 and metrics(out) == want
+
+
+def test_shard_opt_cli_on_two_ranks(grid_runs):
+    """``train --shard-opt --distributed`` on a data grid prints the JAX
+    CLI's ZeRO-1 line and writes a checkpoint of whole moments (each
+    leaf's moments shaped as its parameter); under --spatial 2 it prints
+    the JAX CLI's note and trains replicated."""
+    rc, out = grid_runs["cli"]["shard_opt_data"]
+    assert rc == 0 and "ZeRO-1: optimizer state sharded over 2 devices" in out
+    rc, out = grid_runs["cli"]["shard_opt_spatial"]
+    assert rc == 0 and "note: --shard-opt needs the 1-D data mesh; ignored" in out
+    assert "ZeRO-1" not in out
+    ck = torch.load(os.path.join(grid_runs["tmp"], "zd", "ckpt_1.pt"),
+                    weights_only=True)
+    params = list(ck["model"].values())
+    for i, st in ck["optimizer"]["state"].items():
+        assert st["exp_avg"].shape == params[i].shape == st["exp_avg_sq"].shape
 
 
 # ---------------------------------------------------------------------------

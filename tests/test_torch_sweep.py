@@ -188,9 +188,10 @@ def test_test_cli_overlays_and_confidence(cli_setup, capsys):
     (["--device", "cuda"], RuntimeError, "no CUDA"),
 ])
 def test_test_cli_guards(extra, err, match, monkeypatch, tmp_path, capsys):
-    """--mesh raises before any model is built, naming the flag; a flag the
-    JAX sweep does not have fails in argparse; --device cuda without a card
-    raises. --int8 and --calib raised so until int8 was ported: --int8 now
+    """A flag the JAX sweep does not have fails in argparse; --device cuda
+    without a card raises. --mesh raised so until the one-process mesh was
+    ported: on the one device there is it now sweeps as without it (no
+    ``mesh inference`` line, --batch unchanged; one file an image). --int8 and --calib raised so until int8 was ported: --int8 now
     sweeps the int8 model calibrated on the first 8 (here both) test images,
     and --int8 --calib 4 too (the ``int8 serving:`` line, 17 convs of a
     narrow FCN-32s; one file an image)."""
@@ -201,6 +202,20 @@ def test_test_cli_guards(extra, err, match, monkeypatch, tmp_path, capsys):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["--device", "cpu", "--data-dir", "/nonexistent", *extra]
+    if match == "--mesh":
+        data = generate_synthetic_kitti(str(tmp_path / "kitti"), n_train=0,
+                                        n_test=3, h=40, w=64)
+        runs = tmp_path / "runs"
+        assert test_cli.main(["--device", "cpu", "--data-dir", data, "--runs-dir",
+                              str(runs), "--model", "fcn32s", "--model-kw",
+                              "fc_features=32,width_mult=0.25", "--batch", "2",
+                              "--mesh"]) == 0
+        out = capsys.readouterr().out
+        assert "mesh inference" not in out and "rounded" not in out
+        assert out.splitlines()[-1].startswith("3 images in ")
+        (run,) = os.listdir(runs)
+        assert len(os.listdir(runs / run)) == 3
+        return
     if match in ("--int8", "--calib"):
         data = generate_synthetic_kitti(str(tmp_path / "kitti"), n_train=0,
                                         n_test=2, h=40, w=64)

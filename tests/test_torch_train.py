@@ -415,15 +415,18 @@ def test_train_cli_then_infer_image_from_its_checkpoint(tmp_path, capsys):
      "note: --scale-jitter needs"),
 ])
 def test_train_cli_guards(argv, err, out, monkeypatch, capsys, tmp_path):
-    """Unported flags raise before any work, naming the flag; --device cuda
-    raises without a card (never drops to the CPU); a bad --data-dir fails
-    fast; --keep-best without --val-frac and a --val-frac that leaves no
+    """--device cuda raises without a card (never drops to the CPU); a bad
+    --data-dir fails fast; --keep-best without --val-frac and a --val-frac that leaves no
     training image are usage errors; a malformed --color-jitter raises;
     --scale-jitter under --spatial is ignored with the JAX CLI's note.
     --qat and --qat-calib-batches raised so until quantization-aware
     training was ported: --qat now trains 2 steps (narrow FCN-32s,
     synthetic data) after calibrating on the default 4 (here both) batches,
-    and with --qat-calib-batches 8 too, and writes qat_scales.json."""
+    and with --qat-calib-batches 8 too, and writes qat_scales.json.
+    --shard-opt raised so until ZeRO-1 was ported: on one rank it is now
+    ignored silently, as the JAX CLI does without a mesh, and the run goes
+    on to the data (the gloo ranks' runs are scenarios of
+    tests/test_torch_spatial.py)."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import train
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -438,6 +441,11 @@ def test_train_cli_guards(argv, err, out, monkeypatch, capsys, tmp_path):
         assert (ck / "qat_scales.json").exists() and (ck / "ckpt_2.pt").exists()
         assert f"QAT: calibrated 17 activation scales -> {ck}/qat_scales.json" in \
             capsys.readouterr().out.splitlines()
+        return
+    if argv[0] == "--shard-opt":
+        with pytest.raises(FileNotFoundError):
+            train.main(argv + ["--data-dir", "/nonexistent", "--device", "cpu"])
+        assert "ZeRO-1" not in capsys.readouterr().out
         return
     with pytest.raises(err, match=argv[0] if err is NotImplementedError
                        else "color_jitter" if err is ValueError else None):

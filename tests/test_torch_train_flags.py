@@ -381,8 +381,55 @@ def test_remat_step_equals_plain_step(monkeypatch):
     bad, _ = run(True)
     assert not all(torch.equal(p, q) for p, q in zip(plain.model.parameters(),
                                                      bad.model.parameters()))
-    with pytest.raises(NotImplementedError, match="shard_opt"):
+    with pytest.raises(ValueError, match="1-D data mesh"):
         make_train_step(2, shard_opt=True)
+
+
+def test_zero1_on_one_rank_and_its_guards():
+    """ZeRO-1 over a 1x1 grid (one data rank: every leaf whole, nothing to
+    gather) equals the plain step bit for bit, two Adam steps with EMA; the
+    JAX package's guards: ``shard_opt`` without a grid or on a grid that
+    splits rows raises "requires a 1-D data mesh", as does sharding a
+    state for one; a state that ``shard_state_zero1`` did not prepare
+    raises in a ``shard_opt`` step, and a sharded state in a plain one."""
+    from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import (
+        Grid, make_grid,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.train.state import (
+        shard_state_zero1,
+    )
+
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.normal(size=(2, 32, 64, 3)).astype(np.float32)),
+             "label": torch.from_numpy(rng.integers(0, 2, (2, 32, 64)).astype(np.int32))}
+
+    def fresh():
+        model = port_fcn("fcn8s", dropout_rate=0.0).train()
+        init_params(model, torch.Generator().manual_seed(0))
+        return create_train_state(model, make_optimizer("adam", model.parameters(), 1e-3),
+                                  make_lr_schedule(1e-3), seed=0, ema_decay=0.9)
+
+    grid = make_grid(1, 1)
+    plain, sharded = fresh(), shard_state_zero1(fresh(), grid)
+    assert all(a is None for a in sharded.zero1.axes)
+    for st, step in ((plain, make_train_step(2, mesh=grid)),
+                     (sharded, make_train_step(2, mesh=grid, shard_opt=True))):
+        for _ in range(2):
+            step(st, batch)
+    for (k, p), q in zip(plain.model.named_parameters(), sharded.model.parameters()):
+        assert torch.equal(p, q) and torch.equal(plain.ema_params[k],
+                                                 sharded.ema_params[k]), k
+    for bad in (None, Grid(1, 2, 0)):
+        with pytest.raises(ValueError, match="1-D data mesh"):
+            make_train_step(2, mesh=bad, shard_opt=True)
+        with pytest.raises(ValueError, match="1-D data mesh"):
+            shard_state_zero1(fresh(), bad)
+    with pytest.raises(ValueError, match="shard_state_zero1"):
+        make_train_step(2, mesh=grid, shard_opt=True)(fresh(), batch)
+    with pytest.raises(ValueError, match="shard_opt=True"):
+        make_train_step(2, mesh=grid)(sharded, batch)
+    with pytest.raises(ValueError, match="already"):
+        shard_state_zero1(sharded, grid)
 
 
 def test_train_cli_passes_the_presets_remat(monkeypatch, tmp_path):

@@ -17,6 +17,13 @@ from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_mode
 
 SMALL = dict(fc_features=32, width_mult=0.25)  # stage widths 16..128
 
+# One intra-op thread per test process. The suite runs in several worker
+# processes at once, and ATen's OpenMP pool (one thread per core in each)
+# then spins the cores away from the threads doing work: on an 8-core host
+# beside such a run a SMALL FCN train step took 4.5 s at 8 threads, 0.04 s
+# at 1 or 2.
+torch.set_num_threads(1)
+
 
 def jax_fcn(name: str = "fcn8s", canonical: bool = False, **kw):
     """The JAX model in f32: production flags, or the canonical build
