@@ -2546,6 +2546,7 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
     )
     from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import make_grid
     from semanticsegmentation_tensorflow_tpu_torch.train.step import make_train_step
+    from semanticsegmentation_tensorflow_tpu_torch.utils import tracing
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2586,11 +2587,15 @@ def grid_rank(rank: int, world: int, store: str, job: str, out: str) -> int:
         dist.destroy_process_group()
         return 0
     ms = cuda_ms(lambda: step(state, batch), iters=4, warmup=1)
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    tracing.enable()        # the spans enter record_function only when on
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        tracing.disable()
     spans = {k: 0.0 for k in ("halo_exchange", "grid_all_reduce")}
     for e in prof.key_averages():
         if e.key in spans:

@@ -24,6 +24,9 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from semanticsegmentation_tensorflow_tpu_torch.utils import tracing
+
+
 class BatchLoader:
     """Shuffled, padded, prefetched uint8 batches from a KITTI-style dataset
     on an explicit ``device``.
@@ -123,6 +126,12 @@ class BatchLoader:
         return batch
 
     def _host_epoch(self) -> Iterator[dict[str, np.ndarray]]:
+        for job in self._host_jobs():
+            yield self._host_batch(*job)
+
+    def _host_jobs(self) -> Iterator[tuple[list[str], np.ndarray, int]]:
+        """One epoch's batches as (paths, the batch's indices that this rank
+        loads, the count of real examples): the shuffle, no decode."""
         paths = list(self.ds.train_images)
         self._rng.shuffle(paths)
         bs = self.batch_size
@@ -139,10 +148,14 @@ class BatchLoader:
             if self.mesh is not None:          # this rank's images only
                 idx = idx[self.mesh.images(bs)]
                 chunk = [chunk[j] for j in idx]
-            batch = self._stack(chunk)
-            if n_real < bs:
-                batch["valid"] &= ~(idx >= n_real)[:, None, None]
-            yield batch
+            yield chunk, idx, n_real
+
+    def _host_batch(self, chunk: list[str], idx: np.ndarray,
+                    n_real: int) -> dict[str, np.ndarray]:
+        batch = self._stack(chunk)
+        if n_real < self.batch_size:
+            batch["valid"] &= ~(idx >= n_real)[:, None, None]
+        return batch
 
     # -- device staging, one batch ahead ---------------------------------
     def _pinned(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -173,8 +186,10 @@ class BatchLoader:
             # failures (corrupt PNG, missing GT) reach the consumer instead
             # of silently ending the epoch early
             try:
-                for b in self._host_epoch():
-                    if not put(self._pinned(b)):
+                for i, job in enumerate(self._host_jobs()):
+                    with tracing.span("loader.produce", i):
+                        b = self._pinned(self._host_batch(*job))
+                    if not put(b):
                         return
             except BaseException as e:  # noqa: BLE001 - re-raised in consumer
                 put(e)
@@ -186,18 +201,20 @@ class BatchLoader:
         copy_stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
 
-        def fetch():
-            b = q.get()
-            if b is None or isinstance(b, BaseException):
-                return b
-            if copy_stream is None:
-                return {k: v.to(self.device) for k, v in b.items()}
-            with torch.cuda.stream(copy_stream):
-                return {k: v.to(self.device, non_blocking=True)
-                        for k, v in b.items()}
+        def fetch(i: int):
+            with tracing.span("loader.get", i):
+                b = q.get()
+                if b is None or isinstance(b, BaseException):
+                    return b
+                if copy_stream is None:
+                    return {k: v.to(self.device) for k, v in b.items()}
+                with torch.cuda.stream(copy_stream):
+                    return {k: v.to(self.device, non_blocking=True)
+                            for k, v in b.items()}
 
         try:
-            nxt = fetch()
+            fetched = 0
+            nxt = fetch(fetched)
             while True:
                 cur = nxt
                 if isinstance(cur, BaseException):
@@ -209,7 +226,8 @@ class BatchLoader:
                     main.wait_stream(copy_stream)
                     for v in cur.values():
                         v.record_stream(main)
-                nxt = fetch()
+                fetched += 1
+                nxt = fetch(fetched)
                 yield cur
         finally:
             stop.set()

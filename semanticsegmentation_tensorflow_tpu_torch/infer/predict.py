@@ -44,6 +44,7 @@ from semanticsegmentation_tensorflow_tpu_torch.ops.shape import (
 from semanticsegmentation_tensorflow_tpu_torch.parallel.replicas import (
     mesh_from, run_on_replicas,
 )
+from semanticsegmentation_tensorflow_tpu_torch.utils import tracing
 
 
 def inference_form(model: nn.Module, device) -> nn.Module:
@@ -125,8 +126,9 @@ class Predictor:
                                  f"on {self._mean.device}")
             return image_u8
         # writable + contiguous (PIL arrays are read-only): copies only then
-        return torch.from_numpy(np.require(image_u8, np.uint8, "CW")).to(
-            self.device)
+        with tracing.span("predict.upload"):
+            return torch.from_numpy(np.require(image_u8, np.uint8, "CW")).to(
+                self.device)
 
     @torch.inference_mode()
     def _padded_logits(self, image_u8: torch.Tensor) -> torch.Tensor:
@@ -136,16 +138,19 @@ class Predictor:
 
     @torch.inference_mode()
     def _fwd(self, image_u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return argmax_colormap_overlay_cuda(
-            image_u8, self._padded_logits(image_u8), self._palette_dev,
-            self._alpha)
+        with tracing.span("predict.forward"):
+            logits = self._padded_logits(image_u8)
+        with tracing.span("predict.overlay"):
+            return argmax_colormap_overlay_cuda(image_u8, logits,
+                                                self._palette_dev, self._alpha)
 
     @torch.inference_mode()
     def _packed_labels(self, image_u8: torch.Tensor) -> torch.Tensor:
         """[N,H,W,3] u8 on the device -> the label map packed on the device
         (1 bit/px for 2 classes, a nibble up to 16, raw beyond)."""
-        labels = label_map(self._padded_logits(image_u8), self.image_size)
-        return labelpack.pack_labels(labels, self._pack_mode)
+        with tracing.span("predict.forward"):
+            labels = label_map(self._padded_logits(image_u8), self.image_size)
+            return labelpack.pack_labels(labels, self._pack_mode)
 
     @property
     def mesh_size(self) -> int:
@@ -161,17 +166,19 @@ class Predictor:
                                   [self, *self._replicas],
                                   [p._mean.device for p in (self, *self._replicas)],
                                   image_u8, pad=True)
-        if len(outs) == 1:
-            return [t.cpu().numpy() for t in outs[0]]
-        return [np.concatenate([o[j].cpu().numpy() for o in outs])[:n]
-                for j in range(len(outs[0]))]
+        with tracing.span("predict.fetch"):
+            if len(outs) == 1:
+                return [t.cpu().numpy() for t in outs[0]]
+            return [np.concatenate([o[j].cpu().numpy() for o in outs])[:n]
+                    for j in range(len(outs[0]))]
 
     def _fetch_labels(self, image_u8) -> np.ndarray:
         """[N,H,W,3] u8 (numpy, or a tensor on the device) -> [N,H,W] label
         map: forward, pack on the device, fetch, unpack on the host."""
-        packed = self._map(lambda p, x: (p._packed_labels(x),), image_u8)[0]
-        return labelpack.unpack_labels(packed, self.image_size[1],
-                                       self._pack_mode)
+        with tracing.span("predict"):
+            packed = self._map(lambda p, x: (p._packed_labels(x),), image_u8)[0]
+            return labelpack.unpack_labels(packed, self.image_size[1],
+                                           self._pack_mode)
 
     @torch.inference_mode()
     def confidence(self, image_u8: np.ndarray) -> np.ndarray:
@@ -183,13 +190,15 @@ class Predictor:
             raise ValueError("confidence maps need a binary (num_classes=2) "
                              "model")
         squeeze = image_u8.ndim == 3
-        out = self._map(lambda p, x: (p._confidence(x),),
-                        image_u8[None] if squeeze else image_u8)[0]
+        with tracing.span("predict"):
+            out = self._map(lambda p, x: (p._confidence(x),),
+                            image_u8[None] if squeeze else image_u8)[0]
         return out[0] if squeeze else out
 
     @torch.inference_mode()
     def _confidence(self, x: torch.Tensor) -> torch.Tensor:
-        logits = crop_to(self._padded_logits(x), *self.image_size)
+        with tracing.span("predict.forward"):
+            logits = crop_to(self._padded_logits(x), *self.image_size)
         p = torch.softmax(logits.float(), dim=-1)[..., 1]
         return torch.round(p * 255.0).to(torch.uint8)
 
@@ -198,7 +207,8 @@ class Predictor:
         squeeze = image_u8.ndim == 3
         if squeeze:
             image_u8 = image_u8[None]
-        overlay, labels = self._map(lambda p, x: p._fwd(x), image_u8)
+        with tracing.span("predict"):
+            overlay, labels = self._map(lambda p, x: p._fwd(x), image_u8)
         return (overlay[0], labels[0]) if squeeze else (overlay, labels)
 
     def predict_file(self, path: str) -> tuple[np.ndarray, np.ndarray]:

@@ -297,8 +297,7 @@ def region(fn, *args):
 def _sum_over(tensors: list[torch.Tensor], group) -> list[torch.Tensor]:
     """``tensors`` (f32) summed over ``group`` by one all-reduce."""
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    with torch.profiler.record_function("bn_all_reduce"):
-        dist.all_reduce(flat, group=group)
+    dist.all_reduce(flat, group=group)
     out, off = [], 0
     for t in tensors:
         out.append(flat[off:off + t.numel()].view_as(t))

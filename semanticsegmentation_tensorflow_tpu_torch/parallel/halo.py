@@ -36,6 +36,8 @@ import math
 import torch
 import torch.distributed as dist
 
+from semanticsegmentation_tensorflow_tpu_torch.utils import tracing
+
 
 def _all_slots(tensors: list[torch.Tensor], grid, shapes=None
                ) -> list[list[torch.Tensor]]:
@@ -55,7 +57,7 @@ def _all_slots(tensors: list[torch.Tensor], grid, shapes=None
         offsets.append(total)
         sizes.append(nbytes)
         total += -(-max(nbytes) // 16) * 16
-    with torch.profiler.record_function("halo_exchange"):
+    with tracing.span("halo_exchange"):
         buf = torch.zeros((s, total), dtype=torch.uint8, device=tensors[0].device)
         for t, lo in zip(tensors, offsets):
             part = t.contiguous().reshape(-1).view(torch.uint8)
@@ -172,8 +174,7 @@ class _SpatialSum(torch.autograd.Function):
     def forward(ctx, x, grid):
         ctx.grid = grid
         y = x.clone()
-        with torch.profiler.record_function("spatial_sum"):
-            dist.all_reduce(y, group=grid.spatial_group)
+        dist.all_reduce(y, group=grid.spatial_group)
         return y
 
     @staticmethod
@@ -181,8 +182,7 @@ class _SpatialSum(torch.autograd.Function):
         # every rank's loss reads the sum: each rank's input gets the sum of
         # the ranks' gradients of it
         g = dy.clone()
-        with torch.profiler.record_function("spatial_sum"):
-            dist.all_reduce(g, group=ctx.grid.spatial_group)
+        dist.all_reduce(g, group=ctx.grid.spatial_group)
         return g, None
 
 

@@ -287,18 +287,17 @@ class Zero1:
         a view of that slot) and is copied only where it is not the leaf."""
         import torch.distributed as dist
 
-        with torch.profiler.record_function("zero1_all_gather"):
-            for full, axis, part in items:
-                k = full.shape[axis] // self.n
-                slots = [full.narrow(axis, r * k, k) for r in range(self.n)]
-                outs = [slot if axis == 0 and r != self.index
-                        else torch.empty_like(part)
-                        for r, slot in enumerate(slots)]
-                dist.all_gather(outs, part.contiguous(),
-                                group=self.grid.data_group)
-                for slot, out in zip(slots, outs):
-                    if out is not slot and slot.data_ptr() != part.data_ptr():
-                        slot.copy_(out)
+        for full, axis, part in items:
+            k = full.shape[axis] // self.n
+            slots = [full.narrow(axis, r * k, k) for r in range(self.n)]
+            outs = [slot if axis == 0 and r != self.index
+                    else torch.empty_like(part)
+                    for r, slot in enumerate(slots)]
+            dist.all_gather(outs, part.contiguous(),
+                            group=self.grid.data_group)
+            for slot, out in zip(slots, outs):
+                if out is not slot and slot.data_ptr() != part.data_ptr():
+                    slot.copy_(out)
 
     def _moments(self, sd: dict, shape_of) -> list[tuple[int, str, int]]:
         """(param index, state key, axis) of every moment of a sharded

@@ -75,6 +75,7 @@ from semanticsegmentation_tensorflow_tpu_torch.train.metrics import (
     binary_confidence_histogram, confusion_matrix,
 )
 from semanticsegmentation_tensorflow_tpu_torch.train.state import TrainState
+from semanticsegmentation_tensorflow_tpu_torch.utils import tracing
 
 AugmentFn = Callable[[torch.Generator, dict], dict]  # (generator, batch) -> batch
 
@@ -103,6 +104,10 @@ def make_train_step(num_classes: int, mesh=None,
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
     def step(state: TrainState, batch: dict) -> dict:
+        with tracing.span("step", state.step):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict) -> dict:
         if shard_opt != (state.zero1 is not None):
             raise ValueError("shard_opt=True needs a state prepared by "
                              "shard_state_zero1" if shard_opt else
@@ -124,31 +129,34 @@ def make_train_step(num_classes: int, mesh=None,
         for i in range(grad_accum):
             mb = {key: v[i * k:(i + 1) * k] for key, v in batch.items()}
             with use_grid(mesh):
-                if augment_fn is not None:
-                    mb = augment_fn(state.aug_gen, mb)
-                logits = (_remat_forward(model, mb["image"], state.dropout_gen)
-                          if remat else
-                          model(mb["image"], generator=state.dropout_gen))
-                ce_sum, valid_sum = loss_sum_fn(logits, mb["label"],
-                                                mb.get("valid"), weights)
-                ce_sum.backward()
+                with tracing.span("step.forward"):
+                    if augment_fn is not None:
+                        mb = augment_fn(state.aug_gen, mb)
+                    logits = (_remat_forward(model, mb["image"], state.dropout_gen)
+                              if remat else
+                              model(mb["image"], generator=state.dropout_gen))
+                    ce_sum, valid_sum = loss_sum_fn(logits, mb["label"],
+                                                    mb.get("valid"), weights)
+                with tracing.span("step.backward"):
+                    ce_sum.backward()
             ce_total += ce_sum.detach()
             valid_total += valid_sum
             if with_metrics:
                 mcm = confusion_matrix(mb["label"], logits.detach().argmax(-1),
                                        num_classes, mb.get("valid"))
                 cm = mcm if cm is None else cm + mcm
-        if mesh is not None and mesh.world > 1:
-            ce_total, valid_total, cm = _all_reduce(model, ce_total, valid_total,
-                                                    cm)
-            if mesh.spatial == 1:
-                average_batch_stats(model, mesh)
-        denom = valid_total.clamp(min=1.0)
-        with torch.no_grad():
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(denom)
-        state.apply_gradients()
+        with tracing.span("step.update"):
+            if mesh is not None and mesh.world > 1:
+                ce_total, valid_total, cm = _all_reduce(model, ce_total,
+                                                        valid_total, cm)
+                if mesh.spatial == 1:
+                    average_batch_stats(model, mesh)
+            denom = valid_total.clamp(min=1.0)
+            with torch.no_grad():
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(denom)
+            state.apply_gradients()
         out = {"loss": ce_total / denom}
         if with_metrics:
             out["cm"] = cm
@@ -276,7 +284,7 @@ def _all_reduce_sums(ce_sum, valid_sum, cm, hist):
     parts = [ce_sum.reshape(1), valid_sum.reshape(1), cm.reshape(-1)]
     if hist is not None:
         parts.append(hist.reshape(-1))
-    with torch.profiler.record_function("grid_all_reduce"):
+    with tracing.span("grid_all_reduce"):
         flat = torch.cat([t.to(torch.float64) for t in parts])
         dist.all_reduce(flat)
     n = cm.numel()
@@ -293,7 +301,7 @@ def _all_reduce(model, ce_total, valid_total, cm):
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    with torch.profiler.record_function("grid_all_reduce"):
+    with tracing.span("grid_all_reduce"):
         flat = torch.cat([p.grad.reshape(-1) for p in params]
                          + [ce_total.reshape(1), valid_total.reshape(1)])
         dist.all_reduce(flat)
