@@ -17,10 +17,12 @@ result is fetched), and joins the results in order.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
+import threading
 import time
-from typing import Iterable, Iterator, Sequence
+from typing import Callable, Iterable, Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -32,6 +34,7 @@ from semanticsegmentation_tensorflow_tpu_torch.data.palette import (
     KITTI_OVERLAY_PALETTE,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops import labelpack
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import launch_counters
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.overlay import (
     argmax_colormap_overlay_cuda,
 )
@@ -75,6 +78,14 @@ def label_map(logits: torch.Tensor, image_size: Sequence[int]) -> torch.Tensor:
         torch.uint8 if logits.shape[-1] <= 256 else torch.int32)
 
 
+class _Graph(NamedTuple):
+    """One key's captured device work."""
+    graph: torch.cuda.CUDAGraph
+    image: torch.Tensor                 # the static [N,H,W,3] u8 input
+    outputs: tuple[torch.Tensor, ...]   # in the Predictor's graph pool
+    launches: dict                      # kernel wrapper -> launches captured
+
+
 class Predictor:
     """Forward + overlay for a fixed image size on an explicit ``device``.
 
@@ -90,7 +101,11 @@ class Predictor:
     statistics.
 
     ``mesh``: devices to hold a replica each (module docstring), ``device``
-    the first of them; one device is the plain Predictor."""
+    the first of them; one device is the plain Predictor.
+
+    On a CUDA device the public entries replay CUDA graphs (module
+    docstring); ``graph_captures`` and ``graph_replays`` count this
+    Predictor's (a replica counts its own)."""
 
     def __init__(self, model: nn.Module, image_size: tuple[int, int], *,
                  device, mean: Sequence[float] = (123.68, 116.779, 103.939),
@@ -113,9 +128,21 @@ class Predictor:
         self._palette_dev = palette_tensor(self._palette, self.device)
         self._alpha = alpha
         self._pack_mode = labelpack.pack_mode(model.num_classes)
+        self._graphed = self._mean.device.type == "cuda"
+        # (entry, batch) -> None after its eager first call, then its graph
+        self._graphs: dict[tuple[str, int], _Graph | None] = {}
+        self._lock = contextlib.nullcontext()
+        if self._graphed:
+            self._lock = threading.Lock()
+            self._pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(self._mean.device)
+        self.graph_captures = 0
+        self.graph_replays = 0
 
-    def _to_device(self, image_u8) -> torch.Tensor:
-        """[N,H,W,3] u8, numpy or a tensor already on ``self.device``."""
+    def _to_device(self, image_u8, into: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+        """[N,H,W,3] u8, numpy or a tensor already on ``self.device``; with
+        ``into``, copied into that device tensor of the same shape."""
         if tuple(image_u8.shape[1:3]) != self.image_size:
             raise ValueError(f"images must be {self.image_size}, got "
                              f"{tuple(image_u8.shape[1:3])}")
@@ -124,11 +151,14 @@ class Predictor:
             if image_u8.device != self._mean.device:
                 raise ValueError(f"images on {image_u8.device}, the Predictor "
                                  f"on {self._mean.device}")
-            return image_u8
+            if into is None:
+                return image_u8
+            with tracing.span("predict.upload"):
+                return into.copy_(image_u8)
         # writable + contiguous (PIL arrays are read-only): copies only then
         with tracing.span("predict.upload"):
-            return torch.from_numpy(np.require(image_u8, np.uint8, "CW")).to(
-                self.device)
+            host = torch.from_numpy(np.require(image_u8, np.uint8, "CW"))
+            return host.to(self.device) if into is None else into.copy_(host)
 
     @torch.inference_mode()
     def _padded_logits(self, image_u8: torch.Tensor) -> torch.Tensor:
@@ -157,26 +187,78 @@ class Predictor:
         """The devices holding a replica (1 without a mesh)."""
         return 1 + len(self._replicas)
 
-    def _map(self, fn, image_u8) -> list[np.ndarray]:
+    @torch.inference_mode()
+    def _outputs(self, entry: str, fn: Callable, image_u8) -> tuple:
+        """``fn(self, x)``'s device tensors for this replica's images: eager
+        on the CPU and at a key's first call, else by its graph (captured at
+        the second)."""
+        if not self._graphed:
+            return fn(self, self._to_device(image_u8))
+        key = (entry, image_u8.shape[0])
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return fn(self, self._to_device(image_u8))
+        g = self._graphs[key]
+        if g is None:
+            image = self._to_device(image_u8, into=torch.empty(
+                (key[1], *self.image_size, 3), dtype=torch.uint8,
+                device=self._mean.device))
+            g = self._graphs[key] = self._capture(key, fn, image)
+        else:
+            self._to_device(image_u8, into=g.image)
+            for wrapper, n in g.launches.items():
+                wrapper.launches += n
+        with tracing.span("predict.forward"), tracing.span("predict.replay"):
+            g.graph.replay()
+        self.graph_replays += 1
+        return g.outputs
+
+    def _capture(self, key: tuple[str, int], fn: Callable,
+                 image: torch.Tensor) -> _Graph:
+        """``key``'s graph of ``fn`` on ``image``, its static input; the
+        wrappers' launch counters gain its launches once, here, as an eager
+        call's would."""
+        before = {w: w.launches for w in launch_counters()}
+        graph = torch.cuda.CUDAGraph()
+        with tracing.span("predict.capture"):
+            try:
+                # thread_local: CUDA work of other threads (a loader, the
+                # sweep's producer) cannot break the capture
+                with torch.cuda.graph(graph, pool=self._pool,
+                                      stream=self._capture_stream,
+                                      capture_error_mode="thread_local"):
+                    outputs = fn(self, image)
+            except Exception as e:
+                raise RuntimeError(f"capturing the CUDA graph of {key[0]} at "
+                                   f"batch {key[1]} failed: {e}") from e
+        self.graph_captures += 1
+        return _Graph(graph, image, tuple(outputs),
+                      {w: w.launches - n for w, n in before.items()
+                       if w.launches != n})
+
+    def _map(self, entry: str, fn: Callable, image_u8) -> list[np.ndarray]:
         """``fn(predictor, x)`` -> device tensors, over the replicas
         (``parallel/replicas.py``: a ragged batch padded by repeating its
-        last image, one part per replica); the results fetched, joined in
-        order and cut to the real batch."""
-        outs, n = run_on_replicas(lambda p, x: fn(p, p._to_device(x)),
-                                  [self, *self._replicas],
-                                  [p._mean.device for p in (self, *self._replicas)],
-                                  image_u8, pad=True)
-        with tracing.span("predict.fetch"):
-            if len(outs) == 1:
-                return [t.cpu().numpy() for t in outs[0]]
-            return [np.concatenate([o[j].cpu().numpy() for o in outs])[:n]
-                    for j in range(len(outs[0]))]
+        last image, one part per replica; each part through the replica's
+        graph of ``entry``, :meth:`_outputs`); the results fetched, joined
+        in order and cut to the real batch."""
+        replicas = [self, *self._replicas]
+        with self._lock:
+            outs, n = run_on_replicas(lambda p, x: p._outputs(entry, fn, x),
+                                      replicas, [p._mean.device for p in replicas],
+                                      image_u8, pad=True)
+            with tracing.span("predict.fetch"):
+                if len(outs) == 1:
+                    return [t.cpu().numpy() for t in outs[0]]
+                return [np.concatenate([o[j].cpu().numpy() for o in outs])[:n]
+                        for j in range(len(outs[0]))]
 
     def _fetch_labels(self, image_u8) -> np.ndarray:
         """[N,H,W,3] u8 (numpy, or a tensor on the device) -> [N,H,W] label
         map: forward, pack on the device, fetch, unpack on the host."""
         with tracing.span("predict"):
-            packed = self._map(lambda p, x: (p._packed_labels(x),), image_u8)[0]
+            packed = self._map("labels", lambda p, x: (p._packed_labels(x),),
+                               image_u8)[0]
             return labelpack.unpack_labels(packed, self.image_size[1],
                                            self._pack_mode)
 
@@ -191,7 +273,7 @@ class Predictor:
                              "model")
         squeeze = image_u8.ndim == 3
         with tracing.span("predict"):
-            out = self._map(lambda p, x: (p._confidence(x),),
+            out = self._map("confidence", lambda p, x: (p._confidence(x),),
                             image_u8[None] if squeeze else image_u8)[0]
         return out[0] if squeeze else out
 
@@ -208,7 +290,8 @@ class Predictor:
         if squeeze:
             image_u8 = image_u8[None]
         with tracing.span("predict"):
-            overlay, labels = self._map(lambda p, x: p._fwd(x), image_u8)
+            overlay, labels = self._map("overlay", lambda p, x: p._fwd(x),
+                                        image_u8)
         return (overlay[0], labels[0]) if squeeze else (overlay, labels)
 
     def predict_file(self, path: str) -> tuple[np.ndarray, np.ndarray]:

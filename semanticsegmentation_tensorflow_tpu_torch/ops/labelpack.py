@@ -10,6 +10,19 @@ import torch
 import torch.nn.functional as F
 
 _BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+_DEVICE_WEIGHTS: dict = {}
+
+
+def _bit_weights(device: torch.device) -> torch.Tensor:
+    """``_BIT_WEIGHTS`` as int32 on ``device``, copied there once per
+    device: a copy from host memory on every call would wait for the device
+    and could not be captured in a CUDA graph. Do not modify the result."""
+    t = _DEVICE_WEIGHTS.get(device)
+    if t is None:
+        t = _DEVICE_WEIGHTS[device] = torch.tensor(_BIT_WEIGHTS,
+                                                   dtype=torch.int32,
+                                                   device=device)
+    return t
 
 
 def pack_mode(num_classes: int) -> str:
@@ -39,9 +52,7 @@ def pack_labels(labels: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "bits":
         labels = F.pad(labels, (0, (-w) % 8))
         x = labels.reshape(*labels.shape[:-1], -1, 8).to(torch.int32)
-        weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32,
-                               device=labels.device)
-        return (x * weights).sum(dim=-1).to(torch.uint8)
+        return (x * _bit_weights(labels.device)).sum(dim=-1).to(torch.uint8)
     if mode == "nibbles":
         labels = F.pad(labels, (0, (-w) % 2))
         return labels[..., 0::2] * 16 + labels[..., 1::2]

@@ -70,9 +70,13 @@ def _recip(scale: float, device) -> torch.Tensor:
     return torch.tensor(1.0 / scale, dtype=torch.float32, device=device)
 
 
-def quantize_act(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """Per-tensor symmetric int8 of ``x`` at ``scale``."""
-    q = torch.round(x.float() * _recip(scale, x.device))
+def quantize_act(x: torch.Tensor, scale: float,
+                 recip: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-tensor symmetric int8 of ``x`` at ``scale``; ``recip``, where
+    given, is ``_recip(scale)`` already on ``x``'s device (a quantized
+    module's buffer: no copy from the host a call)."""
+    q = torch.round(x.float() * (_recip(scale, x.device) if recip is None
+                                 else recip))
     return torch.clamp(q, -QMAX, QMAX).to(torch.int8)
 
 
@@ -178,11 +182,14 @@ def int8_conv_transpose2d(xq: torch.Tensor, wq: torch.Tensor, stride: int
     return full[:, off:off + h * s, off:off + w * s]
 
 
-def rescale(y32: torch.Tensor, weight_scale: torch.Tensor, act_scale: float,
-            bias: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
-    """``y32 * (kscale * s) + bias`` in float32, rounded once to ``dtype``."""
-    mul = weight_scale * torch.tensor(act_scale, dtype=torch.float32,
-                                      device=weight_scale.device)
+def rescale(y32: torch.Tensor, weight_scale: torch.Tensor,
+            act_scale: float | torch.Tensor, bias: torch.Tensor | None,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``y32 * (kscale * s) + bias`` in float32, rounded once to ``dtype``;
+    ``act_scale`` a float or, copied from the host once, a float32 tensor
+    on ``weight_scale``'s device."""
+    mul = weight_scale * torch.as_tensor(act_scale, dtype=torch.float32,
+                                         device=weight_scale.device)
     y = y32.float() * mul
     if bias is not None:
         y = y + bias.float()
@@ -226,6 +233,13 @@ class _QuantBase(nn.Module):
         self.register_buffer("bias", conv.bias.detach().float().clone())
         self.dtype = conv.dtype
         self.act_scale = act_scale
+        if act_scale is not None:
+            # the integer product's per-call constants, moved with the
+            # module, so a forward copies nothing from the host
+            self.register_buffer("act_scale32", torch.tensor(
+                act_scale, dtype=torch.float32), persistent=False)
+            self.register_buffer("act_recip32", _recip(act_scale, "cpu"),
+                                 persistent=False)
 
     def _apply(self, fn, recurse=True):
         def keep_f32(t: torch.Tensor) -> torch.Tensor:
@@ -260,9 +274,9 @@ class QuantConv(_QuantBase):
             y = conv_nhwc(x, self.dequantized(), dtype=self.dtype,
                           padding=self.padding, dilation=self.dilation).float()
             return (y + self.bias.float()).to(self.dtype)
-        y32 = int8_conv2d(quantize_act(x, self.act_scale), self.weight,
-                          self.dilation)
-        return rescale(y32, self.weight_scale, self.act_scale, self.bias,
+        xq = quantize_act(x, self.act_scale, self.act_recip32)
+        y32 = int8_conv2d(xq, self.weight, self.dilation)
+        return rescale(y32, self.weight_scale, self.act_scale32, self.bias,
                        self.dtype)
 
 
@@ -285,7 +299,7 @@ class QuantConvTranspose(_QuantBase):
                 padding=transpose_padding(self.kernel_size, self.stride))
             y = y.permute(0, 2, 3, 1).float()
             return (y + self.bias.float()).to(self.dtype)
-        y32 = int8_conv_transpose2d(quantize_act(x, self.act_scale), self.weight,
-                                    self.stride)
-        return rescale(y32, self.weight_scale, self.act_scale, self.bias,
+        xq = quantize_act(x, self.act_scale, self.act_recip32)
+        y32 = int8_conv_transpose2d(xq, self.weight, self.stride)
+        return rescale(y32, self.weight_scale, self.act_scale32, self.bias,
                        self.dtype)

@@ -26,7 +26,8 @@ and at :func:`drain`): the profiler stamps its events on the Unix epoch's
 clock, so a span's ``start_ns + offset`` lies on the profiler's timeline.
 
 Span names: ``predict``, ``predict.upload``, ``predict.forward``,
-``predict.overlay``, ``predict.fetch`` (``infer/predict.py``); ``step``,
+``predict.overlay``, ``predict.replay``, ``predict.capture``,
+``predict.fetch`` (``infer/predict.py``); ``step``,
 ``step.forward``, ``step.backward``, ``step.update`` (``train/step.py``);
 ``loader.produce``, ``loader.get`` (``data/pipeline.py``);
 ``halo_exchange`` (``parallel/halo.py``), ``grid_all_reduce``

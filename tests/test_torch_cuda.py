@@ -647,3 +647,160 @@ def test_exported_program_on_card_launches_the_kernels(gen, tmp_path):
         want_ov, want_lab = pred(img)
         assert np.array_equal(ov, want_ov) and np.array_equal(lab, want_lab)
         assert np.array_equal(labels, pred._fetch_labels(img))
+
+
+# the Predictor's CUDA graphs: one per (entry, batch), captured at a key's
+# second call and replayed after
+
+GRAPH_MODELS = {
+    "fcn8s": ("fcn8s", 2, dict(fc_features=32, width_mult=0.25), False),
+    "segnet": ("segnet", 2, dict(width_mult=0.25), False),
+    "segnet_bn": ("segnet", 2, dict(width_mult=0.25, use_bn=True), False),
+    "unet": ("unet", 19, dict(base_features=8), False),
+    "deeplab": ("deeplab", 2, dict(width_mult=0.25, aspp_features=16), False),
+    "fcn8s_f2": ("fcn8s", 2, dict(fc_features=32, width_mult=0.5, winograd="f2"),
+                 False),
+    "fcn8s_int8": ("fcn8s", 2, dict(fc_features=32, width_mult=0.25), True),
+}
+GRAPH_HW = (40, 70)
+
+
+def _graph_predictor(name):
+    """A narrow model of ``GRAPH_MODELS[name]`` on the card in a Predictor
+    (int8: quantized, calibrated on one seeded batch, as ``--int8``)."""
+    from semanticsegmentation_tensorflow_tpu_torch.data.augment import (
+        normalize_images,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor, quant
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+        build_model, merge_quant_safe_kwargs,
+    )
+    from semanticsegmentation_tensorflow_tpu_torch.ops.shape import pad_to_multiple
+
+    arch, classes, kw, int8 = GRAPH_MODELS[name]
+    if int8:
+        kw = merge_quant_safe_kwargs(arch, dict(kw))
+    model = build_model(arch, classes, device="cuda", **kw)
+    init_params(model, torch.Generator(device="cuda").manual_seed(0))
+    mean, std = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+    if int8:
+        calib = np.random.default_rng(9).integers(0, 256, (2, *GRAPH_HW, 3), np.uint8)
+        x = pad_to_multiple(normalize_images(torch.from_numpy(calib).cuda(), mean,
+                                             std), getattr(model, "total_stride", 32))
+        model, scales = quant.quantize_for_inference(model, [x])
+        assert scales
+    palette = CITYSCAPES_PALETTE if classes == 19 else KITTI_OVERLAY_PALETTE
+    return Predictor(model, GRAPH_HW, device="cuda", overlay_palette=palette)
+
+
+@pytest.fixture
+def strict_capture(monkeypatch):
+    """Every capture runs under ``set_sync_debug_mode("error")``: a sync in
+    the captured work raises."""
+    from semanticsegmentation_tensorflow_tpu_torch.infer.predict import Predictor
+
+    real = Predictor._capture
+
+    def strict(self, *args):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(self, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    monkeypatch.setattr(Predictor, "_capture", strict)
+
+
+@pytest.mark.parametrize("name", list(GRAPH_MODELS))
+def test_predictor_graph_replays_equal_the_eager_internals_on_card(
+        gen, strict_capture, name):
+    """Each entry's replays (``__call__``'s overlay and labels, the fetched
+    label map from host frames and from device tensors, the confidence)
+    equal the eager internals on the same frames bit for bit, with batches 1
+    and 3 called in turn on one Predictor (one graph pool), every capture
+    free of syncs, and every call launching what the key's eager call did."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import launch_counters
+    from semanticsegmentation_tensorflow_tpu_torch.ops.labelpack import unpack_labels
+
+    pred = _graph_predictor(name)
+    binary = pred.model.num_classes == 2
+    rng = np.random.default_rng(1)
+    launched: dict = {}
+    calls = 0
+    for step in range(3):
+        for n in (1, 3):
+            img = rng.integers(0, 256, (n, *GRAPH_HW, 3), np.uint8)
+            x = torch.from_numpy(img).cuda()
+            before = {w: w.launches for w in launch_counters()}
+            ov, lab = pred(img)
+            got = {w.__name__: w.launches - b for w, b in before.items()
+                   if w.launches != b}
+            assert got and got == launched.setdefault(n, got), (step, n)
+            want_ov, want_lab = (t.cpu().numpy() for t in pred._fwd(x))
+            assert np.array_equal(ov, want_ov) and np.array_equal(lab, want_lab)
+            want = unpack_labels(pred._packed_labels(x).cpu().numpy(),
+                                 GRAPH_HW[1], pred._pack_mode)
+            assert np.array_equal(pred._fetch_labels(img), want)
+            assert np.array_equal(pred._fetch_labels(x), want)
+            assert np.array_equal(want, lab)
+            calls += 3
+            if binary:
+                assert np.array_equal(pred.confidence(img),
+                                      pred._confidence(x).cpu().numpy())
+                calls += 1
+    keys = 2 * (3 if binary else 2)        # entries x batches
+    assert (pred.graph_captures, pred.graph_replays) == (keys, calls - keys)
+
+
+def test_predictor_graph_counts_and_launches_on_card(gen):
+    """One eager call, one capture, then replays, one of each per call;
+    kernels 1 and 2 counted once a call throughout."""
+    from semanticsegmentation_tensorflow_tpu_torch.infer import predict
+
+    pred = _graph_predictor("fcn8s")
+    img = np.random.default_rng(2).integers(0, 256, (*GRAPH_HW, 3), np.uint8)
+    counts = []
+    for _ in range(5):
+        before = stage1_tail.launches, argmax_colormap_overlay_cuda.launches
+        pred(img)
+        counts.append((stage1_tail.launches - before[0],
+                       argmax_colormap_overlay_cuda.launches - before[1],
+                       pred.graph_captures, pred.graph_replays))
+    assert counts == [(1, 1, 0, 0), (1, 1, 1, 1), (1, 1, 1, 2), (1, 1, 1, 3),
+                      (1, 1, 1, 4)]
+    assert list(pred._graphs) == [("overlay", 1)]
+    assert isinstance(pred._graphs[("overlay", 1)], predict._Graph)
+
+
+def test_predictor_graph_serves_threads_their_own_answers_on_card(gen):
+    """Two threads calling ``_fetch_labels`` on one Predictor at once, each
+    with its own frame, each get their frame's label map every time."""
+    import threading
+
+    pred = _graph_predictor("fcn8s")
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(0, 256, (1, *GRAPH_HW, 3), np.uint8) for _ in range(2)]
+    want = [pred._fetch_labels(f) for f in frames]        # eager, then capture
+    assert not np.array_equal(want[0], want[1])
+    got: dict = {0: [], 1: []}
+    errors = []
+
+    def serve(i):
+        try:
+            for _ in range(25):
+                got[i].append(pred._fetch_labels(frames[i]))
+        except Exception as e:                            # raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    for i in range(2):
+        assert len(got[i]) == 25
+        assert all(np.array_equal(g, want[i]) for g in got[i])
+    assert (pred.graph_captures, pred.graph_replays) == (1, 51)

@@ -400,3 +400,72 @@ def test_predictor_casts_weights_once():
     got = pred._padded_logits(x)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=2 ** -6 * want.abs().max().item())
+
+
+def test_cpu_predictor_never_captures():
+    """On the CPU a key's third call runs eagerly as its first did: no graph
+    is captured or replayed, and the answer does not move."""
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
+
+    model = port_fcn("fcn32s", fc_features=8, width_mult=0.125)
+    init_params(model, torch.Generator().manual_seed(0))
+    pred = Predictor(model, (32, 32), device="cpu")
+    img = np.random.default_rng(1).integers(0, 256, (32, 32, 3), np.uint8)
+    first = pred(img)
+    for _ in range(2):
+        for a, b in zip(pred(img), first):
+            np.testing.assert_array_equal(a, b)
+    assert (pred.graph_captures, pred.graph_replays) == (0, 0)
+    assert pred._graphs == {}
+
+
+def test_labelpack_weights_made_once_pack_as_before():
+    """The bit weights live on the device once, and pack as
+    ``np.packbits(bitorder="big")`` does, ragged widths included."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops import labelpack
+
+    labels = np.random.default_rng(2).integers(0, 2, (2, 5, 21), np.uint8)
+    packed = labelpack.pack_labels(torch.from_numpy(labels), "bits")
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.packbits(labels, axis=-1, bitorder="big"))
+    w = labelpack._bit_weights(torch.device("cpu"))
+    assert w is labelpack._bit_weights(torch.device("cpu"))
+    assert w.tolist() == list(labelpack._BIT_WEIGHTS) and w.dtype == torch.int32
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_quant_constants_made_once_keep_their_float32_bits(transposed):
+    """A quantized conv holds its activation scale and reciprocal as float32
+    buffers (outside its state dict, kept float32 by ``Module.to``), equal
+    bit for bit to the constants a call used to make, and its forward
+    equals the same product from the Python float scale."""
+    from semanticsegmentation_tensorflow_tpu_torch.ops import quant as oq
+    from semanticsegmentation_tensorflow_tpu_torch.models.common import Conv
+    from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import (
+        ConvTranspose,
+    )
+
+    scale = 0.0123456789
+    g = torch.Generator().manual_seed(3)
+    if transposed:
+        conv = ConvTranspose(8, 8, 2, dtype=torch.float32)
+    else:
+        conv = Conv(8, 8, 3, dtype=torch.float32)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    m = (oq.QuantConvTranspose if transposed else oq.QuantConv)(conv, scale)
+    m.to(torch.bfloat16)
+    assert m.act_scale32.dtype == m.act_recip32.dtype == torch.float32
+    assert torch.equal(m.act_recip32.view(torch.int32),
+                       oq._recip(scale, "cpu").view(torch.int32))
+    assert torch.equal(m.act_scale32.view(torch.int32), torch.tensor(
+        scale, dtype=torch.float32).view(torch.int32))
+    assert not {"act_scale32", "act_recip32"} & set(m.state_dict())
+    x = torch.randn((1, 6, 10, 8), generator=g).bfloat16()
+    xq = oq.quantize_act(x, scale)
+    assert torch.equal(oq.quantize_act(x, scale, m.act_recip32), xq)
+    y32 = (oq.int8_conv_transpose2d(xq, m.weight, m.stride) if transposed
+           else oq.int8_conv2d(xq, m.weight, m.dilation))
+    want = oq.rescale(y32, m.weight_scale, scale, m.bias, m.dtype)
+    assert torch.equal(m(x).view(torch.int16), want.view(torch.int16))
