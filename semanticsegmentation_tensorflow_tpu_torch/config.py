@@ -1,7 +1,8 @@
 """Experiment configs of the port: the JAX package's ``config.py`` presets,
 copied so that the port (and ``chip_smoke.py``) imports nothing of the JAX
 package. ``tests/test_torch_predict.py`` pins every preset equal to the JAX
-package's, so the two cannot drift.
+package's, so the two cannot drift, beside the port's own preset
+``deeplab_v2_kitti``, of a model the JAX package does not have.
 """
 
 from __future__ import annotations
@@ -105,6 +106,14 @@ PRESETS: dict[str, ExperimentConfig] = {
         model_kwargs={"output_stride": 16},
         data=DataConfig(crop_size=(320, 1152)),
         train=TrainConfig(batch_size=16, mesh_shape=())),
+    # 6. (port only) DeepLab-v2 ASPP-L on VGG16 at its published widths
+    # (arXiv:1606.00915: fc6_r/fc7_r 1024 wide, rates 6/12/18/24, output
+    # stride 8) at the paper's batch of 10, with the port's Adam at 1e-4
+    "deeplab_v2_kitti": _cfg(
+        name="deeplab_v2_kitti", model="deeplab_v2",
+        model_kwargs={"fc_features": 1024},
+        data=DataConfig(crop_size=(320, 1152)),
+        train=TrainConfig(batch_size=10)),
 }
 
 

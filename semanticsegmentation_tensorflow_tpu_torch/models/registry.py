@@ -1,5 +1,8 @@
 """Name -> model constructor registry (counterpart of the JAX package's
-``models/registry.py``): the FCN family, SegNet, DeepLab-ASPP and U-Net."""
+``models/registry.py``): the FCN family, SegNet, DeepLab-ASPP and U-Net;
+and the port's own DeepLab-v2 ASPP-L (``deeplab_v2``). Every conv of that
+one runs as its ``Conv`` module, so it needs no SPMD- or quant-safe kwargs;
+under a grid that splits rows it raises."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ from typing import Any, Callable
 import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.models.deeplab import DeepLabASPP
+from semanticsegmentation_tensorflow_tpu_torch.models.deeplab_v2 import DeepLabV2
 from semanticsegmentation_tensorflow_tpu_torch.models.fcn8s import FCN8s
 from semanticsegmentation_tensorflow_tpu_torch.models.segnet import SegNet
 from semanticsegmentation_tensorflow_tpu_torch.models.unet import UNet
@@ -20,6 +24,7 @@ MODELS: dict[str, Callable[..., nn.Module]] = {
     "segnet": SegNet,
     "deeplab": DeepLabASPP,
     "unet": UNet,
+    "deeplab_v2": DeepLabV2,
 }
 
 

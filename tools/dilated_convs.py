@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""DeepLab-ASPP's dilated convs on one CUDA card: cuDNN's direct dilated conv
-against the same conv by phases (``models/common.py`` ``conv_by_phases``, d x d
-undilated convs), by batch, and the training shapes' backward by pass.
+"""DeepLab-ASPP's and DeepLab-v2 ASPP-L's dilated convs on one CUDA card:
+cuDNN's direct dilated conv against the same conv by phases
+(``models/common.py`` ``conv_by_phases``, d x d undilated convs), by batch,
+and the training shapes' backward by pass.
 
     python tools/dilated_convs.py [--out build/dilated_convs.json]
 
@@ -12,11 +13,12 @@ warm-up calls, under ``inference_mode``) at batch 1, 2, 3, 4, 8 and 16,
 direct (``F.conv2d(..., dilation=d)``) and by phases, which was faster
 and which form ``models.common.by_phases`` picks (marked where that is not
 the faster one). Then at the training shapes (320x1152 crops: 40x144 at
-1/8, 20x72 at 1/16) the forward with both gradients, direct and by phases,
-at batch 1, 2, 3, 4 and 16 (a data rank's batch of the preset's 16), with
-the same verdict; and at batch 16 the forward with the
-input gradient and the forward with the weight gradient, direct, to show
-which pass is slow. Prints the card's name and power limit first. Imports
+1/8, 20x72 at 1/16; ASPP-L's fc6 branches, 512 -> 1024 at rates 6-24, at
+1/8) the forward with both gradients, direct and by phases, at batch 1, 2,
+3, 4, 10 (``deeplab_v2_kitti``'s batch) and 16 (a data rank's batch of
+``deeplab_kitti_dp``'s 16), with the same verdict; and at batch 10 and 16
+the forward alone, the forward with the input gradient and the forward
+with the weight gradient, direct, to show which pass is slow. Prints the card's name and power limit first. Imports
 nothing of JAX.
 """
 
@@ -43,9 +45,14 @@ TRAIN = (("conv6 os8", 40, 144, 512, 512, 7, 4),
          ("conv6 os16", 20, 72, 512, 512, 7, 2),
          ("aspp rate12 os8", 40, 144, 512, 256, 3, 12),
          ("aspp rate18 os8", 40, 144, 512, 256, 3, 18),
-         ("aspp rate18 os16", 20, 72, 512, 256, 3, 18))
+         ("aspp rate18 os16", 20, 72, 512, 256, 3, 18),
+         ("aspp-l fc6_6", 40, 144, 512, 1024, 3, 6),
+         ("aspp-l fc6_12", 40, 144, 512, 1024, 3, 12),
+         ("aspp-l fc6_18", 40, 144, 512, 1024, 3, 18),
+         ("aspp-l fc6_24", 40, 144, 512, 1024, 3, 24))
 INFER_BATCHES = (1, 2, 3, 4, 8, 16)
-TRAIN_BATCHES = (1, 2, 3, 4, 16)
+TRAIN_BATCHES = (1, 2, 3, 4, 10, 16)
+SPLIT_BATCHES = (10, 16)   # the presets' batches: each pass timed as well
 
 
 def events_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
@@ -131,7 +138,7 @@ def main(argv=None) -> int:
                    "phases_ms": events_ms(torch, phases, 3),
                    "picks": "phases" if by_phases(n, h, wt.shape, d, True)
                    else "direct"}
-            if n == 16:
+            if n in SPLIT_BATCHES:
                 row.update(
                     fwd_ms=events_ms(torch, lambda: F.conv2d(
                         x.detach().permute(0, 3, 1, 2), wt.detach(), padding=pad,
@@ -143,8 +150,8 @@ def main(argv=None) -> int:
             print(f"train {name} [{n},{h},{w},{ci}] -> {co}, {k}x{k} d{d}, forward + "
                   f"both gradients: direct {row['direct_ms']:.4f} ms, by phases "
                   f"{row['phases_ms']:.4f} ms; {verdict(row)}", flush=True)
-            if n == 16:
-                print(f"train {name} [16,{h},{w},{ci}] direct: forward "
+            if n in SPLIT_BATCHES:
+                print(f"train {name} [{n},{h},{w},{ci}] direct: forward "
                       f"{row['fwd_ms']:.4f} ms, forward + input gradient "
                       f"{row['fwd_dx_ms']:.4f}, forward + weight gradient "
                       f"{row['fwd_dw_ms']:.4f} (one pass's bound "
