@@ -31,7 +31,7 @@ hand-written kernels and a ``cpu`` one runs their plain versions.
 
 Batch: exported symbolic (``torch.export.Dim``) where the model traces under
 a symbolic batch; a model that branches on the batch (DeepLab's dilated
-convs, ``models/common.py`` ``by_phases``; the int8 conv's patch budget,
+convs, ``models/common.py`` ``dilated_form``; the int8 conv's patch budget,
 ``ops/quant.py``) falls back to a fixed batch (1, or ``batch_size``), and
 the predictor pads a ragged batch by repeating its last image.
 """

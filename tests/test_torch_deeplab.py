@@ -18,7 +18,9 @@ Tolerance for logits: 1e-4 of the largest logit (f32 on both sides, another
 summation order), as for FCN (tests/test_torch_models.py).
 """
 
+import collections
 import functools
+import itertools
 import os
 import sys
 
@@ -49,7 +51,7 @@ from semanticsegmentation_tensorflow_tpu.train.step import (
 from semanticsegmentation_tensorflow_tpu_torch import convert
 from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    by_phases, conv_by_phases, upsample_bilinear,
+    conv_by_phases, dilated_form, upsample_bilinear,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.deeplab import ASPP, image_mean
 from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
@@ -141,45 +143,181 @@ def test_conv_by_phases_equals_the_dilated_conv(hw, k, d, pad_h, pad_w):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-11)
 
 
-# (batch, input rows, kernel, dilation, backward, the form): DeepLab's dilated
-# convs at KITTI's inference sizes (47 rows at os8, 24 at os16) and training
-# crops (40, 20), where tools/dilated_convs.py timed both forms on an H100
-@pytest.mark.parametrize("batch,rows,k,d,grad,form", [
-    (1, 47, 7, 4, False, "phases"), (3, 47, 7, 4, False, "phases"),
-    (4, 47, 7, 4, False, "direct"), (1, 24, 7, 2, False, "phases"),
-    (3, 24, 7, 2, False, "phases"), (16, 24, 7, 2, False, "direct"),
-    (4, 40, 7, 4, True, "phases"), (16, 40, 7, 4, True, "direct"),
-    (4, 20, 7, 2, True, "phases"), (16, 20, 7, 2, True, "direct"),
-    (1, 47, 3, 2, False, "direct"), (1, 47, 3, 6, False, "direct"),
-    (1, 47, 3, 12, False, "phases"), (2, 47, 3, 12, False, "direct"),
-    (1, 47, 3, 18, False, "phases"), (2, 47, 3, 18, False, "direct"),
-    (1, 24, 3, 18, False, "direct"), (1, 40, 3, 12, True, "phases"),
-    (2, 40, 3, 18, True, "direct"), (1, 20, 3, 18, True, "direct"),
-    (1, 47, 7, 1, False, "direct")])
-def test_by_phases_picks_the_form_measured_far_faster(batch, rows, k, d, grad, form):
-    """The conv by phases where cuDNN's dilated conv was measured 10-1000x
-    slower, the direct conv where it was the faster one."""
-    picks = by_phases(batch, rows, (512, 512, k, k), d, grad)
-    assert ("phases" if picks else "direct") == form
+PASSES = ("forward", "input_grad", "weight_grad")
+
+
+@pytest.mark.parametrize("forms", list(itertools.product(("direct", "phases"),
+                                                         repeat=3)),
+                         ids="-".join)
+@pytest.mark.parametrize("hw,k,d,pad_h,pad_w", [
+    ((10, 13), 7, 4, 12, 12), ((8, 12), 3, 18, 18, 18), ((9, 7), 3, 2, 2, 2),
+    ((40, 7), 3, 24, 24, 24), ((14, 9), 3, 4, 0, 4)])
+def test_dilated_conv_equals_the_dilated_conv_in_every_form(monkeypatch, hw, k, d,
+                                                           pad_h, pad_w, forms):
+    """DilatedConv with each pass forced to either form (ragged sizes, a
+    window taller than the map: rate 24 on 40 rows, the zero row padding of
+    rows from a halo exchange): the output and each subset of the gradients
+    asked for equal F.conv2d's at that dilation, in float64 to 1e-12 and
+    1e-11; the gradients not asked for are not computed."""
+    from semanticsegmentation_tensorflow_tpu_torch.models import common
+
+    monkeypatch.setattr(common, "dilated_form",
+                        lambda pass_, *a: forms[PASSES.index(pass_)])
+    g = torch.Generator().manual_seed(k * d)
+    x0 = torch.randn(2, *hw, 5, generator=g, dtype=torch.float64)
+    w0 = torch.randn(4, 5, k, k, generator=g, dtype=torch.float64)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    want = F.conv2d(x.permute(0, 3, 1, 2), w, padding=(pad_h, pad_w),
+                    dilation=d).permute(0, 2, 3, 1)
+    cot = torch.randn(want.shape, generator=g, dtype=torch.float64)
+    grads = torch.autograd.grad(want, [x, w], cot)
+    for asked in ((True, True), (True, False), (False, True)):
+        x, w = (t.clone().requires_grad_(a) for t, a in zip((x0, w0), asked))
+        before = common.DILATED_PASSES.copy()
+        got = common.DilatedConv.apply(x, w, hw[0], pad_h, pad_w, d)
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want.detach(), rtol=0, atol=1e-12)
+        leaves = [t for t, a in zip((x, w), asked) if a]
+        for a, b in zip(torch.autograd.grad(got, leaves, cot),
+                        [t for t, a in zip(grads, asked) if a]):
+            assert a.shape == b.shape
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-11)
+        ran = common.DILATED_PASSES - before
+        assert ran == collections.Counter(
+            {(p, f): 1 for p, f, a in zip(PASSES, forms, (True, *asked)) if a})
+
+
+# (pass, batch, input rows, Cout, kernel, dilation, the form): DeepLab's and
+# DeepLab-v2's dilated convs at KITTI's inference sizes (47 rows at os8, 24
+# at os16) and training crops (40, 20), where tools/dilated_convs.py timed
+# each pass in both forms on an H100
+RULE_TABLE = [
+    ("forward", 1, 47, 512, 7, 4, "phases"), ("forward", 3, 47, 512, 7, 4, "phases"),
+    ("forward", 4, 47, 512, 7, 4, "direct"), ("forward", 1, 24, 512, 7, 2, "phases"),
+    ("forward", 3, 24, 512, 7, 2, "phases"), ("forward", 16, 24, 512, 7, 2, "direct"),
+    ("forward", 4, 40, 512, 7, 4, "phases"), ("input_grad", 4, 40, 512, 7, 4, "phases"),
+    ("weight_grad", 4, 40, 512, 7, 4, "phases"), ("forward", 16, 40, 512, 7, 4, "direct"),
+    ("input_grad", 16, 40, 512, 7, 4, "direct"),
+    ("weight_grad", 16, 40, 512, 7, 4, "direct"), ("forward", 4, 20, 512, 7, 2, "phases"),
+    ("input_grad", 4, 20, 512, 7, 2, "phases"), ("weight_grad", 4, 20, 512, 7, 2, "phases"),
+    ("forward", 16, 20, 512, 7, 2, "direct"), ("input_grad", 16, 20, 512, 7, 2, "phases"),
+    ("weight_grad", 16, 20, 512, 7, 2, "direct"), ("forward", 1, 47, 512, 3, 2, "direct"),
+    ("forward", 1, 47, 256, 3, 6, "direct"), ("forward", 1, 47, 256, 3, 12, "phases"),
+    ("forward", 2, 47, 256, 3, 12, "direct"), ("forward", 1, 47, 256, 3, 18, "phases"),
+    ("forward", 2, 47, 256, 3, 18, "direct"), ("forward", 1, 24, 256, 3, 18, "direct"),
+    ("forward", 1, 40, 256, 3, 12, "phases"), ("input_grad", 1, 40, 256, 3, 12, "direct"),
+    ("weight_grad", 1, 40, 256, 3, 12, "direct"), ("forward", 2, 40, 256, 3, 18, "direct"),
+    ("input_grad", 2, 40, 256, 3, 18, "direct"),
+    ("weight_grad", 2, 40, 256, 3, 18, "direct"), ("forward", 1, 20, 256, 3, 18, "direct"),
+    ("input_grad", 1, 20, 256, 3, 18, "direct"),
+    ("weight_grad", 1, 20, 256, 3, 18, "direct"), ("forward", 1, 47, 512, 7, 1, "direct"),
+    # DeepLab-v2 ASPP-L's fc6 branches, 512 -> 1024, at its training batch
+    # and at a frame
+    ("forward", 10, 40, 1024, 3, 6, "direct"), ("input_grad", 10, 40, 1024, 3, 6, "direct"),
+    ("weight_grad", 10, 40, 1024, 3, 6, "direct"),
+    ("forward", 10, 40, 1024, 3, 12, "phases"),
+    ("input_grad", 10, 40, 1024, 3, 12, "direct"),
+    ("weight_grad", 10, 40, 1024, 3, 12, "phases"),
+    ("forward", 10, 40, 1024, 3, 18, "phases"),
+    ("input_grad", 10, 40, 1024, 3, 18, "direct"),
+    ("weight_grad", 10, 40, 1024, 3, 18, "phases"),
+    ("forward", 10, 40, 1024, 3, 24, "phases"),
+    ("input_grad", 10, 40, 1024, 3, 24, "direct"),
+    ("weight_grad", 10, 40, 1024, 3, 24, "phases"),
+    ("forward", 1, 47, 1024, 3, 24, "phases"), ("forward", 1, 47, 1024, 3, 6, "direct"),
+    # cuDNN's fast islands inside the slow ranges
+    ("weight_grad", 12, 40, 1024, 3, 12, "direct"),
+    ("weight_grad", 10, 47, 1024, 3, 18, "direct"),
+    ("forward", 3, 20, 256, 3, 12, "phases"), ("input_grad", 8, 24, 512, 7, 2, "phases"),
+    ("input_grad", 10, 24, 512, 7, 2, "direct"),
+    ("input_grad", 1, 24, 256, 3, 12, "phases")]
+
+
+@pytest.mark.parametrize("pass_,batch,rows,cout,k,d,form", RULE_TABLE)
+def test_by_phases_picks_the_form_measured_far_faster(pass_, batch, rows, cout, k,
+                                                      d, form):
+    """Each pass of a dilated conv by phases where cuDNN's dilated conv was
+    measured far slower, direct where it was the faster one or near."""
+    assert dilated_form(pass_, batch, rows, (cout, 512, k, k), d) == form
+
+
+# (pass, batch, input rows, OIHW kernel, dilation, the form of dilated_form's
+# general cases; the timed shape beside it as (kernel, dilation, the form the
+# table gives it)): rows, a Cin or a dilation the tool did not time there
+C6, FC6 = (512, 512, 7, 7), (1024, 512, 3, 3)
+UNMEASURED = [
+    # conv6 of output stride 8 (d4) on os16's 20 and 24 rows, as a rank of
+    # deeplab_kitti_dp under --spatial 2 convolves it: not os16's d2 fit
+    ("input_grad", 16, 20, C6, 4, "direct", (C6, 2, "phases")),
+    ("input_grad", 6, 20, C6, 4, "direct", (C6, 2, "phases")),
+    ("weight_grad", 3, 20, C6, 4, "phases", (C6, 2, "direct")),
+    ("forward", 8, 20, C6, 4, "phases", (C6, 2, "direct")),
+    ("input_grad", 12, 24, C6, 4, "direct", (C6, 2, "phases")),
+    # an ASPP-L branch at a rate the tool did not time, and on 256 inputs
+    ("weight_grad", 12, 40, FC6, 30, "phases", (FC6, 12, "direct")),
+    ("weight_grad", 12, 40, (1024, 256, 3, 3), 12, "phases", (FC6, 12, "direct"))]
+
+
+@pytest.mark.parametrize("pass_,batch,rows,kernel_shape,d,form,timed", UNMEASURED)
+def test_a_shape_the_table_did_not_time_takes_the_general_cases(
+        pass_, batch, rows, kernel_shape, d, form, timed):
+    """The table's batches hold for the (rows, Cin, Cout, kernel, dilation)
+    they were timed at alone; any other shape takes the general cases."""
+    assert dilated_form(pass_, batch, rows, kernel_shape, d) == form
+    assert dilated_form(pass_, batch, rows, timed[0], timed[1]) == timed[2]
 
 
 def test_conv_nhwc_routes_by_the_backward(monkeypatch):
-    """conv_nhwc passes by_phases whether a backward follows: at batch 4 a
-    7x7 dilated conv runs by phases under autograd and directly without,
-    with the same values."""
+    """conv_nhwc runs a dilated conv through DilatedConv only where a
+    backward follows, with the same values as the plain forward without;
+    DILATED_PASSES counts each pass in the form dilated_form picked for
+    it."""
     from semanticsegmentation_tensorflow_tpu_torch.models import common
 
     g = torch.Generator().manual_seed(0)
     x = torch.randn(4, 9, 11, 3, generator=g, dtype=torch.float64)
     w = torch.randn(2, 3, 7, 7, generator=g, dtype=torch.float64, requires_grad=True)
-    seen = []
-    monkeypatch.setattr(common, "by_phases",
-                        lambda *a: seen.append(a[-1]) or by_phases(*a))
+    applied, picked = [], []
+    monkeypatch.setattr(common.DilatedConv, "apply", functools.partial(
+        lambda apply, *a: applied.append(True) or apply(*a),
+        common.DilatedConv.apply))
+    rule = common.dilated_form
+    monkeypatch.setattr(common, "dilated_form",
+                        lambda *a: picked.append((a[0], rule(*a))) or rule(*a))
+    before = common.DILATED_PASSES.copy()
     with torch.no_grad():
         want = common.conv_nhwc(x, w, dtype=torch.float64, padding=6, dilation=2)
+    assert not applied and [p for p, _ in picked] == ["forward"]
     got = common.conv_nhwc(x, w, dtype=torch.float64, padding=6, dilation=2)
-    assert seen == [False, True]
+    got.sum().backward()
+    assert applied == [True]
+    assert [p for p, _ in picked] == ["forward", "forward", "weight_grad"]
+    assert common.DILATED_PASSES - before == collections.Counter(picked)
     torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-12)
+
+
+def test_dilation_one_reaches_neither_the_rule_nor_the_function(monkeypatch):
+    """At dilation 1 conv_nhwc is the bare F.conv2d, with a backward or
+    without: it calls neither dilated_form nor DilatedConv, and counts
+    nothing."""
+    from semanticsegmentation_tensorflow_tpu_torch.models import common
+
+    def refuse(*a):
+        raise AssertionError("reached at dilation 1")
+
+    monkeypatch.setattr(common, "dilated_form", refuse)
+    monkeypatch.setattr(common.DilatedConv, "apply", refuse)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 6, 7, 3, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(2, 3, 3, 3, generator=g, dtype=torch.float64, requires_grad=True)
+    before = common.DILATED_PASSES.copy()
+    got = common.conv_nhwc(x, w, dtype=torch.float64, padding=1)
+    got.sum().backward()
+    with torch.no_grad():
+        common.conv_nhwc(x, w, dtype=torch.float64, padding=1)
+    assert common.DILATED_PASSES == before
+    want = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("factor", [8, 16])

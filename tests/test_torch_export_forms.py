@@ -38,7 +38,7 @@ from torch_parity import decided, draw_bn_state, jax_fcn, jax_init, port_fcn
 
 
 def test_deeplab_falls_back_to_a_fixed_batch(tmp_path):
-    """DeepLab's dilated convs branch on the batch (``by_phases``): the
+    """DeepLab's dilated convs branch on the batch (``dilated_form``): the
     export refuses the symbolic batch and falls back to batch 1, or to the
     batch asked for; a ragged batch pads by repeating its last image (the
     Predictor on the padded batch gives the answer), a larger one raises."""

@@ -1,25 +1,26 @@
 #!/usr/bin/env python3
-"""DeepLab-ASPP's and DeepLab-v2 ASPP-L's dilated convs on one CUDA card:
-cuDNN's direct dilated conv against the same conv by phases
-(``models/common.py`` ``conv_by_phases``, d x d undilated convs), by batch,
-and the training shapes' backward by pass.
+"""Every dilated conv of DeepLab-ASPP and DeepLab-v2 ASPP-L on one CUDA
+card, each pass (forward, input gradient, weight gradient) timed in both
+forms: cuDNN's direct dilated conv and the conv by phases (d x d undilated
+convs, ``models/common.py`` ``conv_by_phases`` and ``dilated_backward``).
 
     python tools/dilated_convs.py [--out build/dilated_convs.json]
 
-For each dilated conv of DeepLab at KITTI's padded size (output stride 8:
-376x1248, so 47x156 at 1/8; stride 16: 24x78 at 1/16), bf16 NHWC with
-f32 accumulation: the forward's device ms (CUDA events, mean of 5 after 2
-warm-up calls, under ``inference_mode``) at batch 1, 2, 3, 4, 8 and 16,
-direct (``F.conv2d(..., dilation=d)``) and by phases, which was faster
-and which form ``models.common.by_phases`` picks (marked where that is not
-the faster one). Then at the training shapes (320x1152 crops: 40x144 at
-1/8, 20x72 at 1/16; ASPP-L's fc6 branches, 512 -> 1024 at rates 6-24, at
-1/8) the forward with both gradients, direct and by phases, at batch 1, 2,
-3, 4, 10 (``deeplab_v2_kitti``'s batch) and 16 (a data rank's batch of
-``deeplab_kitti_dp``'s 16), with the same verdict; and at batch 10 and 16
-the forward alone, the forward with the input gradient and the forward
-with the weight gradient, direct, to show which pass is slow. Prints the card's name and power limit first. Imports
-nothing of JAX.
+Shapes, bf16 NHWC with f32 accumulation, at KITTI's inference size (the
+padded 376x1248 frame: 47x156 at 1/8, 24x78 at 1/16) and at the training
+crop (320x1152: 40x144 at 1/8, 20x72 at 1/16): DeepLab-ASPP's conv6 (7x7
+at d4 at output stride 8, d2 at 16, 512 -> 512) and its ASPP rates 6, 12
+and 18 (512 -> 256) at both strides, stage 5 at output stride 8 (3x3 at d2,
+512 -> 512; DeepLab-v2's stage 5 too), and DeepLab-v2 ASPP-L's fc6 branches
+at rates 6, 12, 18 and 24 (512 -> 1024). For each shape and batch: each
+pass's device ms in each form (CUDA events: mean of 5 calls after a warm-up
+call, or one more call where the warm-up took over 25 ms), which form
+``models.common.dilated_form`` picks for the pass, marked "(not the
+faster)" where the other form was faster and "LOSES" where by more than
+max(10 %, 0.3 ms); then the picked forward and backward through
+``conv_nhwc`` (``DilatedConv``), timed, and the passes it counted in
+``DILATED_PASSES``. Prints the card's name and power limit first and the
+counter's totals and the rows that lose last. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,46 +34,58 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-# name, H, W at the model's stride, Cin, Cout, kernel, dilation
-INFER = (("conv6 os8", 47, 156, 512, 512, 7, 4),
-         ("conv6 os16", 24, 78, 512, 512, 7, 2),
-         ("stage5 os8", 47, 156, 512, 512, 3, 2),
-         ("aspp rate6 os8", 47, 156, 512, 256, 3, 6),
-         ("aspp rate12 os8", 47, 156, 512, 256, 3, 12),
-         ("aspp rate18 os8", 47, 156, 512, 256, 3, 18),
-         ("aspp rate18 os16", 24, 78, 512, 256, 3, 18))
-TRAIN = (("conv6 os8", 40, 144, 512, 512, 7, 4),
-         ("conv6 os16", 20, 72, 512, 512, 7, 2),
-         ("aspp rate12 os8", 40, 144, 512, 256, 3, 12),
-         ("aspp rate18 os8", 40, 144, 512, 256, 3, 18),
-         ("aspp rate18 os16", 20, 72, 512, 256, 3, 18),
-         ("aspp-l fc6_6", 40, 144, 512, 1024, 3, 6),
-         ("aspp-l fc6_12", 40, 144, 512, 1024, 3, 12),
-         ("aspp-l fc6_18", 40, 144, 512, 1024, 3, 18),
-         ("aspp-l fc6_24", 40, 144, 512, 1024, 3, 24))
-INFER_BATCHES = (1, 2, 3, 4, 8, 16)
-TRAIN_BATCHES = (1, 2, 3, 4, 10, 16)
-SPLIT_BATCHES = (10, 16)   # the presets' batches: each pass timed as well
+# name, Cin, Cout, kernel, dilation, output stride
+CONVS = (("stage5 os8", 512, 512, 3, 2, 8),
+         ("conv6 os8", 512, 512, 7, 4, 8),
+         ("conv6 os16", 512, 512, 7, 2, 16),
+         ("aspp rate6 os8", 512, 256, 3, 6, 8),
+         ("aspp rate12 os8", 512, 256, 3, 12, 8),
+         ("aspp rate18 os8", 512, 256, 3, 18, 8),
+         ("aspp rate6 os16", 512, 256, 3, 6, 16),
+         ("aspp rate12 os16", 512, 256, 3, 12, 16),
+         ("aspp rate18 os16", 512, 256, 3, 18, 16),
+         ("aspp-l fc6_6", 512, 1024, 3, 6, 8),
+         ("aspp-l fc6_12", 512, 1024, 3, 12, 8),
+         ("aspp-l fc6_18", 512, 1024, 3, 18, 8),
+         ("aspp-l fc6_24", 512, 1024, 3, 24, 8))
+# the map at each output stride: a padded inference frame, a training crop
+SIZES = {"infer": {8: (47, 156), 16: (24, 78)},
+         "train": {8: (40, 144), 16: (20, 72)}}
+BATCHES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)
+PASSES = ("forward", "input_grad", "weight_grad")
+FORMS = ("direct", "phases")
 
 
-def events_ms(torch, fn, iters: int = 5, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
+def events_ms(torch, fn, iters: int = 5, slow_ms: float = 25.0) -> float:
+    """Device ms of one ``fn()``: a warm-up call, then the mean of ``iters``
+    calls, or one call where the warm-up took over ``slow_ms``."""
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
     a.record()
-    for _ in range(iters):
+    fn()
+    b.record()
+    b.synchronize()
+    n = 1 if a.elapsed_time(b) > slow_ms else iters
+    a.record()
+    for _ in range(n):
         fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / iters
+    return a.elapsed_time(b) / n
+
+
+def loses(pick_ms: float, other_ms: float) -> bool:
+    """The picked form slower than the other by more than max(10 %, 0.3 ms)."""
+    return pick_ms - other_ms > max(0.1 * other_ms, 0.3)
 
 
 def verdict(r: dict) -> str:
-    """Which form was faster here and which one ``by_phases`` picks."""
-    faster = "phases" if r["phases_ms"] < r["direct_ms"] else "direct"
-    return (f"faster {faster}, by_phases picks {r['picks']}"
-            + ("" if faster == r["picks"] else " (not the faster)"))
+    """A pass's two times, the form picked and whether it was the faster."""
+    pick, other = r["picks"], "phases" if r["picks"] == "direct" else "direct"
+    mark = ("" if r[pick] <= r[other] else " (not the faster)"
+            + (" LOSES" if loses(r[pick], r[other]) else ""))
+    return (f"direct {r['direct']:.4f} / phases {r['phases']:.4f}, picks "
+            f"{pick}{mark}")
 
 
 def main(argv=None) -> int:
@@ -85,9 +98,7 @@ def main(argv=None) -> int:
     import torch
     import torch.nn.functional as F
 
-    from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-        by_phases, conv_by_phases,
-    )
+    from semanticsegmentation_tensorflow_tpu_torch.models import common
 
     if not torch.cuda.is_available():
         print("dilated_convs: no CUDA device", file=sys.stderr)
@@ -98,67 +109,63 @@ def main(argv=None) -> int:
     print(f"{smi} | torch {torch.__version__} cudnn {torch.backends.cudnn.version()}",
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    result: dict = {"device": smi, "infer": {}, "train": {}}
-    with torch.inference_mode():
-        for name, h, w, ci, co, k, d in INFER:
+    result: dict = {"device": smi, "rows": []}
+    lost = []
+    counted0 = common.DILATED_PASSES.copy()
+    for size, maps in SIZES.items():
+        for name, ci, co, k, d, stride in CONVS:
+            h, w = maps[stride]
             pad = d * (k - 1) // 2
             wt = (torch.randn(co, ci, k, k, generator=gen, device="cuda")
                   / (ci * k * k) ** 0.5).bfloat16()
-            for n in INFER_BATCHES:
+            for n in BATCHES:
                 x = torch.randn(n, h, w, ci, generator=gen, device="cuda").bfloat16()
-                r = {"direct_ms": events_ms(torch, lambda: F.conv2d(
-                         x.permute(0, 3, 1, 2), wt, padding=pad, dilation=d)),
-                     "phases_ms": events_ms(torch, lambda: conv_by_phases(
-                         x, wt, pad, pad, d)),
-                     "picks": "phases" if by_phases(n, h, wt.shape, d, False)
-                     else "direct"}
-                result["infer"][f"{name} n{n}"] = r
-                print(f"{name} [{n},{h},{w},{ci}] -> {co}, {k}x{k} d{d}: direct "
-                      f"{r['direct_ms']:.4f} ms, by phases {r['phases_ms']:.4f} ms; "
-                      f"{verdict(r)}", flush=True)
-    for name, h, w, ci, co, k, d in TRAIN:
-        pad = d * (k - 1) // 2
-        wt = (torch.randn(co, ci, k, k, generator=gen, device="cuda")
-              / (ci * k * k) ** 0.5).bfloat16().requires_grad_()
-        r = {}
-        for n in TRAIN_BATCHES:
-            x = torch.randn(n, h, w, ci, generator=gen, device="cuda").bfloat16()
-            x.requires_grad_()
-            gy = torch.randn(n, h, w, co, generator=gen, device="cuda").bfloat16()
+                gy = torch.randn(n, h, w, co, generator=gen, device="cuda").bfloat16()
+                run = {
+                    ("forward", "direct"): lambda: F.conv2d(
+                        x.permute(0, 3, 1, 2), wt, padding=pad, dilation=d),
+                    ("forward", "phases"): lambda: common.conv_by_phases(
+                        x, wt, pad, pad, d)}
+                for form in FORMS:
+                    for i, pass_ in enumerate(PASSES[1:]):
+                        mask = (i == 0, i == 1)
+                        run[pass_, form] = (
+                            lambda form=form, mask=mask: common.dilated_backward(
+                                form, x, wt, gy, pad, pad, d, mask))
+                row = {"size": size, "conv": name, "shape": [n, h, w, ci], "cout": co,
+                       "k": k, "d": d}
+                with torch.no_grad():
+                    for pass_ in PASSES:
+                        r = {form: events_ms(torch, run[pass_, form]) for form in FORMS}
+                        r["picks"] = common.dilated_form(pass_, n, h, wt.shape, d)
+                        row[pass_] = r
+                        other = "phases" if r["picks"] == "direct" else "direct"
+                        if loses(r[r["picks"]], r[other]):
+                            lost.append(f"{size} {name} n{n} {pass_}")
+                xg, wg = x.detach().requires_grad_(), wt.detach().requires_grad_()
 
-            def direct(wrt=(x, wt)):
-                y = F.conv2d(x.permute(0, 3, 1, 2), wt, padding=pad,
-                             dilation=d).permute(0, 2, 3, 1)
-                torch.autograd.grad(y, wrt, gy)
+                def picked():
+                    y = common.conv_nhwc(xg, wg, dtype=torch.bfloat16, padding=pad,
+                                         dilation=d)
+                    torch.autograd.grad(y, (xg, wg), gy)
 
-            def phases():
-                torch.autograd.grad(conv_by_phases(x, wt, pad, pad, d), (x, wt), gy)
-
-            row = {"direct_ms": events_ms(torch, direct, 3),
-                   "phases_ms": events_ms(torch, phases, 3),
-                   "picks": "phases" if by_phases(n, h, wt.shape, d, True)
-                   else "direct"}
-            if n in SPLIT_BATCHES:
-                row.update(
-                    fwd_ms=events_ms(torch, lambda: F.conv2d(
-                        x.detach().permute(0, 3, 1, 2), wt.detach(), padding=pad,
-                        dilation=d), 3),
-                    fwd_dx_ms=events_ms(torch, lambda: direct([x]), 3),
-                    fwd_dw_ms=events_ms(torch, lambda: direct([wt]), 3),
-                    pass_bound_ms=2.0 * n * h * w * ci * co * k * k / 989e12 * 1e3)
-            r[f"n{n}"] = row
-            print(f"train {name} [{n},{h},{w},{ci}] -> {co}, {k}x{k} d{d}, forward + "
-                  f"both gradients: direct {row['direct_ms']:.4f} ms, by phases "
-                  f"{row['phases_ms']:.4f} ms; {verdict(row)}", flush=True)
-            if n in SPLIT_BATCHES:
-                print(f"train {name} [{n},{h},{w},{ci}] direct: forward "
-                      f"{row['fwd_ms']:.4f} ms, forward + input gradient "
-                      f"{row['fwd_dx_ms']:.4f}, forward + weight gradient "
-                      f"{row['fwd_dw_ms']:.4f} (one pass's bound "
-                      f"{row['pass_bound_ms']:.4f} ms at 989 TFLOP/s) | {smi}",
-                      flush=True)
-            del x, gy
-        result["train"][name] = r
+                before = common.DILATED_PASSES.copy()
+                picked()
+                row["counted"] = {f"{a}/{b}": v for (a, b), v in
+                                  (common.DILATED_PASSES - before).items()}
+                row["picked_ms"] = events_ms(torch, picked)
+                result["rows"].append(row)
+                print(f"{size} {name} [{n},{h},{w},{ci}] -> {co}, {k}x{k} d{d} | "
+                      + " | ".join(f"{pass_} {verdict(row[pass_])}" for pass_ in PASSES)
+                      + f" | picked forward + backward {row['picked_ms']:.4f} ms, "
+                      f"counted {row['counted']}", flush=True)
+                del x, gy, xg
+    counted = common.DILATED_PASSES - counted0
+    result["counted"] = {f"{a}/{b}": v for (a, b), v in sorted(counted.items())}
+    result["loses"] = lost
+    print(f"DILATED_PASSES over the run: {result['counted']}")
+    print(f"rows where the pick loses by more than max(10 %, 0.3 ms): "
+          f"{len(lost)} {lost} | {smi}")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
