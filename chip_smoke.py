@@ -44,14 +44,14 @@ full-resolution forward: FCN-8s with ``--model-kw winograd=f2`` through
 infer_image, serve and train.py (3 steps, --resume), its logits against the
 float32 direct model, and SegNet with ``winograd=f4`` (a Predictor call and
 a train step).
-Then kernel 1c (the halo mode of the stage1 tail, ``pallas_spmd``) against
-its plain version at the training and inference shapes, whole and as two
-halves with real halo rows, and beside kernels 1/1b; ``train.main --spatial
-2`` at one rank for ``fcn8s_kitti`` and ``segnet_kitti`` (launches of the
-halo kernels > 0, of the single-device stage1 kernels 0); the preset step
-with 1c beside the default; and a 2-rank grid (data 1 x spatial 2, gloo on
-cuda:0, this script re-run as ``--grid-rank``) at full ``fcn8s_kitti`` width
-and 384x1248, two steps held against the single-process step.
+Then kernel 1c (the halo mode of the stage1 tail, which stage1 runs under
+a grid that splits rows) against its plain version at the training and
+inference shapes, whole and as two halves with real halo rows, and beside
+kernels 1/1b; ``train.main --spatial 2`` at one rank for ``fcn8s_kitti``
+and ``segnet_kitti`` (no grid: launches of kernels 1b > 0, of the halo
+kernels 0); and a 2-rank grid (data 1 x spatial 2, gloo on cuda:0, this
+script re-run as ``--grid-rank``) at full ``fcn8s_kitti`` width and
+384x1248, two steps held against the single-process step.
 Then DeepLab-ASPP (``deeplab_phase``): the kernels are also held against
 their plain versions at the shapes DeepLab's paths give them (kernel 1 at
 the os8 Predictor's [1,376,1248,64] and eval's [4,376,1248,64], kernels 1,
@@ -2428,8 +2428,8 @@ def check_stage1_halo(torch, gen) -> dict:
 def drive_spatial_training(torch, tmp: str, preset: str, data: str | None = None,
                            steps: int = 3) -> dict:
     """``train.main --spatial 2`` at one rank, through the entry point: the
-    SPMD-safe kwargs merge in and the step runs unsharded through kernel 1c
-    (``steps`` steps at ``preset`` over 24 generated images or ``data``, its
+    SPMD-safe kwargs merge in and the step runs unsharded, with no grid, so
+    through kernels 1/1b and 3 (``steps`` steps at ``preset`` over 24 generated images or ``data``, its
     crops kept as the JAX script keeps them on one device,
     --pallas-preprocess, then --resume)."""
     import math
@@ -2479,7 +2479,7 @@ GRID = {"fcn8s_kitti": dict(model="fcn8s", classes=2, n=8, hw=PADDED_HW, stride=
 
 def _grid_state(torch, dev, workload, weights=None, dtype=None):
     """The grid workload's preset model at full width with the SPMD-safe
-    kwargs (for FCN pallas_spmd; no Winograd), dropout 0, Adam 1e-4, seeded
+    kwargs (no Winograd), dropout 0, Adam 1e-4, seeded
     (or given) weights; ``dtype`` the compute dtype (default bf16)."""
     from semanticsegmentation_tensorflow_tpu_torch.config import get_preset
     from semanticsegmentation_tensorflow_tpu_torch.models.common import init_params
@@ -2670,8 +2670,9 @@ def check_grid(torch, tmp: str, smi: str, workload: str = "fcn8s_kitti") -> dict
     fcn8s_kitti's 8 full 384x1248 images, 192 rows each; unet_cityscapes' 4
     images of 496x1024, 256 and 240 rows), flips by the preprocess kernel,
     two Adam steps through the halo exchange (and kernel 1c for FCN), held
-    against the single-process run of the same step (pallas_spmd at one
-    rank for FCN) with check_train_step's bounds: both losses within 1e-3
+    against the single-process run of the same step (kernels 1/1b for FCN,
+    the same function as 1c in another summation order, under the same
+    bounds) with check_train_step's bounds: both losses within 1e-3
     relative, each parameter's first gradient within 5e-2 of its L2 norm
     (with ``f32_ref``, BatchNorm's SegNet, whose BN biases' gradients are
     sums that nearly cancel, so that bf16's rounding moves them by their
@@ -2819,11 +2820,10 @@ def deeplab_phase(torch, smi: str, drive) -> list[dict]:
     training (batch 16, validation, EMA, --resume, infer_image), its train
     step with the kernels against plain PyTorch, and eval.py on its
     checkpoint, whose eval step is then held against plain PyTorch;
-    deeplab_kitti_os16 --spatial 2 at one rank (kernel
-    1c; os8's 376 rows do not split at 1/8); the preset steps timed with the
-    dilated convs' share. Returns each path's launches."""
-    single_stage1 = ("stage1_tail", "stage1_tail_train", "stage1_tail_bwd",
-                     "stage1_tail_segnet")
+    deeplab_kitti_os16 --spatial 2 at one rank (no grid, so kernels
+    1/1b; os8's 376 rows do not split at 1/8); the preset steps timed with
+    the dilated convs' share. Returns each path's launches."""
+    halo_stage1 = ("stage1_tail_halo", "stage1_tail_halo_bwd")
     t_phase = time.perf_counter()
     dl_runs, dl = [], {}
     for dl_preset in ("deeplab_kitti_dp", "deeplab_kitti_os16"):
@@ -2862,9 +2862,9 @@ def deeplab_phase(torch, smi: str, drive) -> list[dict]:
                                 drive_spatial_training, torch, sp_tmp,
                                 "deeplab_kitti_os16", dl_train["data"], DEEPLAB_N // 16)
         dl_runs.append(launches)
-        missing = [k for k in ("stage1_tail_halo", "stage1_tail_halo_bwd",
-                               "preprocess_normalize") if not launches[k]]
-        if missing or any(launches[k] for k in single_stage1):
+        missing = [k for k in ("stage1_tail_bwd", "preprocess_normalize")
+                   if not launches[k]]
+        if missing or any(launches[k] for k in halo_stage1):
             raise AssertionError(f"deeplab_kitti_os16 --spatial 2: launches {launches}")
     torch.cuda.empty_cache()
     dl_steps = {w: time_deeplab(torch, smi, w) for w in ("deeplab", "deeplab_os16")}
@@ -4882,28 +4882,20 @@ def main() -> int:
         segnet_eval=seg_eval, plain=plain_eval)))
     torch.cuda.empty_cache()
 
-    # --spatial: at one rank through train.main (kernel 1c, no single-device
-    # stage1 kernel), the preset step with 1c beside the one with 1/1b, and
-    # the 2-rank grid on this card
-    single_stage1 = ("stage1_tail", "stage1_tail_train", "stage1_tail_bwd",
-                     "stage1_tail_segnet")
+    # --spatial: at one rank through train.main (no grid: kernels 1b, no
+    # halo kernel), and the 2-rank grid on this card
+    halo_stage1 = ("stage1_tail_halo", "stage1_tail_halo_bwd")
     spatial_runs = []
     for sp_preset in ("fcn8s_kitti", "segnet_kitti"):
         with tempfile.TemporaryDirectory() as tmp:
             sp_times, sp_launches = drive(f"{sp_preset} --spatial 2 training",
                                           drive_spatial_training, torch, tmp, sp_preset)
         spatial_runs.append(sp_launches)
-        missing = [k for k in ("stage1_tail_halo", "stage1_tail_halo_bwd",
-                               "preprocess_normalize") if not sp_launches[k]]
-        if missing or any(sp_launches[k] for k in single_stage1):
+        missing = [k for k in ("stage1_tail_bwd", "preprocess_normalize")
+                   if not sp_launches[k]]
+        if missing or any(sp_launches[k] for k in halo_stage1):
             raise AssertionError(f"{sp_preset} --spatial 2: launches {sp_launches}")
         torch.cuda.empty_cache()
-    spmd = time_train(torch, smi, "preset_spmd")
-    preset_again = time_train(torch, smi, "preset")
-    log("--spatial at one rank, preset step (1c) beside the default (1/1b): "
-        f"{spmd['host_ms']:.2f} vs {preset['host_ms']:.2f} and "
-        f"{preset_again['host_ms']:.2f} ms/step")
-    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         grid = check_grid(torch, tmp, smi)
     log("grid timings: " + json.dumps(grid))

@@ -20,9 +20,10 @@ import torch.nn as nn
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    BatchNorm, Conv, conv_nhwc, region, upsample_bilinear,
+    BatchNorm, Conv, region, upsample_bilinear,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import VGG16
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import conv_nhwc
 from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import spatial_sum
 from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import spatial_grid
 
@@ -125,18 +126,17 @@ class DeepLabASPP(nn.Module):
     """DeepLab-ASPP on a dilated VGG16 (fc6/fc7 at 512 channels).
 
     ``output_stride`` 8 dilates stages 4-5, 16 stage 5 only (``dilate_from``
-    {8: 4, 16: 5}); any other value raises ValueError. The TPU layout flags
-    (``packed_stage1``, ``pallas_pool``, ``pallas_spmd``,
-    ``deferred_pool_bias``) and ``winograd`` go to :class:`VGG16` as for
-    FCN; ``aspp_split_proj`` selects the concat-free projection. ``use_bn``
-    puts BatchNorm in the backbone's stages and in the ASPP head."""
+    {8: 4, 16: 5}); any other value raises ValueError. The stage flags
+    (``packed_stage1``, ``deferred_pool_bias``) and ``winograd`` go to
+    :class:`VGG16` as for FCN; ``aspp_split_proj`` selects the concat-free
+    projection. ``use_bn`` puts BatchNorm in the backbone's stages and in
+    the ASPP head."""
 
     def __init__(self, num_classes: int = 2, aspp_features: int = 256,
                  rates: Sequence[int] = (6, 12, 18), width_mult: float = 1.0, *,
                  use_bn: bool = False, dropout_rate: float = 0.5,
                  winograd: str | None = None, aspp_split_proj: bool = False,
                  deferred_pool_bias: bool = True, packed_stage1: bool = True,
-                 pallas_pool: bool | None = None, pallas_spmd: bool = False,
                  dtype: torch.dtype = DEFAULT_DTYPE, output_stride: int = 8,
                  device=None):
         super().__init__()
@@ -150,8 +150,8 @@ class DeepLabASPP(nn.Module):
                            dropout_rate=dropout_rate, winograd=winograd,
                            use_bn=use_bn,
                            deferred_pool_bias=deferred_pool_bias,
-                           packed_stage1=packed_stage1, pallas_pool=pallas_pool,
-                           pallas_spmd=pallas_spmd, dtype=dtype, device=device)
+                           packed_stage1=packed_stage1, dtype=dtype,
+                           device=device)
         self.aspp = ASPP(512, aspp_features, rates, use_bn=use_bn,
                          split_proj=aspp_split_proj, dtype=dtype, device=device)
         self.head = Conv(aspp_features, num_classes, 1, dtype=dtype, device=device)

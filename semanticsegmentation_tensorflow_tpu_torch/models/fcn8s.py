@@ -28,10 +28,8 @@ class FCN8s(nn.Module):
     upsample of conv7 scores; 16 = fuse pool4, 16x up; 8 (default) = fuse
     pool4 + pool3, 8x up.
 
-    ``fast_upsample`` is accepted for preset compatibility: on the TPU it
-    chose between two implementations of the same function; the port has
-    one (``F.conv_transpose2d``). ``pallas_pool`` and ``use_bn``
-    (BatchNorm in the backbone's stages) go to :class:`VGG16`.
+    ``use_bn`` (BatchNorm in the backbone's stages) and the stage flags go
+    to :class:`VGG16`.
     """
 
     total_stride = 32
@@ -40,10 +38,8 @@ class FCN8s(nn.Module):
                  width_mult: float = 1.0, *, dropout_rate: float = 0.5,
                  variant: int = 8, dtype: torch.dtype = DEFAULT_DTYPE,
                  packed_stage1: bool = True, deferred_pool_bias: bool = True,
-                 fast_upsample: bool = True, use_bn: bool = False,
-                 winograd: str | None = None, winograd_fc6: bool | None = None,
-                 packed_stage2_entry: bool = False, pallas_spmd: bool = False,
-                 pallas_pool: bool | None = None, device=None):
+                 use_bn: bool = False, winograd: str | None = None,
+                 winograd_fc6: bool | None = None, device=None):
         super().__init__()
         if variant not in (8, 16, 32):
             raise ValueError(f"FCN variant must be 8/16/32, got {variant}")
@@ -55,10 +51,7 @@ class FCN8s(nn.Module):
                            deferred_pool_bias=deferred_pool_bias,
                            dropout_rate=dropout_rate, dtype=dtype,
                            use_bn=use_bn, winograd=winograd,
-                           winograd_fc6=winograd_fc6,
-                           packed_stage2_entry=packed_stage2_entry,
-                           pallas_spmd=pallas_spmd, pallas_pool=pallas_pool,
-                           device=device)
+                           winograd_fc6=winograd_fc6, device=device)
         feats = [max(8, int(f * width_mult)) for _, f in VGG16_STAGES]
         kw = dict(dtype=dtype, device=device)
         nc = num_classes

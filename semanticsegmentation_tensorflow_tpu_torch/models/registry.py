@@ -27,23 +27,43 @@ MODELS: dict[str, Callable[..., nn.Module]] = {
     "deeplab_v2": DeepLabV2,
 }
 
+# The JAX package's flags that name no choice in the port: ``pallas_spmd``
+# (stage1 takes its halo mode from the active grid) and TPU lane layouts of
+# the same function with the same parameters. Accepted so that the JAX
+# package's presets, ``--model-kw`` and the tables below build a model.
+TPU_ONLY_KWARGS = frozenset({
+    "pallas_spmd", "packed_stage2_entry", "fast_upsample", "packed_dec1",
+    "packed_dec2", "fast_upconv", "packed_stage0",
+})
+
 
 def build_model(name: str, num_classes: int, *, device,
                 **kwargs: Any) -> nn.Module:
     """Build a model with uninitialized params on ``device`` (load a state
-    dict or call ``models.common.init_params`` next)."""
+    dict or call ``models.common.init_params`` next). The names in
+    :data:`TPU_ONLY_KWARGS` are dropped (``packed_stage0`` must still be
+    True, False or ``"mixed"``, as the JAX package checks), and the JAX
+    flag ``pallas_pool=False``, which turns the fused stage1 kernel off,
+    becomes ``packed_stage1=False``; any other ``pallas_pool`` is dropped."""
     try:
         cls = MODELS[name]
     except KeyError:
         raise ValueError(f"unknown model {name!r}; available: {sorted(MODELS)}")
+    if kwargs.get("packed_stage0", True) not in (True, False, "mixed"):
+        raise ValueError(f"packed_stage0 must be True, False or 'mixed', "
+                         f"got {kwargs['packed_stage0']!r}")
+    if kwargs.pop("pallas_pool", None) is False:
+        kwargs["packed_stage1"] = False
+    kwargs = {k: v for k, v in kwargs.items() if k not in TPU_ONLY_KWARGS}
     return cls(num_classes=num_classes, device=device, **kwargs)
 
 
 def spmd_safe_kwargs(name: str) -> dict[str, Any]:
     """Model kwargs required under a height-partitioned (spatial) grid (the
-    JAX package's table, ``models/registry.py:43-61``): the fused stage1 in
-    its halo mode (``pallas_spmd=True``, kernel 1c) and no Winograd forms
-    (they exchange no halo rows). Every entry point that builds a model for
+    JAX package's table, ``models/registry.py:43-61``): no Winograd forms
+    (they exchange no halo rows), and ``pallas_spmd=True``, which
+    :func:`build_model` drops: the port's stage1 takes its halo mode
+    (kernel 1c) from the grid. Every entry point that builds a model for
     a spatial grid merges these in (setdefault, so explicit user choices
     still win)."""
     if name in ("fcn8s", "fcn16s", "fcn32s", "segnet", "deeplab"):
@@ -90,9 +110,7 @@ def quant_safe_kwargs(name: str) -> dict[str, Any]:
     stage1 kernels (``packed_stage1``; kernels 1, 1b and 3), the Winograd
     forms (``winograd``, ``winograd_fc6``), the deferred pool bias and the
     ASPP's split projection, each of which reads its conv's weight outside
-    the module. ``packed_stage2_entry``, ``fast_upsample``, ``packed_dec1``,
-    ``packed_dec2``, ``packed_stage0`` and ``fast_upconv`` are TPU layouts
-    of the same function here; they stay in the table so that a conflict is
+    the module. The :data:`TPU_ONLY_KWARGS` in it stay so that a conflict is
     named as the JAX package names it. The parameters, and so the
     checkpoints, are the same either way."""
     if name in ("fcn8s", "fcn16s", "fcn32s"):

@@ -17,12 +17,48 @@ from semanticsegmentation_tensorflow_tpu_torch.models.common import (
     Conv, ConvBlock, region,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import (
-    VGG16_STAGES,
+    VGG16_STAGES, _halo_tail,
 )
-from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import SegNetStage1
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+    SegNetStage1Tail, SegNetStage1TailHalo, stage1_tail_segnet,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.pool import (
     max_pool_with_argmax, max_unpool,
 )
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import spatial_grid
+
+
+class SegNetStage1(ConvBlock):
+    """SegNet encoder stage1: conv3x3 -> relu -> conv3x3 -> +b2 -> relu ->
+    2x2 argmax pool, returning (pooled, u8 idx) (counterpart of the JAX
+    package's ``PackedSegNetStage1``, ``ops/packed_stem.py:327-386``).
+
+    conv1_1 (``conv0``) runs as a plain conv plus b1 in the compute dtype;
+    the rest is one call of the SegNet stage1 tail
+    (``ops/cuda/stage1.py:stage1_tail_segnet``), or :class:`SegNetStage1Tail`
+    when autograd records; under an active grid that splits rows, its halo
+    mode (``models.vgg16._halo_tail``, kernel 1c). Same parameters as
+    ``ConvBlock(features, 2)``; an odd H or W raises, as the JAX module
+    does."""
+
+    def __init__(self, in_features: int, features: int = 64, *,
+                 dtype: torch.dtype = DEFAULT_DTYPE, device=None):
+        super().__init__(in_features, features, 2, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if x.shape[1] % 2 or x.shape[2] % 2:
+            raise ValueError(f"SegNet stage1 needs even H, W; got "
+                             f"{tuple(x.shape[1:3])}")
+        grid = spatial_grid()
+        if grid is not None:
+            return _halo_tail(self.conv0, self.conv1, x, grid,
+                              SegNetStage1TailHalo, "segnet")
+        z1 = self.conv0(x).contiguous()
+        k2, b2 = self.conv1.weight, self.conv1.bias
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (z1, k2, b2)):
+            return SegNetStage1Tail.apply(z1, k2, b2)
+        return stage1_tail_segnet(z1, k2, b2)
 
 
 class SegNet(nn.Module):
@@ -30,22 +66,17 @@ class SegNet(nn.Module):
     (``ConvBlock``s with stage i's conv count, each giving the width of the
     previous encoder stage), 1x1 ``head``; the JAX package's parameter names.
 
-    ``packed_stage1`` and ``pallas_pool`` (the JAX flags' names): with
-    ``packed_stage1`` and ``pallas_pool`` not False, ``enc1`` is
+    ``packed_stage1`` (the JAX flag's name): ``enc1`` is
     :class:`SegNetStage1`, conv1_1 then the fused SegNet stage1 tail kernel
     (``ops/cuda/stage1.py``); otherwise a ``ConvBlock`` followed by
     ``max_pool_with_argmax``, as the JAX package's jnp path. Same params and
-    the same function either way. ``packed_dec1`` and ``packed_dec2`` name
-    TPU lane layouts of the decoder's stages 1 and 2 (width pairs packed into
-    the 128 lanes) that compute the same function with the same params; both
-    values are accepted and the canonical decoder runs. ``winograd``
-    (``"f2"``, ``"f4"``, ``"f2x"``, ``"f4x"``) goes to every ``ConvBlock``
-    (enc2-enc5, dec5-dec1; ``models.common.winograd_impl`` picks the
-    eligible layers), as in the JAX package; the parameters do not change.
-    ``pallas_spmd`` goes to :class:`SegNetStage1` (its halo mode, kernel
-    1c). ``use_bn=True`` puts a ``BatchNorm`` after every encoder and
-    decoder conv (SegNet as published); ``enc1`` is then a ``ConvBlock``
-    and the argmax pool, as the JAX package leaves its packed enc1 under BN
+    the same function either way. ``winograd`` (``"f2"``, ``"f4"``,
+    ``"f2x"``, ``"f4x"``) goes to every ``ConvBlock`` (enc2-enc5,
+    dec5-dec1; ``ops.conv.winograd_impl`` picks the eligible layers), as in
+    the JAX package; the parameters do not change. ``use_bn=True`` puts a
+    ``BatchNorm`` after every encoder and decoder conv (SegNet as
+    published); ``enc1`` is then a ``ConvBlock`` and the argmax pool, as
+    the JAX package leaves its packed enc1 under BN
     (``models/segnet.py:78``); the argmax pool and unpool stay kernel 5.
     ``forward`` takes a ``generator`` for the train step's calling
     convention; SegNet has no dropout and draws nothing.
@@ -55,23 +86,19 @@ class SegNet(nn.Module):
 
     def __init__(self, num_classes: int = 2, width_mult: float = 1.0, *,
                  use_bn: bool = False, packed_stage1: bool = True,
-                 pallas_pool: bool | None = None, pallas_spmd: bool = False,
-                 winograd: str | None = None, packed_dec1: bool = True,
-                 packed_dec2: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
-                 device=None):
+                 winograd: str | None = None,
+                 dtype: torch.dtype = DEFAULT_DTYPE, device=None):
         super().__init__()
         self.num_classes = num_classes
         self.dtype = dtype
-        self.fused_stage1 = (packed_stage1 and pallas_pool is not False
-                             and not use_bn)
+        self.fused_stage1 = packed_stage1 and not use_bn
         feats = [max(8, int(f * width_mult)) for _, f in VGG16_STAGES]
         kw = dict(dtype=dtype, device=device)
         wkw = dict(kw, winograd=winograd, use_bn=use_bn)
         cin = 3
         for i, (n_convs, _) in enumerate(VGG16_STAGES, start=1):
             f = feats[i - 1]
-            self.add_module(f"enc{i}", SegNetStage1(cin, f, pallas_spmd=pallas_spmd,
-                                                    **kw)
+            self.add_module(f"enc{i}", SegNetStage1(cin, f, **kw)
                             if i == 1 and self.fused_stage1
                             else ConvBlock(cin, f, n_convs, **wkw))
             cin = f

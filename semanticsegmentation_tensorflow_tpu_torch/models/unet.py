@@ -9,11 +9,7 @@ names are the JAX package's (``down{i}/conv{j}``, ``bottleneck/conv{j}``,
 ``up{i}``, ``upconv{i}/conv{j}``, ``head``), so ``convert.py`` maps the flax
 tree strictly.
 
-The JAX package's ``packed_stage0`` (True, False or ``"mixed"``) and
-``fast_upconv`` compute the same function in layouts that fill the TPU's
-128 lanes (width-pair packing, 1x1 + depth-to-space); their parameter tree
-is the canonical one, so the port accepts them and computes the canonical
-form. ``winograd`` routes each eligible 3x3 conv (both widths multiples of
+``winograd`` routes each eligible 3x3 conv (both widths multiples of
 128) through kernel 6. On a grid that splits rows the convs take their halo
 through ``conv_nhwc``; the pools and the up-convs stay within a rank's rows.
 """
@@ -38,13 +34,9 @@ class UNet(nn.Module):
 
     def __init__(self, num_classes: int = 2, base_features: int = 64,
                  depth: int = 4, *, use_bn: bool = False,
-                 winograd: str | None = None, packed_stage0: bool | str = True,
-                 fast_upconv: bool = False, dtype: torch.dtype = DEFAULT_DTYPE,
+                 winograd: str | None = None, dtype: torch.dtype = DEFAULT_DTYPE,
                  device=None):
         super().__init__()
-        if packed_stage0 not in (True, False, "mixed"):
-            raise ValueError(f"packed_stage0 must be True, False or 'mixed', "
-                             f"got {packed_stage0!r}")
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         self.num_classes = num_classes

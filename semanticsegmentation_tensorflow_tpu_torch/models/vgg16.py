@@ -4,7 +4,18 @@ stages dilated instead of pooled), then fc6 (7x7 SAME) and fc7 (1x1) as
 convs with dropout. NHWC in, dict of NHWC endpoints out.
 Dropout draws its masks from the generator passed to ``forward`` (flax's
 semantics, ``models.common.dropout``). :func:`load_npz_weights` imports
-pretrained VGG16 weights from the JAX package's ``.npz`` archives."""
+pretrained VGG16 weights from the JAX package's ``.npz`` archives.
+
+The stage blocks with the pool inside are the counterparts of the JAX
+package's ``ops/packed_stem.py``. On the TPU, stage1 packed width pairs
+into the 128-lane channel dim. That is a lane trick of the TPU and is not
+carried over: on the H100, :class:`Stage1` runs conv1_1 with cuDNN, adds
+b1, and hands the NHWC result to the fused stage1-tail kernels
+(``ops/cuda/stage1.py``): the inference kernel, or, when autograd records,
+the training forward and its backward (``Stage1Tail``). Under an active
+grid that splits rows (``parallel.mesh.spatial_grid``) it runs the halo
+mode of the tail instead (kernel 1c, :func:`_halo_tail`).
+"""
 
 from __future__ import annotations
 
@@ -19,19 +30,100 @@ from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
     Conv, ConvBlock, dropout, region,
 )
-from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import (
-    PooledConvBlock, Stage1,
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import (
+    conv3x3_bias_relu, conv3x3_raw,
+)
+from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
+    Stage1Tail, Stage1TailHalo, stage1_tail, stage1_tail_halo,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.pool import max_pool
 from semanticsegmentation_tensorflow_tpu_torch.ops.winograd import (
     winograd_conv_large,
 )
-from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import spatial_grid
+from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import boundary_rows
+from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import (
+    Grid, spatial_grid,
+)
 
 # (n_convs, features) per VGG16 stage.
 VGG16_STAGES: tuple[tuple[int, int], ...] = (
     (2, 64), (2, 128), (3, 256), (3, 512), (3, 512),
 )
+
+
+def _halo_tail(conv0: Conv, conv1: Conv, x: torch.Tensor,
+               grid: Grid | None, function, mode: str):
+    """Stage1 on ``grid``'s rows: conv1_1 without its bias, then the
+    halo-mode tail (kernel 1c), which folds b1 in and exchanges its own
+    halo rows with the neighbouring ranks (the image's edge rows at the
+    image's edge): the autograd ``function`` (``Stage1TailHalo`` or
+    ``SegNetStage1TailHalo``) when autograd records, else the inference
+    wrapper in ``mode`` (``"infer"`` or ``"segnet"``). With ``grid`` None
+    the halo rows are the image's edge, so it runs over the whole image."""
+    z1 = conv0.conv(x).contiguous()
+    k2, b2, b1 = conv1.weight, conv1.bias, conv0.bias
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (z1, k2, b2, b1)):
+        return function.apply(z1, k2, b2, b1, grid)
+    [(top, bot)] = boundary_rows([z1], [float("-inf")], grid)
+    return stage1_tail_halo(z1, top, bot, k2, b2, b1, mode)
+
+
+class PooledConvBlock(ConvBlock):
+    """ConvBlock + 2x2/2 max pool with the last bias+relu AFTER the pool.
+
+    Exact: ``relu(pool(z) + b) == pool(relu(z + b))`` bit for bit (the max
+    commutes with the per-channel bias add, with its monotone rounding and
+    with the relu), while the bias add and relu run at 1/4 resolution.
+    Same parameters as ``ConvBlock(features, n_convs)``. With ``winograd``
+    (the JAX package's ``PooledConvBlock``, ``ops/packed_stem.py:190-256``)
+    the inner convs take the fused bias+relu form and the last conv the raw
+    one, so its bias and relu stay deferred past the pool."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        *head, last = self.convs()
+        for conv in head:
+            x = conv3x3_bias_relu(x, conv.weight, conv.bias, dtype=conv.dtype,
+                                  dilation=conv.dilation,
+                                  winograd=self.winograd)
+        z = conv3x3_raw(x, last, self.winograd)
+        return torch.relu(max_pool(z, 2) + last.bias.to(last.dtype))
+
+
+class Stage1(PooledConvBlock):
+    """VGG stage1: conv3x3 -> relu -> conv3x3 -> relu -> maxpool 2x2.
+
+    conv1_1 (``conv0``) runs as a plain conv plus b1 in the compute dtype;
+    the rest (relu, conv1_2, pool, +b2, relu) is one call of the fused
+    stage1 tail: the CUDA kernels for CUDA tensors, their plain versions on
+    the CPU. When autograd records, the tail is :class:`Stage1Tail` (the
+    training forward, which also writes the pool's routing codes, and the
+    backward kernel); b1 stays in conv1_1, so autograd gives db1 = sum(dz1).
+    Under an active grid that splits rows the tail runs in its halo mode
+    (:func:`_halo_tail`, kernel 1c). An odd H or W runs the same params as
+    the plain :class:`PooledConvBlock` (with ``winograd``), as the JAX
+    package's VGG16 does (``models/vgg16.py:97-118``)."""
+
+    def __init__(self, in_features: int, features: int = 64, *,
+                 winograd: str | None = None,
+                 dtype: torch.dtype = DEFAULT_DTYPE, device=None):
+        super().__init__(in_features, features, 2, winograd=winograd,
+                         dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] % 2 or x.shape[2] % 2:
+            return super().forward(x)
+        grid = spatial_grid()
+        if grid is not None:
+            return _halo_tail(self.conv0, self.conv1, x, grid,
+                              Stage1TailHalo, "infer")
+        # NHWC-contiguous for the kernel (a no-op for channels_last output)
+        z1 = self.conv0(x).contiguous()
+        k2, b2 = self.conv1.weight, self.conv1.bias
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (z1, k2, b2)):
+            return Stage1Tail.apply(z1, k2, b2)
+        return stage1_tail(z1, k2, b2)
 
 
 class ConvPoolBlock(ConvBlock):
@@ -50,19 +142,14 @@ class VGG16(nn.Module):
 
     ``packed_stage1`` (the JAX flag's name, kept so presets and
     ``--model-kw`` carry over): stage1 runs as :class:`Stage1`, conv1_1 then
-    the fused stage1-tail kernels (on even H and W), unless ``pallas_pool``
-    is False (the JAX flag that selects the fused kernel; None and True
-    select it here). Otherwise it runs as a :class:`PooledConvBlock`, like
-    stages 2-5 (the last bias added after the pool, bit-exact). Same params
-    either way. ``deferred_pool_bias=False`` runs every stage that is not
-    :class:`Stage1` as a :class:`ConvPoolBlock` (each conv's bias and relu
-    before the pool, as the JAX flag does), bit-equal to the default.
-    ``packed_stage2_entry`` is a TPU layout of conv2_1 (width pairs packed
-    into the 128 lanes) computing the same function: accepted, and a no-op
-    here, as SegNet's ``packed_dec1``/``packed_dec2`` are.
-    ``dropout_rate`` applies to fc6 and fc7 in ``train()`` mode, with masks
-    from the ``generator`` given to :meth:`forward`. ``pallas_spmd`` goes to
-    :class:`Stage1` (its halo mode, kernel 1c).
+    the fused stage1-tail kernels (on even H and W). Otherwise it runs as a
+    :class:`PooledConvBlock`, like stages 2-5 (the last bias added after the
+    pool, bit-exact). Same params either way. ``deferred_pool_bias=False``
+    runs every stage that is not :class:`Stage1` as a :class:`ConvPoolBlock`
+    (each conv's bias and relu before the pool, as the JAX flag does),
+    bit-equal to the default. ``dropout_rate`` applies to fc6 and fc7 in
+    ``train()`` mode, with masks from the ``generator`` given to
+    :meth:`forward`.
 
     ``use_bn``: BatchNorm after every conv of stages 1-5
     (``models.common.BatchNorm``; conv, bias, BN, relu), each stage a
@@ -85,18 +172,14 @@ class VGG16(nn.Module):
                  dropout_rate: float = 0.5, dtype: torch.dtype = DEFAULT_DTYPE,
                  use_bn: bool = False, dilated_last_stages: bool = False,
                  winograd: str | None = None, winograd_fc6: bool | None = None,
-                 dilate_from: int = 4, packed_stage2_entry: bool = False,
-                 pallas_spmd: bool = False, pallas_pool: bool | None = None,
-                 device=None):
+                 dilate_from: int = 4, device=None):
         super().__init__()
         cin = 3
         dilation = 1
         for i, (n_convs, feats) in enumerate(VGG16_STAGES, start=1):
             feats = max(8, int(feats * width_mult))
-            if i == 1 and packed_stage1 and pallas_pool is not False \
-                    and not use_bn:
-                block = Stage1(cin, feats, winograd=winograd,
-                               pallas_spmd=pallas_spmd, dtype=dtype,
+            if i == 1 and packed_stage1 and not use_bn:
+                block = Stage1(cin, feats, winograd=winograd, dtype=dtype,
                                device=device)
             elif dilated_last_stages and i >= dilate_from:
                 block = ConvBlock(cin, feats, n_convs, dilation=dilation,

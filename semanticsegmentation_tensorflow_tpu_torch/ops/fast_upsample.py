@@ -31,8 +31,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from semanticsegmentation_tensorflow_tpu_torch.dtypes import DEFAULT_DTYPE
-from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    _TRUNC_STD, fill_init,
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import _TRUNC_STD, fill_init
+from semanticsegmentation_tensorflow_tpu_torch.ops.quant import (
+    fake_quant_act, fake_quant_weight,
 )
 from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import exchange_rows
 from semanticsegmentation_tensorflow_tpu_torch.parallel.mesh import spatial_grid
@@ -84,9 +85,6 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.qat:
-            from semanticsegmentation_tensorflow_tpu_torch.ops.quant import (
-                fake_quant_act, fake_quant_weight,
-            )
             y = self.transpose(fake_quant_act(x, self.act_scale),
                                fake_quant_weight(self.weight, transposed=True))
             return (y.float() + self.bias.float()).to(self.dtype)

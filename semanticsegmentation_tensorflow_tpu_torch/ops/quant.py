@@ -36,6 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import conv_nhwc
+
 QMAX = 127
 # the largest int8 patch matrix built in one piece (bytes)
 PATCH_BYTES = 1 << 30
@@ -268,9 +270,6 @@ class QuantConv(_QuantBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.act_scale is None:
-            from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-                conv_nhwc,
-            )
             y = conv_nhwc(x, self.dequantized(), dtype=self.dtype,
                           padding=self.padding, dilation=self.dilation).float()
             return (y + self.bias.float()).to(self.dtype)

@@ -10,7 +10,7 @@ matrix are summed over the whole world (``train/step.py``). ``make_grid(world,
 1)`` is the 1-D data-parallel mesh.
 
 While a train step runs, the grid is the *active* one (:func:`use_grid`):
-the convs (``models/common.py:conv_nhwc``), the transposed convs, dropout,
+the convs (``ops/conv.py:conv_nhwc``), the transposed convs, dropout,
 the augment and the fused stage1 read it from :func:`current_grid`.
 """
 

@@ -17,10 +17,10 @@ devices, the port counts ranks: with more than one, the batch shards over a
 ``data x spatial`` grid (``--spatial S`` splits each image's height over S
 ranks and turns random crop off; without it a 1-D data grid), unless
 ``--no-mesh``. ``--spatial S`` also merges the spatial-safe model kwargs
-(``pallas_spmd=True``, no Winograd); at one rank the step then runs
-unsharded, as the JAX script does on one device, and trains through the halo
-mode of the fused stage1 (kernel 1c). Only rank 0 writes checkpoints and
-logs.
+(no Winograd); at one rank the step then runs unsharded, as the JAX script
+does on one device. The fused stage1 runs its halo mode (kernel 1c) under a
+grid that splits rows, and kernel 1 otherwise. Only rank 0 writes
+checkpoints and logs.
 
 ``--pallas-preprocess`` keeps the JAX flag's name: it selects the CUDA
 preprocess kernel (``ops/cuda/preprocess.py``) for the image leg of the

@@ -28,10 +28,13 @@ from semanticsegmentation_tensorflow_tpu_torch.data.augment import (  # noqa: E4
     make_augment_fn,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (  # noqa: E402
-    conv_nhwc, dropout, upsample_bilinear,
+    dropout, upsample_bilinear,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.registry import (  # noqa: E402
     build_model,
+)
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import (  # noqa: E402
+    conv_nhwc,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import (  # noqa: E402
     ConvTranspose,
@@ -104,13 +107,19 @@ def run_step(sc: dict) -> dict:
     ``classes`` classes, default 2;
     with ``stride``, the rows split at it, unevenly where they must); the losses, the last confusion
     matrix, checksums of the parameters and of the buffers (BatchNorm's
-    running statistics) on every rank, and on rank 0 the first step's
+    running statistics) and the names of the autograd nodes of the fused
+    stage1's outputs on every rank, and on rank 0 the first step's
     gradients and the last state_dict."""
     classes = sc.get("classes", 2)
     grid = make_grid(sc["data"], sc["spatial"])
     model = build_model(sc["model"], classes, device="cpu", dtype=torch.float32,
                         **sc["kw"])
     model.load_state_dict(sc["state_dict"])
+    tails = set()
+    for m in model.modules():
+        if type(m).__name__ in ("Stage1", "SegNetStage1"):
+            m.register_forward_hook(lambda mod, args, out: tails.add(type(
+                (out[0] if isinstance(out, tuple) else out).grad_fn).__name__))
     opt = make_optimizer("sgd", model.parameters(), sc["lr"])
     state = create_train_state(model, opt, make_lr_schedule(sc["lr"]), seed=0)
     aug = make_augment_fn(MEAN, STD) if sc.get("augment") else None
@@ -132,7 +141,8 @@ def run_step(sc: dict) -> dict:
     res = {"losses": losses, "cm": out["cm"],
            "checksum": sum(p.detach().double().sum().item()
                            for p in model.parameters()),
-           "buffers": sum(b.double().sum().item() for b in model.buffers())}
+           "buffers": sum(b.double().sum().item() for b in model.buffers()),
+           "stage1_tails": sorted(tails)}
     if dist.get_rank() == 0:
         res["grads"] = grads
         res["params"] = {k: v.clone() for k, v in model.state_dict().items()}

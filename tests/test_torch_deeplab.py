@@ -50,12 +50,13 @@ from semanticsegmentation_tensorflow_tpu.train.step import (
 )
 from semanticsegmentation_tensorflow_tpu_torch import convert
 from semanticsegmentation_tensorflow_tpu_torch.infer import Predictor
-from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    conv_by_phases, dilated_form, upsample_bilinear,
-)
+from semanticsegmentation_tensorflow_tpu_torch.models.common import upsample_bilinear
 from semanticsegmentation_tensorflow_tpu_torch.models.deeplab import ASPP, image_mean
 from semanticsegmentation_tensorflow_tpu_torch.models.registry import build_model
 from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import VGG16
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import (
+    conv_by_phases, dilated_form,
+)
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
 from semanticsegmentation_tensorflow_tpu_torch.train.state import (
     create_train_state, make_lr_schedule, make_optimizer,
@@ -159,9 +160,9 @@ def test_dilated_conv_equals_the_dilated_conv_in_every_form(monkeypatch, hw, k, 
     rows from a halo exchange): the output and each subset of the gradients
     asked for equal F.conv2d's at that dilation, in float64 to 1e-12 and
     1e-11; the gradients not asked for are not computed."""
-    from semanticsegmentation_tensorflow_tpu_torch.models import common
+    from semanticsegmentation_tensorflow_tpu_torch.ops import conv
 
-    monkeypatch.setattr(common, "dilated_form",
+    monkeypatch.setattr(conv, "dilated_form",
                         lambda pass_, *a: forms[PASSES.index(pass_)])
     g = torch.Generator().manual_seed(k * d)
     x0 = torch.randn(2, *hw, 5, generator=g, dtype=torch.float64)
@@ -173,8 +174,8 @@ def test_dilated_conv_equals_the_dilated_conv_in_every_form(monkeypatch, hw, k, 
     grads = torch.autograd.grad(want, [x, w], cot)
     for asked in ((True, True), (True, False), (False, True)):
         x, w = (t.clone().requires_grad_(a) for t, a in zip((x0, w0), asked))
-        before = common.DILATED_PASSES.copy()
-        got = common.DilatedConv.apply(x, w, hw[0], pad_h, pad_w, d)
+        before = conv.DILATED_PASSES.copy()
+        got = conv.DilatedConv.apply(x, w, hw[0], pad_h, pad_w, d)
         assert got.shape == want.shape
         torch.testing.assert_close(got, want.detach(), rtol=0, atol=1e-12)
         leaves = [t for t, a in zip((x, w), asked) if a]
@@ -182,7 +183,7 @@ def test_dilated_conv_equals_the_dilated_conv_in_every_form(monkeypatch, hw, k, 
                         [t for t, a in zip(grads, asked) if a]):
             assert a.shape == b.shape
             torch.testing.assert_close(a, b, rtol=0, atol=1e-11)
-        ran = common.DILATED_PASSES - before
+        ran = conv.DILATED_PASSES - before
         assert ran == collections.Counter(
             {(p, f): 1 for p, f, a in zip(PASSES, forms, (True, *asked)) if a})
 
@@ -272,27 +273,27 @@ def test_conv_nhwc_routes_by_the_backward(monkeypatch):
     backward follows, with the same values as the plain forward without;
     DILATED_PASSES counts each pass in the form dilated_form picked for
     it."""
-    from semanticsegmentation_tensorflow_tpu_torch.models import common
+    from semanticsegmentation_tensorflow_tpu_torch.ops import conv
 
     g = torch.Generator().manual_seed(0)
     x = torch.randn(4, 9, 11, 3, generator=g, dtype=torch.float64)
     w = torch.randn(2, 3, 7, 7, generator=g, dtype=torch.float64, requires_grad=True)
     applied, picked = [], []
-    monkeypatch.setattr(common.DilatedConv, "apply", functools.partial(
+    monkeypatch.setattr(conv.DilatedConv, "apply", functools.partial(
         lambda apply, *a: applied.append(True) or apply(*a),
-        common.DilatedConv.apply))
-    rule = common.dilated_form
-    monkeypatch.setattr(common, "dilated_form",
+        conv.DilatedConv.apply))
+    rule = conv.dilated_form
+    monkeypatch.setattr(conv, "dilated_form",
                         lambda *a: picked.append((a[0], rule(*a))) or rule(*a))
-    before = common.DILATED_PASSES.copy()
+    before = conv.DILATED_PASSES.copy()
     with torch.no_grad():
-        want = common.conv_nhwc(x, w, dtype=torch.float64, padding=6, dilation=2)
+        want = conv.conv_nhwc(x, w, dtype=torch.float64, padding=6, dilation=2)
     assert not applied and [p for p, _ in picked] == ["forward"]
-    got = common.conv_nhwc(x, w, dtype=torch.float64, padding=6, dilation=2)
+    got = conv.conv_nhwc(x, w, dtype=torch.float64, padding=6, dilation=2)
     got.sum().backward()
     assert applied == [True]
     assert [p for p, _ in picked] == ["forward", "forward", "weight_grad"]
-    assert common.DILATED_PASSES - before == collections.Counter(picked)
+    assert conv.DILATED_PASSES - before == collections.Counter(picked)
     torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-12)
 
 
@@ -300,22 +301,22 @@ def test_dilation_one_reaches_neither_the_rule_nor_the_function(monkeypatch):
     """At dilation 1 conv_nhwc is the bare F.conv2d, with a backward or
     without: it calls neither dilated_form nor DilatedConv, and counts
     nothing."""
-    from semanticsegmentation_tensorflow_tpu_torch.models import common
+    from semanticsegmentation_tensorflow_tpu_torch.ops import conv
 
     def refuse(*a):
         raise AssertionError("reached at dilation 1")
 
-    monkeypatch.setattr(common, "dilated_form", refuse)
-    monkeypatch.setattr(common.DilatedConv, "apply", refuse)
+    monkeypatch.setattr(conv, "dilated_form", refuse)
+    monkeypatch.setattr(conv.DilatedConv, "apply", refuse)
     g = torch.Generator().manual_seed(1)
     x = torch.randn(1, 6, 7, 3, generator=g, dtype=torch.float64, requires_grad=True)
     w = torch.randn(2, 3, 3, 3, generator=g, dtype=torch.float64, requires_grad=True)
-    before = common.DILATED_PASSES.copy()
-    got = common.conv_nhwc(x, w, dtype=torch.float64, padding=1)
+    before = conv.DILATED_PASSES.copy()
+    got = conv.conv_nhwc(x, w, dtype=torch.float64, padding=1)
     got.sum().backward()
     with torch.no_grad():
-        common.conv_nhwc(x, w, dtype=torch.float64, padding=1)
-    assert common.DILATED_PASSES == before
+        conv.conv_nhwc(x, w, dtype=torch.float64, padding=1)
+    assert conv.DILATED_PASSES == before
     want = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 

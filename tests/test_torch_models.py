@@ -247,3 +247,71 @@ def test_unported_models_raise(name):
     assert build_model(name, 19, device="meta").total_stride == 16
     m = build_model(name, 2, device="meta", use_bn=True)
     assert "down0.bn1.var" in m.state_dict()
+
+
+# The JAX package's TPU-only flags and the port models that took each as a
+# constructor keyword before build_model took them all
+JAX_FLAG_MODELS = {
+    "pallas_spmd": ("fcn8s", "segnet", "deeplab"),
+    "packed_stage2_entry": ("fcn8s",),
+    "fast_upsample": ("fcn8s",),
+    "packed_dec1": ("segnet",),
+    "packed_dec2": ("segnet",),
+    "fast_upconv": ("unet",),
+    "packed_stage0": ("unet",),
+    "pallas_pool": ("fcn8s", "segnet", "deeplab"),
+}
+_STAGE1 = {"fcn8s": "vgg16.stage1", "deeplab": "vgg16.stage1", "segnet": "enc1",
+           "unet": "down0"}
+
+
+@pytest.mark.parametrize("flag,model,value", [
+    (flag, model, value) for flag, models in JAX_FLAG_MODELS.items()
+    for model in models
+    for value in (True, False, *(("mixed",) if flag == "packed_stage0" else ()))])
+def test_build_model_takes_the_jax_flags(flag, model, value):
+    """``build_model`` accepts each JAX flag the port decides for itself
+    (``registry.TPU_ONLY_KWARGS``) and ``pallas_pool``: the same state_dict
+    keys and shapes as without it, and the same stage1, except that
+    ``pallas_pool=False`` turns the fused stage1 off (the plain
+    ``PooledConvBlock``, or SegNet's ``ConvBlock``)."""
+    from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
+        TPU_ONLY_KWARGS,
+    )
+
+    assert TPU_ONLY_KWARGS == set(JAX_FLAG_MODELS) - {"pallas_pool"}
+    base = build_model(model, 2, device="meta")
+    got = build_model(model, 2, device="meta", **{flag: value})
+    shapes = {k: v.shape for k, v in base.state_dict().items()}
+    assert {k: v.shape for k, v in got.state_dict().items()} == shapes
+    stage1 = type(got.get_submodule(_STAGE1[model])).__name__
+    if flag == "pallas_pool" and value is False:
+        assert stage1 == ("ConvBlock" if model == "segnet" else "PooledConvBlock")
+    else:
+        assert stage1 == type(base.get_submodule(_STAGE1[model])).__name__
+
+
+def test_ops_import_nothing_of_models():
+    """Imports point one way, ``models -> ops``: no module under ``ops/``
+    (``ops/cuda`` included) imports the port's ``models``, at module level
+    or inside a function."""
+    import ast
+    import pathlib
+
+    import semanticsegmentation_tensorflow_tpu_torch as port
+
+    pkg = port.__name__
+    root = pathlib.Path(port.__file__).parent / "ops"
+    files = sorted(root.rglob("*.py"))
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mod = node.module or ""
+                names = [mod] + [f"{mod}.{a.name}" for a in node.names]
+            else:
+                continue
+            bad = [n for n in names if n.startswith(f"{pkg}.models")]
+            assert not bad, f"{path.relative_to(root.parent)}:{node.lineno} imports {bad}"

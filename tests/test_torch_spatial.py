@@ -19,7 +19,7 @@ grid of ranks) against the JAX package on the CPU, in float32.
 * the CLIs on two ranks: ``train --qat`` on a data and a spatial grid and
   ``eval --distributed`` (plain and ``--tta``) against one process,
   ``train --shard-opt`` on both grids;
-* ``pallas_spmd`` on one process, the registry's SPMD-safe kwargs, the
+* the halo mode on one process, the registry's SPMD-safe kwargs, the
   loader's grid slices, and the train CLI's ``--spatial`` at one rank.
 
 Every spawned rank has a 60 s timeout on the process group and the test a
@@ -67,15 +67,18 @@ from semanticsegmentation_tensorflow_tpu_torch.data.synthetic import (
 from semanticsegmentation_tensorflow_tpu_torch.data import build_dataset
 from semanticsegmentation_tensorflow_tpu_torch.infer import quant as pq
 from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    bn_fed_biases, conv_nhwc, init_params,
+    bn_fed_biases, init_params,
 )
 from semanticsegmentation_tensorflow_tpu_torch.models.registry import (
     build_model, merge_spmd_safe_kwargs, spmd_safe_kwargs,
 )
-from semanticsegmentation_tensorflow_tpu_torch.ops import packed_stem
+from semanticsegmentation_tensorflow_tpu_torch.models.segnet import SegNetStage1
+from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import Stage1, _halo_tail
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import conv_nhwc
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import stage1 as port_stage1
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda.stage1 import (
-    BwdHalos, stage1_tail_halo_bwd_plain, stage1_tail_halo_plain,
+    BwdHalos, SegNetStage1TailHalo, Stage1TailHalo, stage1_tail_halo_bwd_plain,
+    stage1_tail_halo_plain,
 )
 from semanticsegmentation_tensorflow_tpu_torch.ops.fast_upsample import ConvTranspose
 from semanticsegmentation_tensorflow_tpu_torch.parallel.halo import boundary_rows
@@ -99,15 +102,14 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "_torch_grid_worker.py")
 LR = 1e-3
 FCN_HW, SEG_HW = (192, 32), (64, 32)   # 192/32 = 6 rows at fc6: 3 per rank at S=2
-FCN_KW = dict(fc_features=16, width_mult=1.0, pallas_spmd=True, dropout_rate=0.0)
-SEG_KW = dict(width_mult=1.0, pallas_spmd=True)
-JAX_KW = dict(packed_stage1=True, pallas_pool=True)
-DROP_KW = dict(fc_features=16, width_mult=0.25, pallas_spmd=True, dropout_rate=0.5)
+FCN_KW = dict(fc_features=16, width_mult=1.0, dropout_rate=0.0)
+SEG_KW = dict(width_mult=1.0)
+JAX_KW = dict(packed_stage1=True, pallas_pool=True, pallas_spmd=True)
+DROP_KW = dict(fc_features=16, width_mult=0.25, dropout_rate=0.5)
 # DeepLab os8 on 64 rows: 8 rows at 1/8, so 4 (1x2) or 2 (1x4) a rank against
 # conv6's 12-row halo (7x7 at dilation 4) and the rate-4 branch's 4 rows
 DL_HW = (64, 32)
-DL_KW = dict(width_mult=0.25, aspp_features=16, rates=(2, 4), pallas_spmd=True,
-             dropout_rate=0.5)
+DL_KW = dict(width_mult=0.25, aspp_features=16, rates=(2, 4), dropout_rate=0.5)
 # uneven row shards (queue 3 fault 4), each height a stride multiple whose
 # blocks do not split evenly over 2 ranks: DeepLab os8 (dropout 0, so that
 # the JAX step is comparable) on 24 rows, three blocks of 8 -> 16 + 8; U-Net
@@ -257,36 +259,43 @@ def test_boundary_rows_whole_image_match_jax_halo_rows(fill):
 
 
 def test_pallas_spmd_on_one_process_matches_default():
-    """``Stage1(pallas_spmd=True)`` (conv1_1 without bias, the halo-mode
-    Function over the whole image) equals ``Stage1(pallas_spmd=False)`` in
-    the output and every gradient, db1 included; the same for SegNet's
-    stage1 (output and index). f32, another summation order: 1e-5."""
+    """With no grid, ``Stage1`` (kernel 1's plain version) equals the
+    halo-mode tail over the whole image (``_halo_tail`` called directly:
+    conv1_1 without bias, then the halo Function) in the output and every
+    gradient, db1 included; the same for ``SegNetStage1`` (output and
+    index). f32, another summation order: 1e-5. The inference path of
+    ``_halo_tail`` takes the halo mode; the module's does not."""
     torch.manual_seed(0)
-    for cls, kw in ((packed_stem.Stage1, {}), (packed_stem.SegNetStage1, {})):
-        a = cls(3, 16, dtype=torch.float32, device="cpu", **kw)
-        init_params(a, torch.Generator().manual_seed(0))
+    for cls, fn, mode in ((Stage1, Stage1TailHalo, "infer"),
+                          (SegNetStage1, SegNetStage1TailHalo, "segnet")):
+        m = cls(3, 16, dtype=torch.float32, device="cpu")
+        init_params(m, torch.Generator().manual_seed(0))
         with torch.no_grad():
-            for p in a.parameters():
+            for p in m.parameters():
                 p.add_(torch.randn_like(p) * 0.1)    # nonzero biases
-        b = cls(3, 16, dtype=torch.float32, device="cpu", pallas_spmd=True, **kw)
-        b.load_state_dict(a.state_dict())
         x = torch.randn(2, 8, 12, 3)
-        ya, yb = a(x), b(x)
+        ya = m(x)
+        yb = _halo_tail(m.conv0, m.conv1, x, None, fn, mode)
         if isinstance(ya, tuple):
             assert torch.equal(ya[1], yb[1])
             ya, yb = ya[0], yb[0]
+        assert type(yb.grad_fn).__name__ == f"{fn.__name__}Backward"
+        assert type(ya.grad_fn).__name__ != type(yb.grad_fn).__name__
         torch.testing.assert_close(yb, ya, rtol=1e-5, atol=1e-5)
         cot = torch.randn_like(ya)
-        ga = torch.autograd.grad(ya, list(a.parameters()), cot)
-        gb = torch.autograd.grad(yb, list(b.parameters()), cot)
-        for (name, _), u, v in zip(a.named_parameters(), ga, gb):
+        params = list(m.parameters())
+        ga = torch.autograd.grad(ya, params, cot)
+        gb = torch.autograd.grad(yb, params, cot)
+        for (name, _), u, v in zip(m.named_parameters(), ga, gb):
             torch.testing.assert_close(v, u, rtol=1e-5, atol=1e-5, msg=name)
         calls = []
         orig = port_stage1.stage1_tail_halo_plain
         try:
             port_stage1.stage1_tail_halo_plain = lambda *q: calls.append(1) or orig(*q)
             with torch.no_grad():
-                b(x)
+                m(x)
+                assert not calls, "no grid, yet the module took the halo mode"
+                _halo_tail(m.conv0, m.conv1, x, None, fn, mode)
         finally:
             port_stage1.stage1_tail_halo_plain = orig
         assert calls, "the inference path did not take the halo mode"
@@ -384,8 +393,8 @@ def _jax_fcn_state(name, hw):
 
 def _jax_uneven_state(name):
     u = UNEVEN[name]      # the JAX defaults (its fused kernels need 64 features)
-    kw = {k: v for k, v in u["kw"].items() if k != "pallas_spmd"}
-    model = jax_build(u["model"], num_classes=u["classes"], dtype=jnp.float32, **kw)
+    model = jax_build(u["model"], num_classes=u["classes"], dtype=jnp.float32,
+                      **u["kw"])
     return jax_state(model, jax.random.key(1), (2, *u["hw"], 3), jax_optimizer("sgd", LR))
 
 
@@ -411,8 +420,8 @@ def _bn_setup(name, seed):
                                       else rng.uniform(0.5, 2, b.shape)).astype(np.float32)))
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     v = convert.to_variables(convert.from_state_dict(sd, model))
-    kw = {k: w for k, w in u["kw"].items() if k != "pallas_spmd"}
-    jm = jax_build(u["model"], num_classes=u["classes"], dtype=jnp.float32, **kw)
+    jm = jax_build(u["model"], num_classes=u["classes"], dtype=jnp.float32,
+                   **u["kw"])
     tx = jax_optimizer("sgd", LR)
     return sd, lambda: JaxTrainState(
         step=jnp.zeros((), jnp.int32), params=v["params"],
@@ -814,6 +823,19 @@ def test_grid_gradients_match_single_process(grid_runs, name):
         assert err <= 1e-4, (k, err.item())
 
 
+@pytest.mark.parametrize("name", ["fcn8s_2x2", "fcn8s_1x2", "fcn8s_2x1",
+                                  "segnet_2x2", "segnet_1x2", "deeplab_1x2"])
+def test_grid_stage1_takes_the_halo_mode_from_the_grid(grid_runs, name):
+    """Built with no keyword for it, the fused stage1 runs its halo mode
+    (kernel 1c's autograd Function) on every rank of a grid that splits
+    rows, and kernel 1's on a data-only grid."""
+    model, shape = name.split("_")
+    tail = "SegNetStage1Tail" if model == "segnet" else "Stage1Tail"
+    want = [f"{tail}HaloBackward" if shape[-1] != "1" else f"{tail}Backward"]
+    for r in _ranks(grid_runs, name):
+        assert r["stage1_tails"] == want
+
+
 def test_grid_dropout_step_matches_single_process(grid_runs):
     """Dropout 0.5 and random flips on a 1x2 grid: the masks and flips are
     drawn at the global batch's shape, so two grid steps equal two
@@ -1188,12 +1210,15 @@ def test_loader_gives_each_rank_its_images_and_rows(tmp_path, rank):
 
 def test_train_cli_spatial_at_one_rank_merges_kwargs_and_trains(tmp_path, capsys):
     """``--spatial 2`` at one rank: the SPMD-safe kwargs merge in, the step
-    runs unsharded through the halo mode of the stage1 tail, and trains."""
+    runs unsharded, with no grid, so through kernel 1's backward and not the
+    halo mode's, and trains."""
     from semanticsegmentation_tensorflow_tpu_torch.scripts import train
 
-    calls = []
-    orig = port_stage1.stage1_tail_halo_bwd_plain
-    port_stage1.stage1_tail_halo_bwd_plain = lambda *a: calls.append(1) or orig(*a)
+    calls = {"stage1_tail_bwd_plain": [], "stage1_tail_halo_bwd_plain": []}
+    origs = {k: getattr(port_stage1, k) for k in calls}
+    for k, fn in origs.items():
+        setattr(port_stage1, k,
+                lambda *a, k=k, fn=fn: calls[k].append(1) or fn(*a))
     try:
         rc = train.main(["--synthetic", "--epochs", "1", "--device", "cpu",
                          "--spatial", "2", "--image-size", "64", "96",
@@ -1201,10 +1226,12 @@ def test_train_cli_spatial_at_one_rank_merges_kwargs_and_trains(tmp_path, capsys
                          "fc_features=32,width_mult=0.25",
                          "--checkpoint-dir", str(tmp_path / "ck")])
     finally:
-        port_stage1.stage1_tail_halo_bwd_plain = orig
+        for k, fn in origs.items():
+            setattr(port_stage1, k, fn)
     out = capsys.readouterr().out
     assert rc == 0 and "final:" in out and "mesh=none" in out
-    assert calls, "the step did not run the halo-mode backward"
+    assert calls["stage1_tail_bwd_plain"], "the step did not run kernel 1's backward"
+    assert not calls["stage1_tail_halo_bwd_plain"], "no grid, yet the halo mode ran"
 
 
 @pytest.mark.parametrize("argv", [["--spatial", "0"],

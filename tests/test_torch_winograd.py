@@ -28,13 +28,12 @@ from semanticsegmentation_tensorflow_tpu.ops.packed_stem import (
 )
 from semanticsegmentation_tensorflow_tpu.ops.pallas import winograd as jpw
 from semanticsegmentation_tensorflow_tpu_torch import convert
-from semanticsegmentation_tensorflow_tpu_torch.models.common import (
-    ConvBlock, winograd_impl,
-)
+from semanticsegmentation_tensorflow_tpu_torch.models.common import ConvBlock
+from semanticsegmentation_tensorflow_tpu_torch.models.vgg16 import PooledConvBlock
 from semanticsegmentation_tensorflow_tpu_torch.ops import winograd as tw
+from semanticsegmentation_tensorflow_tpu_torch.ops.conv import winograd_impl
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import build
 from semanticsegmentation_tensorflow_tpu_torch.ops.cuda import winograd as cw
-from semanticsegmentation_tensorflow_tpu_torch.ops.packed_stem import PooledConvBlock
 
 
 def _oihw(w_hwio: np.ndarray) -> torch.Tensor:

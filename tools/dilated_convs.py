@@ -2,7 +2,7 @@
 """Every dilated conv of DeepLab-ASPP and DeepLab-v2 ASPP-L on one CUDA
 card, each pass (forward, input gradient, weight gradient) timed in both
 forms: cuDNN's direct dilated conv and the conv by phases (d x d undilated
-convs, ``models/common.py`` ``conv_by_phases`` and ``dilated_backward``).
+convs, ``ops/conv.py`` ``conv_by_phases`` and ``dilated_backward``).
 
     python tools/dilated_convs.py [--out build/dilated_convs.json]
 
@@ -15,7 +15,7 @@ and 18 (512 -> 256) at both strides, stage 5 at output stride 8 (3x3 at d2,
 at rates 6, 12, 18 and 24 (512 -> 1024). For each shape and batch: each
 pass's device ms in each form (CUDA events: mean of 5 calls after a warm-up
 call, or one more call where the warm-up took over 25 ms), which form
-``models.common.dilated_form`` picks for the pass, marked "(not the
+``ops.conv.dilated_form`` picks for the pass, marked "(not the
 faster)" where the other form was faster and "LOSES" where by more than
 max(10 %, 0.3 ms); then the picked forward and backward through
 ``conv_nhwc`` (``DilatedConv``), timed, and the passes it counted in
@@ -98,7 +98,7 @@ def main(argv=None) -> int:
     import torch
     import torch.nn.functional as F
 
-    from semanticsegmentation_tensorflow_tpu_torch.models import common
+    from semanticsegmentation_tensorflow_tpu_torch.ops import conv
 
     if not torch.cuda.is_available():
         print("dilated_convs: no CUDA device", file=sys.stderr)
@@ -111,7 +111,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     result: dict = {"device": smi, "rows": []}
     lost = []
-    counted0 = common.DILATED_PASSES.copy()
+    counted0 = conv.DILATED_PASSES.copy()
     for size, maps in SIZES.items():
         for name, ci, co, k, d, stride in CONVS:
             h, w = maps[stride]
@@ -124,20 +124,20 @@ def main(argv=None) -> int:
                 run = {
                     ("forward", "direct"): lambda: F.conv2d(
                         x.permute(0, 3, 1, 2), wt, padding=pad, dilation=d),
-                    ("forward", "phases"): lambda: common.conv_by_phases(
+                    ("forward", "phases"): lambda: conv.conv_by_phases(
                         x, wt, pad, pad, d)}
                 for form in FORMS:
                     for i, pass_ in enumerate(PASSES[1:]):
                         mask = (i == 0, i == 1)
                         run[pass_, form] = (
-                            lambda form=form, mask=mask: common.dilated_backward(
+                            lambda form=form, mask=mask: conv.dilated_backward(
                                 form, x, wt, gy, pad, pad, d, mask))
                 row = {"size": size, "conv": name, "shape": [n, h, w, ci], "cout": co,
                        "k": k, "d": d}
                 with torch.no_grad():
                     for pass_ in PASSES:
                         r = {form: events_ms(torch, run[pass_, form]) for form in FORMS}
-                        r["picks"] = common.dilated_form(pass_, n, h, wt.shape, d)
+                        r["picks"] = conv.dilated_form(pass_, n, h, wt.shape, d)
                         row[pass_] = r
                         other = "phases" if r["picks"] == "direct" else "direct"
                         if loses(r[r["picks"]], r[other]):
@@ -145,14 +145,14 @@ def main(argv=None) -> int:
                 xg, wg = x.detach().requires_grad_(), wt.detach().requires_grad_()
 
                 def picked():
-                    y = common.conv_nhwc(xg, wg, dtype=torch.bfloat16, padding=pad,
-                                         dilation=d)
+                    y = conv.conv_nhwc(xg, wg, dtype=torch.bfloat16, padding=pad,
+                                       dilation=d)
                     torch.autograd.grad(y, (xg, wg), gy)
 
-                before = common.DILATED_PASSES.copy()
+                before = conv.DILATED_PASSES.copy()
                 picked()
                 row["counted"] = {f"{a}/{b}": v for (a, b), v in
-                                  (common.DILATED_PASSES - before).items()}
+                                  (conv.DILATED_PASSES - before).items()}
                 row["picked_ms"] = events_ms(torch, picked)
                 result["rows"].append(row)
                 print(f"{size} {name} [{n},{h},{w},{ci}] -> {co}, {k}x{k} d{d} | "
@@ -160,7 +160,7 @@ def main(argv=None) -> int:
                       + f" | picked forward + backward {row['picked_ms']:.4f} ms, "
                       f"counted {row['counted']}", flush=True)
                 del x, gy, xg
-    counted = common.DILATED_PASSES - counted0
+    counted = conv.DILATED_PASSES - counted0
     result["counted"] = {f"{a}/{b}": v for (a, b), v in sorted(counted.items())}
     result["loses"] = lost
     print(f"DILATED_PASSES over the run: {result['counted']}")

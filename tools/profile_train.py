@@ -107,10 +107,6 @@ WORKLOADS.update({name: dict(WORKLOADS[base], model_kw=kw,
 # SegNet as published: BatchNorm after every conv (use_bn; no fused stage1)
 WORKLOADS["segnet_bn"] = dict(WORKLOADS["segnet"], base_kw={"use_bn": True},
                               what=WORKLOADS["segnet"]["what"] + ", use_bn")
-# the preset with the halo mode of the fused stage1 (kernel 1c), what
-# --spatial S trains through on one rank
-WORKLOADS["preset_spmd"] = dict(WORKLOADS["preset"], model_kw={"pallas_spmd": True},
-                                what=WORKLOADS["preset"]["what"] + ", pallas_spmd")
 # the preset with its forward recomputed in the backward (train.remat)
 WORKLOADS["preset_remat"] = dict(WORKLOADS["preset"], remat=True,
                                  what=WORKLOADS["preset"]["what"] + ", remat")
